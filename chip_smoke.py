@@ -8,12 +8,14 @@ Phases (each failure exits non-zero; nothing is caught):
      exits non-zero when CUDA is absent
   1. build the CUDA resample kernel from fanlin_tpu_torch/csrc/
   2. the kernel against its plain torch version on the card at the
-     main path's shapes (<= 1 LSB, <= 0.5 % of bytes differing), with
-     median times (CUDA events, plain/kernel/kernel/plain turns)
+     main path's shapes and at bucket edges (<= 1 LSB, <= 0.5 % of bytes
+     differing), with median times of the main path's shapes (CUDA
+     events, plain/kernel/kernel/plain turns) and the in-band GFLOP and
+     TFLOP/s they give
   3. the golden floors of tests/test_golden_parity.py on tests/golden:
      the pre-encode floor through the port's batch assembly, then the
      encoded floor through the port's Engine, each request of which
-     must launch the kernel
+     must launch the kernel exactly once
   4. the port's HTTP server in-process on 127.0.0.1 over a file origin
 Launch counts are reset after the pre-encode check and read after
 phase 4, so they count the Engine's and the server's launches only:
@@ -44,8 +46,9 @@ MAX_LSB = 1
 MAX_FRAC = 0.005  # share of output bytes allowed to differ
 
 # (name, src_w, src_h, query, batch): the README workload (lenna 512x512
-# -> w=300&h=200) and its variants, crop, blur (the K2 kernel) and a
-# 12 MP camera source.
+# -> w=300&h=200) and its variants, crop, blur (the K2 kernel), an
+# upscale (narrow bands, empty canvas tiles) and a 12 MP camera source
+# with and without blur.
 SHAPES = [
     ("readme_b1", 512, 512, "w=300&h=200", 1),
     ("readme_b16", 512, 512, "w=300&h=200", 16),
@@ -54,7 +57,23 @@ SHAPES = [
     ("canvas_b16", 512, 512, "w=300&h=200&rgb=32,32,32", 16),
     ("crop_b16", 512, 512, "w=100&h=100&crop=true", 16),
     ("blur_b16", 512, 512, "w=100&h=80&blur=1", 16),
+    ("upscale_b16", 512, 512, "w=700&h=600&rgb=7,8,9", 16),
     ("12mp_b2", 4000, 3000, "w=1200&h=800", 2),
+    ("12mp_blur_b2", 4000, 3000, "w=1200&h=800&blur=1", 2),
+]
+
+# Checked against the plain version but not timed: bucket edges the
+# main path's shapes miss (K and M below one tile, K below one slice,
+# prime output dims, crop + gray + blur, invert on a canvas, upscale
+# past the source, no resize).
+EDGE_SHAPES = [
+    ("edge_7x5", 7, 5, "w=3&h=2", 1),
+    ("edge_crop_gray_blur", 640, 480,
+     "w=131&h=61&crop=true&grayscale=true&blur=2", 3),
+    ("edge_prime", 640, 480, "w=97&h=89", 2),
+    ("edge_up_inv_canvas", 100, 60, "w=400&h=400&rgb=1,2,3&inverse=true", 2),
+    ("edge_upscale", 100, 60, "w=997&h=613", 1),
+    ("edge_no_resize", 333, 777, "", 2),
 ]
 
 # tests/test_golden_parity.py CASES
@@ -131,46 +150,90 @@ def _time_pair(plain, kernel, reps: int):
     return statistics.median(times["kernel"]), statistics.median(times["plain"])
 
 
-def phase2(dev: torch.device) -> dict:
+def band_gflop(av, ah, bv, bh, planes: int) -> tuple:
+    """(in-band, dense) GFLOP of one call: the multiply-adds the kernel
+    walks (each output tile over its band, slices rounded outward), and
+    those of the dense chain. Split-TF32 products are not counted
+    twice."""
+    from fanlin_tpu_torch.ops import resample_kernels as rk
+
+    oh, sh = av.shape
+    ow, sw = ah.shape
+    bands = rk.band_ranges(av, ah, bv, bh)
+    n_m, n_n = -(-oh // rk.TILE_M), -(-ow // rk.TILE_N)
+
+    def walk(ranges, tile, rows, other):
+        n_rows = np.minimum(tile, rows - np.arange(len(ranges)) * tile)
+        return 2 * other * int((n_rows * (ranges[:, 1] - ranges[:, 0])).sum())
+
+    band = (walk(bands[:n_m], rk.TILE_M, oh, sw)
+            + walk(bands[n_m:n_m + n_n], rk.TILE_N, ow, oh))
+    dense = 2 * oh * sw * (sh + ow)
+    if bv is not None:
+        band += (walk(bands[n_m + n_n:2 * n_m + n_n], rk.TILE_M, oh, ow)
+                 + walk(bands[2 * n_m + n_n:], rk.TILE_N, ow, oh))
+        dense += 2 * oh * ow * (oh + ow)
+    return band * planes / 1e9, dense * planes / 1e9
+
+
+def _checked_call(dev, name, sw, sh, qs, batch, rng):
+    """Build one uniform batch of random sources, run the kernel once and
+    hold it against its plain version; returns what timing needs."""
     from fanlin_tpu.spec.query import parse_query
     from fanlin_tpu_torch.ops import fused, plan as plan_mod
     from fanlin_tpu_torch.ops import resample_kernels as rk
 
+    plan = plan_mod.plan_image(sw, sh, parse_query(qs), opaque=True)
+    imgs = [rng.integers(0, 256, (sh, sw, 3), dtype=np.uint8)
+            for _ in range(batch)]
+    asm = fused.BatchAssembly([plan] * batch, imgs, dev)
+    check(asm.uses_kernel(), f"{name}: batch does not take the kernel")
+    av, ah, bv, bh = plan_mod._uniform_padded(plan)
+    flags, fill, box, tav, tah, tbv, tbh = rk.params_from_numpy(
+        asm.flags, asm.fill, asm.box, av, ah, bv, bh, device=dev)
+    bands = torch.from_numpy(rk.band_ranges(av, ah, bv, bh)).to(dev)
+    x = torch.from_numpy(asm.x).to(dev)
+    args = (flags, fill, box, tav, tah, x, tbv, tbh)
+    crop = (plan.out_h, plan.out_w)
+
+    got = rk.resample_uniform(*args, crop=crop, bands=bands)
+    torch.cuda.synchronize()
+    want = rk.resample_uniform_ref(*args, crop=crop)
+    check(got.shape == want.shape == (asm.b, 3) + crop,
+          f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    max_err = int(diff.max())
+    frac = float((diff > 0).float().mean())
+    print(f"phase2 {name} B={asm.b} src={asm.sh}x{asm.sw} "
+          f"out={asm.oh}x{asm.ow} max_abs_err={max_err} frac_diff={frac:.2e}",
+          flush=True)
+    check(max_err <= MAX_LSB, f"{name}: max abs err {max_err} LSB")
+    check(frac <= MAX_FRAC, f"{name}: {frac:.6f} of bytes differ")
+    return {"args": args, "crop": crop, "bands": bands,
+            "gflop": band_gflop(av, ah, bv, bh, 3 * asm.b),
+            "result": {"batch": asm.b, "blur": bv is not None,
+                       "max_abs_err": max_err, "frac_diff": frac}}
+
+
+def phase2(dev: torch.device) -> dict:
+    from fanlin_tpu_torch.ops import resample_kernels as rk
+
     rng = np.random.default_rng(20261016)
+    for shape in EDGE_SHAPES:
+        _checked_call(dev, *shape, rng)
     results = {}
     for name, sw, sh, qs, batch in SHAPES:
-        plan = plan_mod.plan_image(sw, sh, parse_query(qs), opaque=True)
-        imgs = [rng.integers(0, 256, (sh, sw, 3), dtype=np.uint8)
-                for _ in range(batch)]
-        asm = fused.BatchAssembly([plan] * batch, imgs, dev)
-        check(asm.uses_kernel(), f"{name}: batch does not take the kernel")
-        av, ah, bv, bh = plan_mod._uniform_padded(plan)
-        flags, fill, box, tav, tah, tbv, tbh = rk.params_from_numpy(
-            asm.flags, asm.fill, asm.box, av, ah, bv, bh, device=dev)
-        x = torch.from_numpy(asm.x).to(dev)
-        args = (flags, fill, box, tav, tah, x, tbv, tbh)
-        crop = (plan.out_h, plan.out_w)
-
-        got = rk.resample_uniform(*args, crop=crop)
-        torch.cuda.synchronize()
-        want = rk.resample_uniform_ref(*args, crop=crop)
-        check(got.shape == want.shape == (asm.b, 3) + crop,
-              f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
-        diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
-        max_err = int(diff.max())
-        frac = float((diff > 0).float().mean())
-        check(max_err <= MAX_LSB, f"{name}: max abs err {max_err} LSB")
-        check(frac <= MAX_FRAC, f"{name}: {frac:.6f} of bytes differ")
-
+        c = _checked_call(dev, name, sw, sh, qs, batch, rng)
+        args, crop, bands = c["args"], c["crop"], c["bands"]
         reps = 5 if name.startswith("12mp") else 20
         ms, plain_ms = _time_pair(
             lambda: rk.resample_uniform_ref(*args, crop=crop),
-            lambda: rk.resample_uniform(*args, crop=crop), reps)
-        results[name] = {"batch": asm.b, "max_abs_err": max_err,
-                         "frac_diff": frac, "ms": ms, "plain_ms": plain_ms}
-        print(f"phase2 {name} B={asm.b} src={asm.sh}x{asm.sw} "
-              f"out={asm.oh}x{asm.ow} max_abs_err={max_err} "
-              f"frac_diff={frac:.2e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}",
+            lambda: rk.resample_uniform(*args, crop=crop, bands=bands), reps)
+        gflop, dense = c["gflop"]
+        results[name] = dict(c["result"], ms=ms, plain_ms=plain_ms)
+        print(f"phase2 {name} in-band {gflop:.3f} GFLOP of {dense:.3f} "
+              f"dense, {gflop / ms:.2f} TFLOP/s in band", flush=True)
+        print(f"phase2 {name} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}",
               flush=True)
     return results
 
@@ -209,8 +272,8 @@ def phase3_pre_encode(dev: torch.device) -> None:
 
 
 def phase3_engine(dev: torch.device) -> int:
-    """The port's Engine on the golden corpus: encoded floor, and at
-    least one kernel launch by each request."""
+    """The port's Engine on the golden corpus: encoded floor, and
+    exactly one kernel launch by each request."""
     from PIL import Image
 
     from fanlin_tpu.spec.content import Format
@@ -224,7 +287,8 @@ def phase3_engine(dev: torch.device) -> int:
         mime, payload = engine.process_image(data, q, Format())
         added = sum(rk.launch_counts().values()) - before
         n += 1
-        check(added >= 1, f"{src}/{cfg}: the Engine launched no kernel")
+        check(added == 1, f"{src}/{cfg}: the Engine made {added} launches, "
+                          "not one")
         check(mime == "image/jpeg", f"{src}/{cfg}: mime {mime}")
         with Image.open(io.BytesIO(payload)) as im:
             got = np.asarray(im.convert("RGB"), dtype=np.uint8)
@@ -303,7 +367,7 @@ def main() -> int:
     rk.reset_launch_counts()
     n_requests = phase3_engine(dev)
     after3 = rk.launch_counts()
-    check(sum(after3.values()) >= n_requests,
+    check(sum(after3.values()) == n_requests,
           f"engine phase launched {after3} for {n_requests} requests")
     asyncio.run(_phase4(dev))
     counts = rk.launch_counts()
@@ -314,7 +378,7 @@ def main() -> int:
     print(f"launch counts (engine + server phases): {counts}")
     check("jax" not in sys.modules, "jax was imported")
 
-    k1 = [r for n, r in bench.items() if not n.startswith("blur")]
+    k1 = [r for r in bench.values() if not r["blur"]]
     k2 = bench["blur_b16"]
     kernels = [
         {"name": "resample_uniform", "route": "cuda",
@@ -328,7 +392,8 @@ def main() -> int:
          "source": "fanlin_tpu_torch/csrc/resample.cu",
          "replaces": "fanlin_tpu/ops/pallas_kernels.py:91",
          "launches": counts["resample_blur"],
-         "max_abs_err": k2["max_abs_err"],
+         "max_abs_err": max(r["max_abs_err"] for r in bench.values()
+                            if r["blur"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
     ]
     print(smi)

@@ -21,9 +21,17 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
-# No --use_fast_math: the luma floor((...) / 10000) needs IEEE division.
+# The resample kernel's tiles: output rows and columns per block, and
+# the depth of a K slice. Compiled in below; ops/resample_kernels.py
+# computes the band ranges for them.
+TILE_M, TILE_N, K_SLICE = 64, 32, 32
+
+# No --use_fast_math: the split-TF32 residual x - tf32(x) and the
+# rounding epilogue need IEEE f32 (no flush to zero).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              f"-DFANLIN_TILE_M={TILE_M}", f"-DFANLIN_TILE_N={TILE_N}",
+              f"-DFANLIN_K_SLICE={K_SLICE}")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -73,7 +81,7 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
             fn = lib.fanlin_resample_uniform
-            fn.argtypes = [p] * 12 + [i] * 7 + [p]
+            fn.argtypes = [p] * 13 + [i] * 10 + [p]
             fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB

@@ -25,8 +25,8 @@ from fanlin_tpu.utils.bytelru import ByteLRU
 
 from . import resample_kernels
 from .chain import _transform_kernel, _transform_kernel_uniform
-from .plan import (_pack_params, _uniform_padded, bucket_b, bucket_h,
-                   bucket_w, plan_image)
+from .plan import (_pack_params, _uniform_bands, _uniform_padded, bucket_b,
+                   bucket_h, bucket_w, plan_image)
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -235,6 +235,7 @@ class BatchAssembly:
                 out = resample_kernels.resample_uniform(
                     flags, fill, box, av, ah, x, bv, bh,
                     crop=(p0.out_h, p0.out_w),
+                    bands=_device_cached(_uniform_bands(p0), dev),
                 )
             else:
                 out = _transform_kernel_uniform(x, av, ah, flags, fill, box,

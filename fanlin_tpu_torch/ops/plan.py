@@ -1,4 +1,5 @@
-"""Host-side planning: shape buckets, per-image plans, padded matrices.
+"""Host-side planning: shape buckets, per-image plans, padded matrices
+and their band ranges for the CUDA kernel.
 
 Port of fanlin_tpu/ops/fused.py:47-183 and 1026-1093 (numpy only,
 built on the shared `fanlin_tpu.ops.filters`). The bucket tables are
@@ -15,6 +16,8 @@ import numpy as np
 
 from fanlin_tpu.ops import filters
 from fanlin_tpu.utils.bytelru import ByteLRU
+
+from .resample_kernels import band_ranges
 
 # Shape buckets: H padded to a multiple of 8, W to a multiple of 128.
 # Coarser steps above 512 cap the number of distinct batch shapes.
@@ -134,16 +137,27 @@ def _plan_image_uncached(src_w: int, src_h: int, params, filter_name: str,
 
 # Padded shared-matrix cache for uniform batches, keyed by plan
 # identity (the plan is kept in the value so a live id cannot collide).
+# Each entry also holds the matrices' band ranges for the CUDA kernel.
 _UNIFORM_CACHE = ByteLRU(max_bytes=96 * 1024 * 1024)
 
 
 def _uniform_padded(plan: ImagePlan):
     """(av, ah, bv, bh) padded to the plan's buckets, cached; bv/bh are
     None without blur."""
+    return _uniform_entry(plan)[0]
+
+
+def _uniform_bands(plan: ImagePlan) -> np.ndarray:
+    """resample_kernels.band_ranges of _uniform_padded(plan), cached
+    beside it."""
+    return _uniform_entry(plan)[1]
+
+
+def _uniform_entry(plan: ImagePlan):
     key = id(plan)
     hit = _UNIFORM_CACHE.get(key)
     if hit is not None and hit[0] is plan:
-        return hit[1]
+        return hit[1:]
     sh, sw = bucket_h(plan.src_h), bucket_w(plan.src_w)
     oh, ow = bucket_h(plan.out_h), bucket_w(plan.out_w)
     av = np.zeros((oh, sh), dtype=np.float32)
@@ -161,9 +175,10 @@ def _uniform_padded(plan: ImagePlan):
             plan.out_w, plan.blur_sigma
         )
     value = (av, ah, bv, bh)
-    nbytes = sum(a.nbytes for a in value if a is not None)
-    _UNIFORM_CACHE.put(key, (plan, value), nbytes)
-    return value
+    bands = band_ranges(*value)
+    nbytes = sum(a.nbytes for a in value if a is not None) + bands.nbytes
+    _UNIFORM_CACHE.put(key, (plan, value, bands), nbytes)
+    return value, bands
 
 
 def _pack_params(plans, b: int, sh: int, sw: int, oh: int, ow: int,
