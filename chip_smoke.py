@@ -6,20 +6,32 @@ Usage, from the repository root:  python3 chip_smoke.py
 Phases (each failure exits non-zero; nothing is caught):
   0. versions, card name and power limit (nvidia-smi), host codecs;
      exits non-zero when CUDA is absent
-  1. build the CUDA resample kernel from fanlin_tpu_torch/csrc/
-  2. the kernel against its plain torch version on the card at the
-     main path's shapes and at bucket edges (<= 1 LSB, <= 0.5 % of bytes
-     differing), with median times of the main path's shapes (CUDA
+  1. build the CUDA kernels (csrc/resample.cu, csrc/jpeg_decode.cu, one
+     nvcc each, started together) and the host JPEG entropy reader
+     (csrc/jpeg_coeffs.cpp, the host C++ compiler)
+  2. the resample kernel against its plain torch version on the card at
+     the main path's shapes and at bucket edges (<= 1 LSB, <= 0.5 % of
+     bytes differing), with median times of the main path's shapes (CUDA
      events, plain/kernel/kernel/plain turns) and the in-band GFLOP and
      TFLOP/s they give
-  3. the golden floors of tests/test_golden_parity.py on tests/golden:
-     the pre-encode floor through the port's batch assembly, then the
-     encoded floor through the port's Engine, each request of which
-     must launch the kernel exactly once
-  4. the port's HTTP server in-process on 127.0.0.1 over a file origin
-Launch counts are reset after the pre-encode check and read after
-phase 4, so they count the Engine's and the server's launches only:
-every kernel of the path must have been launched there.
+  2b. the decode kernels (K3 jpeg_islow, K4 jpeg_upsample_rgb) against
+     their plain versions, 0 differing bytes, on lenna (4:4:4) B=1, synth
+     (4:2:0) B=16, a 12 MP 4:2:0 q90 JPEG B=2, a 4:2:2 JPEG B=4, 4:4:0
+     and gray batches from seeded coefficient grids and the crafted
+     out-of-range grid; median times at the first three, the reader's
+     host ms per image and the wire's bytes per image
+  3. the golden floors of tests/test_golden_parity.py on tests/golden
+     through both source paths: the pre-encode floor through the pixel
+     and the coefficient assemblies, then the encoded floor through
+     Engine(dev, device_decode=False), each request of which launches
+     one resample kernel, and through Engine(dev), each request of
+     which must take the coefficient path and launch one resample, one
+     K3 and one K4; the README request's stage times on both paths
+  4. the port's HTTP server in-process on 127.0.0.1 over a file origin,
+     default config (device_decode on): /stats must count coef_src
+Launch counts are set to 0 just before each main-path run (the pixel
+Engine, the coefficient Engine, the server) and read just after it;
+every kernel must have been launched by the coefficient path.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The port imports torch and never jax.
@@ -127,8 +139,12 @@ def phase1() -> None:
     t0 = time.perf_counter()
     lib = _build.build()
     _build.load()
-    print(f"phase1 built {os.path.relpath(lib, ROOT)} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t1 = time.perf_counter()
+    host = _build.build_host()
+    _build.load_host()
+    print(f"phase1 built {os.path.relpath(lib, ROOT)} in {t1 - t0:.2f} s, "
+          f"{os.path.relpath(host, ROOT)} in {time.perf_counter() - t1:.2f} s",
+          flush=True)
 
 
 def _time_pair(plain, kernel, reps: int):
@@ -238,6 +254,162 @@ def phase2(dev: torch.device) -> dict:
     return results
 
 
+# (name, source, batch, timed): the decode kernels' shapes. Sources
+# are golden files, PIL encodes of seeded images, or coefficient grids
+# made from a seed (PIL cannot write 4:4:0).
+DECODE_SHAPES = [
+    ("lenna444_b1", "lenna", 1, True),
+    ("synth420_b16", "synth", 16, True),
+    ("12mp420_b2", "12mp", 2, True),
+    ("pil422_b4", "pil422", 4, False),
+    ("grid440_b2", "grid440", 2, False),
+    ("gridgray_b2", "gridgray", 2, False),
+    ("crafted444_b1", "crafted", 1, False),
+]
+COEF_KIND = {420: "coef", 422: "coef422", 440: "coef440", 444: "coef444"}
+
+
+def _jpeg(img: np.ndarray, **kw) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", **kw)
+    return buf.getvalue()
+
+
+def _photo(w: int, h: int, rng) -> np.ndarray:
+    """A seeded photo-like image: upsampled low-resolution noise plus
+    fine grain."""
+    from PIL import Image
+
+    small = rng.integers(0, 256, (max(h // 16, 2), max(w // 16, 2), 3),
+                         dtype=np.uint8)
+    img = np.asarray(Image.fromarray(small).resize((w, h), Image.BICUBIC),
+                     dtype=np.int16)
+    img = img + rng.integers(-6, 7, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _grid_meta(w: int, h: int, subsamp: int, rng, gray=False,
+               crafted=False) -> dict:
+    """A read_jpeg_coeffs dict from seeded coefficient grids (4:4:0 or
+    4:4:4), or the crafted out-of-range grid of
+    tests/test_jpeg_device_decode.py."""
+    dv = 2 if subsamp == 440 else 1
+    ybh, ybw = -(-h // 8), -(-w // 8)
+    shapes = [(ybh, ybw), (-(-h // (8 * dv)), ybw), (-(-h // (8 * dv)), ybw)]
+    grids = []
+    for bh, bw in shapes:
+        g = np.zeros((bh, bw, 64), np.int16)
+        g[..., 0] = rng.integers(-60, 60, (bh, bw))
+        g[..., 1:12] = rng.integers(-20, 20, (bh, bw, 11))
+        grids.append(g)
+    q = rng.integers(1, 30, 128).astype(np.uint16)
+    if gray:
+        grids[1][:] = 0
+        grids[2][:] = 0
+    if crafted:
+        y = grids[0]
+        y[0, 0, 0], y[1, 1, 0], y[2, 2, 0] = 1600, -1600, 900
+        y[2, 2, 5], y[3, 0, 0], y[3, 0, 3] = 800, -900, -700
+        q[:] = 25
+    return {"y": grids[0], "cb": grids[1], "cr": grids[2], "lq": q[:64],
+            "cq": q[64:], "w": w, "h": h, "subsamp": subsamp, "gray": gray}
+
+
+def _decode_source(kind: str, rng):
+    """(meta, jpeg bytes or None) for a DECODE_SHAPES source."""
+    from fanlin_tpu_torch.engine.jpeg_coeffs import read_jpeg_coeffs
+
+    if kind in ("lenna", "synth"):
+        with open(os.path.join(GOLDEN, f"{kind}_src.jpg"), "rb") as f:
+            data = f.read()
+    elif kind == "12mp":
+        data = _jpeg(_photo(4000, 3000, rng), quality=90, subsampling=2)
+    elif kind == "pil422":
+        data = _jpeg(_photo(1001, 667, rng), quality=85, subsampling=1)
+    elif kind == "grid440":
+        return _grid_meta(999, 661, 440, rng), None
+    elif kind == "gridgray":
+        return _grid_meta(640, 479, 444, rng, gray=True), None
+    else:
+        return _grid_meta(32, 32, 444, rng, crafted=True), None
+    meta = read_jpeg_coeffs(data)
+    check(meta is not None, f"{kind}: the reader refused the stream")
+    return meta, data
+
+
+def _bytes_differing(a, b) -> tuple:
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"shape {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}")
+    d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+    return int((d > 0).sum()), int(d.max())
+
+
+def phase2b(dev: torch.device) -> dict:
+    """K3 and K4 against their plain versions on the same inputs."""
+    from fanlin_tpu.spec.query import parse_query
+    from fanlin_tpu_torch.engine.jpeg_coeffs import read_jpeg_coeffs
+    from fanlin_tpu_torch.ops import fused, plan as plan_mod
+    from fanlin_tpu_torch.ops import jpeg_decode_kernels as jk
+
+    rng = np.random.default_rng(20261017)
+    results = {}
+    for name, kind, batch, timed in DECODE_SHAPES:
+        meta, data = _decode_source(kind, rng)
+        plan = plan_mod.plan_image(meta["w"], meta["h"],
+                                   parse_query("w=300&h=200"), opaque=True)
+        asm = fused.CoefBatchAssembly([plan] * batch, [meta] * batch, dev)
+        wire = asm.device_wire()
+        up = (asm.subsamp, asm.true_h, asm.true_w, asm.sh, asm.sw)
+        planes = jk.jpeg_islow(*wire)
+        torch.cuda.synchronize()
+        want = jk.jpeg_islow_ref(*wire)
+        k3 = [_bytes_differing(g, w) for g, w in zip(planes, want)]
+        rgb = jk.jpeg_upsample_rgb(*planes, *up)
+        torch.cuda.synchronize()
+        k4 = _bytes_differing(rgb, jk.jpeg_upsample_rgb_ref(*planes, *up))
+        n3 = sum(d for d, _ in k3)
+        print(f"phase2b {name} {meta['w']}x{meta['h']} {asm.subsamp} "
+              f"B={asm.b} K3 bytes differing {n3} (max {max(m for _, m in k3)})"
+              f", K4 bytes differing {k4[0]} (max {k4[1]}); wire "
+              f"{asm.upload_bytes // asm.b} B/img, pixel upload "
+              f"{3 * asm.sh * asm.sw} B/img", flush=True)
+        check(n3 == 0 and k4[0] == 0, f"{name}: the decode kernels differ "
+                                      "from their plain versions")
+        res = {"k3_err": max(m for _, m in k3), "k4_err": k4[1]}
+        if timed:
+            reps = 5 if kind == "12mp" else 20
+            res["k3_ms"], res["k3_plain_ms"] = _time_pair(
+                lambda: jk.jpeg_islow_ref(*wire),
+                lambda: jk.jpeg_islow(*wire), reps)
+            res["k4_ms"], res["k4_plain_ms"] = _time_pair(
+                lambda: jk.jpeg_upsample_rgb_ref(*planes, *up),
+                lambda: jk.jpeg_upsample_rgb(*planes, *up), reps)
+            res["ms"], res["plain_ms"] = _time_pair(
+                lambda: jk.jpeg_upsample_rgb_ref(
+                    *jk.jpeg_islow_ref(*wire), *up),
+                lambda: jk.jpeg_upsample_rgb(*jk.jpeg_islow(*wire), *up),
+                reps)
+            print(f"phase2b {name} K3 kernel_ms={res['k3_ms']:.4f} "
+                  f"plain_ms={res['k3_plain_ms']:.4f}; K4 kernel_ms="
+                  f"{res['k4_ms']:.4f} plain_ms={res['k4_plain_ms']:.4f}; "
+                  f"K3+K4 kernel_ms={res['ms']:.4f} "
+                  f"plain_ms={res['plain_ms']:.4f}", flush=True)
+        if kind in ("lenna", "12mp"):
+            reps = 20 if kind == "lenna" else 5
+            host = []
+            for _ in range(reps + 1):
+                t0 = time.perf_counter()
+                read_jpeg_coeffs(data)
+                host.append((time.perf_counter() - t0) * 1000.0)
+            print(f"phase2b {name} reader host ms per image (median of "
+                  f"{reps}): {statistics.median(host[1:]):.4f}, "
+                  f"{len(data)} B of JPEG", flush=True)
+        results[name] = res
+    return results
+
+
 def _golden_sources():
     from fanlin_tpu.spec.query import parse_query
 
@@ -255,50 +427,105 @@ def _golden_rgb(name: str) -> np.ndarray:
         return np.asarray(im.convert("RGB"), dtype=np.uint8)
 
 
+def _counts() -> dict:
+    from fanlin_tpu_torch.ops import jpeg_decode_kernels as jk
+    from fanlin_tpu_torch.ops import resample_kernels as rk
+
+    return {**rk.launch_counts(), **jk.launch_counts()}
+
+
+def _reset_counts() -> None:
+    from fanlin_tpu_torch.ops import jpeg_decode_kernels as jk
+    from fanlin_tpu_torch.ops import resample_kernels as rk
+
+    rk.reset_launch_counts()
+    jk.reset_launch_counts()
+
+
 def phase3_pre_encode(dev: torch.device) -> None:
-    """The pre-encode golden floor: the port's assembly on the card
-    against the golden pixels. Runs outside the launch-count window."""
+    """The pre-encode golden floor through the pixel and the coefficient
+    assemblies on the card, and the two equal byte for byte (the decode
+    is libjpeg's). Runs outside the launch-count windows."""
     from fanlin_tpu_torch.engine import codecs
+    from fanlin_tpu_torch.engine.jpeg_coeffs import read_jpeg_coeffs
     from fanlin_tpu_torch.ops import fused, plan as plan_mod
 
     for src, data, cfg, q in _golden_sources():
         img, has_alpha, _ = codecs.decode(data)
+        meta = read_jpeg_coeffs(data)
+        check(meta is not None, f"{src}: the reader refused a golden source")
         plan = plan_mod.plan_image(img.shape[1], img.shape[0], q,
                                    opaque=not has_alpha)
-        out = fused.make_assembly([plan], [img], ["rgb"], dev).run()[0]
-        d_px = psnr(out[:, :, :3], _golden_rgb(f"{src}_{cfg}.png"))
-        print(f"phase3 {src}/{cfg} pre-encode {d_px:.2f} dB", flush=True)
-        check(d_px >= 50.0, f"{src}/{cfg}: pre-encode {d_px:.2f} dB < 50")
+        pixel = fused.make_assembly([plan], [img], ["rgb"], dev).run()[0]
+        coef = fused.make_assembly([plan], [meta], [COEF_KIND[meta["subsamp"]]],
+                                   dev).run()[0]
+        golden = _golden_rgb(f"{src}_{cfg}.png")
+        d_px, d_coef = psnr(pixel[:, :, :3], golden), psnr(coef[:, :, :3], golden)
+        differ = int((pixel != coef).sum())
+        print(f"phase3 {src}/{cfg} pre-encode pixel {d_px:.2f} dB, coef "
+              f"{d_coef:.2f} dB, {differ} bytes differ", flush=True)
+        check(min(d_px, d_coef) >= 50.0, f"{src}/{cfg}: pre-encode < 50 dB")
+        check(differ == 0, f"{src}/{cfg}: coefficient and pixel paths differ")
 
 
-def phase3_engine(dev: torch.device) -> int:
-    """The port's Engine on the golden corpus: encoded floor, and
-    exactly one kernel launch by each request."""
+def phase3_engine(dev: torch.device, device_decode: bool):
+    """The port's Engine on the golden corpus: the encoded floor, and
+    per request one resample launch, plus one K3 and one K4 launch and a
+    coef_src count on the coefficient path. Returns (engine, requests)."""
     from PIL import Image
 
     from fanlin_tpu.spec.content import Format
     from fanlin_tpu_torch.engine import Engine
-    from fanlin_tpu_torch.ops import resample_kernels as rk
 
-    engine = Engine(dev)
+    engine = Engine(dev, device_decode=device_decode)
+    path = "coef" if device_decode else "pixel"
     n = 0
     for src, data, cfg, q in _golden_sources():
-        before = sum(rk.launch_counts().values())
+        before = _counts()
         mime, payload = engine.process_image(data, q, Format())
-        added = sum(rk.launch_counts().values()) - before
+        added = {k: v - before[k] for k, v in _counts().items()}
         n += 1
-        check(added == 1, f"{src}/{cfg}: the Engine made {added} launches, "
-                          "not one")
+        resample = added["resample"] + added["resample_blur"]
+        decode = (added["jpeg_islow"], added["jpeg_upsample_rgb"])
+        check(resample == 1 and decode == ((1, 1) if device_decode else (0, 0)),
+              f"{path} {src}/{cfg}: launches {added}")
         check(mime == "image/jpeg", f"{src}/{cfg}: mime {mime}")
         with Image.open(io.BytesIO(payload)) as im:
             got = np.asarray(im.convert("RGB"), dtype=np.uint8)
         golden_enc = _golden_rgb(f"{src}_{cfg}.jpg")
         check(got.shape == golden_enc.shape, f"{src}/{cfg}: shape")
         d_enc = psnr(got, golden_enc)
-        print(f"phase3 {src}/{cfg} encoded {d_enc:.2f} dB, "
-              f"{added} launch(es)", flush=True)
+        print(f"phase3 {path} {src}/{cfg} encoded {d_enc:.2f} dB, "
+              f"launches {added}", flush=True)
         check(d_enc >= 45.0, f"{src}/{cfg}: encoded {d_enc:.2f} dB < 45")
-    return n
+    want = {"pixel_src": 0, "coef_src": n} if device_decode else \
+        {"pixel_src": n, "coef_src": 0}
+    check(engine.stats == want, f"{path} engine stats {engine.stats}")
+    return engine, n
+
+
+def readme_stage_times(engine, label: str) -> dict:
+    """Median Server-Timing marks of the README request (lenna_src.jpg
+    -> w=300&h=200 JPEG) over 30 requests after 5 warm-up requests."""
+    from fanlin_tpu.spec.content import Format
+    from fanlin_tpu.spec.query import parse_query
+
+    with open(os.path.join(GOLDEN, "lenna_src.jpg"), "rb") as f:
+        data = f.read()
+    q = parse_query("w=300&h=200")
+    for _ in range(5):
+        engine.process_image(data, q, Format())
+    rows = []
+    for _ in range(30):
+        marks = []
+        t0 = time.perf_counter()
+        engine.process_image(data, q, Format(), marks)
+        rows.append(dict(marks, total=(time.perf_counter() - t0) * 1000.0))
+    med = {k: statistics.median(r[k] for r in rows)
+           for k in ("f_decode", "f_device", "f_encode", "total")}
+    print(f"phase3 README {label} path stage ms (median of 30): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in med.items()), flush=True)
+    return med
 
 
 async def _phase4(dev: torch.device) -> None:
@@ -345,56 +572,90 @@ async def _phase4(dev: torch.device) -> None:
             async with s.get(base + "/baz/missing.jpg?w=300&h=200") as r:
                 check(r.status == 404, f"missing status {r.status}")
             async with s.get(base + "/stats") as r:
-                print("phase4 /stats", await r.text(), flush=True)
+                stats = await r.text()
+                print("phase4 /stats", stats, flush=True)
+                check(json.loads(stats)["engine"]["coef_src"] > 0,
+                      "the server served no JPEG through the coefficient "
+                      "path")
     finally:
         await runner.cleanup()
-    print("phase4 ping, jpeg 300x200, webp, blur, 404: ok", flush=True)
+    print("phase4 ping, jpeg 300x200, webp, blur, 404, coef_src: ok",
+          flush=True)
 
 
 def main() -> int:
     smi = phase0()
     from fanlin_tpu_torch import device as device_mod
-    from fanlin_tpu_torch.ops import resample_kernels as rk
 
     device_mod.configure()
     dev = device_mod.cuda_device()
     phase1()
     bench = phase2(dev)
-
+    decode = phase2b(dev)
     phase3_pre_encode(dev)
 
-    # the main path's launch-count window: the Engine and HTTP phases only
-    rk.reset_launch_counts()
-    n_requests = phase3_engine(dev)
-    after3 = rk.launch_counts()
-    check(sum(after3.values()) == n_requests,
-          f"engine phase launched {after3} for {n_requests} requests")
+    # the main path's launch-count windows: each run is driven with the
+    # counts set to 0 just before it and read just after it
+    windows = {}
+    _reset_counts()
+    pixel_engine, n_pixel = phase3_engine(dev, device_decode=False)
+    windows["pixel engine"] = _counts()
+    _reset_counts()
+    coef_engine, n_coef = phase3_engine(dev, device_decode=True)
+    windows["coef engine"] = _counts()
+    _reset_counts()
     asyncio.run(_phase4(dev))
-    counts = rk.launch_counts()
-    check(sum(counts.values()) > sum(after3.values()),
-          "the HTTP phase launched no kernel")
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} was never launched by the main path")
-    print(f"launch counts (engine + server phases): {counts}")
+    windows["server"] = _counts()
+    for name, c in windows.items():
+        print(f"launch counts ({name}): {c}", flush=True)
+    w = windows["coef engine"]
+    check(w["resample"] + w["resample_blur"] == n_coef
+          and w["jpeg_islow"] == w["jpeg_upsample_rgb"] == n_coef,
+          f"coefficient engine launched {w} for {n_coef} requests")
+    w = windows["pixel engine"]
+    check(w["resample"] + w["resample_blur"] == n_pixel
+          and w["jpeg_islow"] == w["jpeg_upsample_rgb"] == 0,
+          f"pixel engine launched {w} for {n_pixel} requests")
+    for name in windows["coef engine"]:
+        for path in ("coef engine", "server"):
+            check(windows[path][name] > 0,
+                  f"kernel {name} was never launched by the {path} run")
+    launches = {k: sum(c[k] for c in windows.values())
+                for k in windows["server"]}
+    readme_stage_times(pixel_engine, "pixel")
+    readme_stage_times(coef_engine, "coefficient")
     check("jax" not in sys.modules, "jax was imported")
 
     k1 = [r for r in bench.values() if not r["blur"]]
     k2 = bench["blur_b16"]
+    k34 = decode["synth420_b16"]
     kernels = [
         {"name": "resample_uniform", "route": "cuda",
          "source": "fanlin_tpu_torch/csrc/resample.cu",
          "replaces": "fanlin_tpu/ops/pallas_kernels.py:86",
-         "launches": counts["resample"],
+         "launches": launches["resample"],
          "max_abs_err": max(r["max_abs_err"] for r in k1),
          "ms": bench["readme_b16"]["ms"],
          "plain_ms": bench["readme_b16"]["plain_ms"]},
         {"name": "resample_uniform_blur", "route": "cuda",
          "source": "fanlin_tpu_torch/csrc/resample.cu",
          "replaces": "fanlin_tpu/ops/pallas_kernels.py:91",
-         "launches": counts["resample_blur"],
+         "launches": launches["resample_blur"],
          "max_abs_err": max(r["max_abs_err"] for r in bench.values()
                             if r["blur"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+        {"name": "jpeg_islow", "route": "cuda",
+         "source": "fanlin_tpu_torch/csrc/jpeg_decode.cu",
+         "replaces": "fanlin_tpu/ops/jpeg_decode.py:158",
+         "launches": launches["jpeg_islow"],
+         "max_abs_err": max(r["k3_err"] for r in decode.values()),
+         "ms": k34["k3_ms"], "plain_ms": k34["k3_plain_ms"]},
+        {"name": "jpeg_upsample_rgb", "route": "cuda",
+         "source": "fanlin_tpu_torch/csrc/jpeg_decode.cu",
+         "replaces": "fanlin_tpu/ops/jpeg_decode.py:243",
+         "launches": launches["jpeg_upsample_rgb"],
+         "max_abs_err": max(r["k4_err"] for r in decode.values()),
+         "ms": k34["k4_ms"], "plain_ms": k34["k4_plain_ms"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

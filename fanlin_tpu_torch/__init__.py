@@ -1,4 +1,4 @@
-"""fanlin-tpu on PyTorch and CUDA — the pixel-source serving path.
+"""fanlin-tpu on PyTorch and CUDA — the pixel and coefficient serving paths.
 
 A port of `fanlin_tpu` (JAX/XLA/Pallas) to PyTorch for an NVIDIA
 H100. It serves the same query API through the same HTTP entry point.
@@ -11,8 +11,13 @@ rest are ported module by module under the same names:
   ops.resample_kernels + csrc/resample.cu
               -> the hand-written CUDA resample kernel (replaces the
                  Pallas kernel of fanlin_tpu/ops/pallas_kernels.py)
-  ops.fused   -> the transform chain, encode tails, BatchAssembly
-  engine      -> codecs, processor (Engine)
+  ops.jpeg_decode, ops.jpeg_decode_kernels + csrc/jpeg_decode.cu
+              -> the coefficient decode (islow iDCT, upsample, colour):
+                 plain torch versions and two CUDA kernels
+  ops.fused   -> the transform chain, encode tails, BatchAssembly,
+                 CoefBatchAssembly
+  engine      -> codecs, jpeg_coeffs (the host JPEG entropy reader,
+                 csrc/jpeg_coeffs.cpp, no libjpeg), processor (Engine)
   server      -> aiohttp gateway
   cli         -> ``python -m fanlin_tpu_torch.cli -j '{...}'``
 

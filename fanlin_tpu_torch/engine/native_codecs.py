@@ -2,9 +2,9 @@
 
 Carried over from fanlin_tpu/engine/native_codecs.py (which cannot be
 imported without jax: its package imports the JAX engine). It loads the
-same `native/` build the same way; only the entry points of the
-pixel-source path are bound here — the coefficient readers and packers
-come with the coefficient decode.
+same `native/` build the same way; only the encoders and the pixel
+decoder are bound here. The coefficient path reads JPEGs with the
+port's own reader (`engine.jpeg_coeffs`), which needs no libjpeg.
 
 Loads lazily; every entry point returns None when the library isn't
 built or rejects the input, and the caller falls back to the PIL path.

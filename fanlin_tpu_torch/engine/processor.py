@@ -1,4 +1,4 @@
-"""The processing core: `Engine.process_image` on the pixel-source path.
+"""The processing core: `Engine.process_image`, pixel and coefficient sources.
 
 Port of fanlin_tpu/engine/processor.py (SyncDeviceRunner, process_image,
 _encode, _output_mode, process_gif) with the reference's decision
@@ -15,10 +15,16 @@ chain (reference src/handler.rs:185-309):
  13. encode, with the JPEG / WebP / PNG front-ends on the device when
     the native codec core can finish them
 
-Every source is decoded on the host (`codecs.decode`). Not in the port
-yet: the coefficient decode (`device_decode`), the device DCT
-(`device_dct`) and the CMYK/ICC hooks — a CMYK JPEG is converted by
-the decoder, as the reference does without an ICC profile configured.
+With `device_decode` (the default, as in the reference) a plain
+YCbCr JPEG with EXIF orientation 1 is only entropy-decoded on the host
+(`jpeg_coeffs.read_jpeg_coeffs`); the device decodes its coefficients
+as a prologue to the transform (`fused.CoefBatchAssembly`). Every
+other source, and every JPEG the reader refuses, is decoded on the host
+(`codecs.decode`); the bytes are the same either way. Not in the port
+yet: coefficient-domain EXIF rotation (`orient_meta`: rotated JPEGs
+take the pixel path), the device DCT (`device_dct`) and the CMYK/ICC
+hooks — a CMYK JPEG is converted by the decoder, as the reference does
+without an ICC profile configured.
 """
 
 from __future__ import annotations
@@ -35,7 +41,10 @@ from fanlin_tpu.spec import content as content_mod
 from fanlin_tpu.spec import query as query_mod
 
 from ..ops import fused, plan as plan_mod
-from . import codecs, native_codecs, png_writer, svg
+from . import codecs, jpeg_coeffs, native_codecs, png_writer, svg
+
+# read_jpeg_coeffs' subsampling layout -> the coefficient batch kind
+_COEF_KIND = {420: "coef", 422: "coef422", 440: "coef440", 444: "coef444"}
 
 
 class ProcessError(Exception):
@@ -58,19 +67,21 @@ class SyncDeviceRunner:
 
 
 class Engine:
-    def __init__(self, device: torch.device, device_decode: bool = False,
+    def __init__(self, device: torch.device, device_decode: bool = True,
                  device_dct: bool = False):
         """device: where the transform runs (torch.device("cuda") to
-        serve, torch.device("cpu") for the plain versions). The
-        coefficient decode and the device DCT are not ported yet."""
-        if device_decode or device_dct:
+        serve, torch.device("cpu") for the plain versions).
+        device_decode: JPEGs take the coefficient path. The device DCT
+        is not ported yet."""
+        if device_dct:
             raise NotImplementedError(
-                "device_decode / device_dct: the coefficient path is not "
-                "yet in the PyTorch port"
+                "device_dct: the device DCT sink is not yet in the PyTorch "
+                "port"
             )
         self.runner = SyncDeviceRunner(device)
-        # observability: requests served (/stats)
-        self.stats = {"pixel_src": 0}
+        self.device_decode = device_decode
+        # observability: requests served by source kind (/stats)
+        self.stats = {"pixel_src": 0, "coef_src": 0}
 
     def process_image(
         self, data: bytes, params: query_mod.Query, accepted: content_mod.Format,
@@ -91,13 +102,24 @@ class Engine:
 
         t0 = time.perf_counter()
         orientation = codecs.read_orientation(data)
-        try:
-            img, has_alpha, is_gray = codecs.decode(data)
-        except codecs.CodecError as e:
-            raise ProcessError(str(e)) from e
-        img = np.ascontiguousarray(codecs.apply_orientation(img, orientation))
-        h, w = img.shape[:2]
-        self.stats["pixel_src"] += 1
+        meta = None
+        if self.device_decode and fmt == codecs.JPEG and orientation == 1:
+            meta = jpeg_coeffs.read_jpeg_coeffs(data)
+        if meta is not None:
+            # a gray JPEG decodes through zero chroma (r = g = b = y);
+            # is_gray keeps the output pixel type of the host decode
+            has_alpha, is_gray = False, bool(meta["gray"])
+            h, w = meta["h"], meta["w"]
+            self.stats["coef_src"] += 1
+        else:
+            try:
+                img, has_alpha, is_gray = codecs.decode(data)
+            except codecs.CodecError as e:
+                raise ProcessError(str(e)) from e
+            img = np.ascontiguousarray(
+                codecs.apply_orientation(img, orientation))
+            h, w = img.shape[:2]
+            self.stats["pixel_src"] += 1
         if marks is not None:
             marks.append(("f_decode", (time.perf_counter() - t0) * 1000.0))
 
@@ -110,9 +132,15 @@ class Engine:
         elif params.use_avif() and accepted.avif_accepted():
             out_fmt = codecs.AVIF
         kind = self._sink(params, plan, out_fmt, mode)
+        if meta is None:
+            src = img
+        else:
+            src = meta
+            base = _COEF_KIND[meta["subsamp"]]
+            kind = base if kind == "rgb" else f"{base}+{kind}"
 
         t1 = time.perf_counter()
-        out = self.runner.run([plan], [img], [kind])[0]
+        out = self.runner.run([plan], [src], [kind])[0]
         t2 = time.perf_counter()
         if marks is not None:
             marks.append(("f_device", (t2 - t1) * 1000.0))

@@ -1,18 +1,21 @@
 """The encode tails and the batch assembly.
 
-Port of fanlin_tpu/ops/fused.py for pixel sources: the encode
-front-ends (`_ycbcr420_tail`, `_png_tail`, `_webp420_tail`,
-fused.py:431-596) and `BatchAssembly` (fused.py:1112-1525). The chain
-itself (fused.py:307-430) is in `ops.chain`. The reference runs each
-batch as one jitted XLA program; here the same steps run eagerly on the
-assembly's device.
+Port of fanlin_tpu/ops/fused.py: the encode front-ends
+(`_ycbcr420_tail`, `_png_tail`, `_webp420_tail`, fused.py:431-596),
+`BatchAssembly` for pixel sources (fused.py:1112-1525) and
+`CoefBatchAssembly` for JPEG coefficient sources (fused.py:1695-1829,
+2065-2166). The chain itself (fused.py:307-430) is in `ops.chain`. The
+reference runs each batch as one jitted XLA program; here the same
+steps run eagerly on the assembly's device.
 
-Routing: every uniform batch of opaque (3-channel) sources goes through
-the hand-written CUDA kernel (`resample_kernels.resample_uniform`),
-whatever its encode tail; the kernel writes 3 channels and a constant
-255 alpha plane is appended where the batch downloads 4. Alpha
-sources, GIF frames and non-uniform batches run the torch chain of
-`ops.chain`.
+Routing: a coefficient batch is decoded on the device by the two
+decode kernels (`jpeg_decode_kernels`), which write the same
+(B, 3, SH, SW) u8 batch a pixel upload would give. Every uniform batch
+of opaque (3-channel) sources then goes through the hand-written CUDA
+resample kernel (`resample_kernels.resample_uniform`), whatever its
+encode tail; the kernel writes 3 channels and a constant 255 alpha
+plane is appended where the batch downloads 4. Alpha sources, GIF
+frames and non-uniform batches run the torch chain of `ops.chain`.
 """
 
 from __future__ import annotations
@@ -23,10 +26,10 @@ import torch
 from fanlin_tpu.ops import filters
 from fanlin_tpu.utils.bytelru import ByteLRU
 
-from . import resample_kernels
+from . import jpeg_decode, jpeg_decode_kernels, resample_kernels
 from .chain import _transform_kernel, _transform_kernel_uniform
 from .plan import (_pack_params, _uniform_bands, _uniform_padded, bucket_b,
-                   bucket_h, bucket_w, plan_image)
+                   bucket_h, bucket_h16, bucket_w, plan_image)
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -219,11 +222,15 @@ class BatchAssembly:
         device; the CPU runs its plain version)."""
         return self.uniform and self.c_in == 3
 
+    def _device_x(self):
+        """The (B, c_in, sh, sw) u8 source batch on the device."""
+        return torch.from_numpy(self.x).to(self.device)
+
     def submit(self):
         """Upload the batch and run the chain and tail on the device
         (asynchronously on CUDA); returns the device output."""
         dev = self.device
-        x = torch.from_numpy(self.x).to(dev)
+        x = self._device_x()
         flags = torch.from_numpy(self.flags).to(dev)
         fill = torch.from_numpy(self.fill).to(dev)
         box = torch.from_numpy(self.box).to(dev)
@@ -274,20 +281,129 @@ class BatchAssembly:
         return self.collect(self.submit())
 
 
-def make_assembly(plans, payloads, kinds, device: torch.device):
-    """The assembly for a homogeneous batch of pixel sources. Kinds:
-    "rgb" (pixels out), "jpeg420", "webp420", "png:N". Coefficient
-    sources and the jpegdct sink are not in the port yet."""
-    k0 = kinds[0] if kinds else "rgb"
-    if k0.startswith("png:"):
-        return BatchAssembly(plans, payloads, device,
-                             jpeg420=("png", int(k0.split(":", 1)[1])))
-    if k0 not in ("rgb", "jpeg420", "webp420"):
-        raise NotImplementedError(
-            f"batch kind {k0!r} is not yet in the PyTorch port"
+class CoefBatchAssembly(BatchAssembly):
+    """Host staging for one device batch of JPEG coefficient sources:
+    the host half of fanlin_tpu/ops/fused.py CoefBatchAssembly
+    (:1695-1829, :2065-2166). The device `x` comes from the decode
+    kernels (K3 `jpeg_islow`, K4 `jpeg_upsample_rgb`) instead of an
+    upload of pixels; everything after it is BatchAssembly's.
+
+    The wire is the simplest lossless one: int16 natural-order block
+    grids, zero-padded to the bucket's block grid (luma bucket_h16 / 8
+    by bucket_w / 8, chroma divided by chroma_divisors), uploaded as one
+    buffer, and the quant tables as (B, 2, 64) int32. Zero blocks
+    decode to flat 128 and lie outside the true rect, which K4 alone
+    reads."""
+
+    def __init__(self, plans, metas, device: torch.device, jpeg420=False):
+        """metas: read_jpeg_coeffs dicts (either package's), all of one
+        (w, h) and subsamp. jpeg420: as for BatchAssembly."""
+        if len(plans) != len(metas) or not plans:
+            raise ValueError("one plan per source, at least one source")
+        m0 = metas[0]
+        self.true_h, self.true_w, self.subsamp = m0["h"], m0["w"], m0["subsamp"]
+        if any((m["h"], m["w"], m["subsamp"]) !=
+               (self.true_h, self.true_w, self.subsamp) for m in metas):
+            raise ValueError("a coefficient batch holds one source geometry "
+                             "and subsampling layout")
+        self.plans = plans
+        self.device = device
+        self.b = bucket_b(len(plans))
+        # K4 writes the pixel batch's layout, so the resample sees what
+        # a pixel batch of this source would upload
+        self.sh = bucket_h(self.true_h)
+        self.sw = bucket_w(self.true_w)
+        self.oh = bucket_h(max(p.out_h for p in plans))
+        self.ow = bucket_w(max(p.out_w for p in plans))
+        self.has_blur = any(p.blur_sigma > 0 for p in plans)
+        p0 = plans[0]
+        self.uniform = all(p is p0 for p in plans)
+        geometry_uniform = all(
+            p.out_h == p0.out_h and p.out_w == p0.out_w for p in plans
         )
-    yuv = "webp" if k0 == "webp420" else (k0 == "jpeg420")
-    return BatchAssembly(plans, payloads, device, yuv)
+        self.jpeg420 = jpeg420 if geometry_uniform else False
+        self.c_out = 4 if any(p.want_alpha for p in plans) else 3
+        self.c_in = 3
+
+        dv, dh = jpeg_decode.chroma_divisors(self.subsamp)
+        gh = bucket_h16(self.true_h)  # whole 4:2:0 MCU rows
+        shapes = ((gh // 8, self.sw // 8),
+                  (gh // (8 * dv), self.sw // (8 * dh)),
+                  (gh // (8 * dv), self.sw // (8 * dh)))
+        self.coef = np.zeros(
+            self.b * sum(h * w for h, w in shapes) * 64, dtype=np.int16)
+        self._spans = []
+        at = 0
+        grids = []
+        for h, w in shapes:
+            n = self.b * h * w * 64
+            self._spans.append((at, at + n, (self.b, h, w, 64)))
+            grids.append(self.coef[at:at + n].reshape(self.b, h, w, 64))
+            at += n
+        self.q = np.zeros((self.b, 2, 64), dtype=np.int32)
+        for i, m in enumerate(metas):
+            for grid, key in zip(grids, ("y", "cb", "cr")):
+                g = m[key]
+                grid[i, : g.shape[0], : g.shape[1]] = g
+            self.q[i, 0] = m["lq"]
+            self.q[i, 1] = m["cq"]
+        (self.flags, self.fill, self.box,
+         self.av, self.ah, self.bv, self.bh) = _pack_params(
+            plans, self.b, self.sh, self.sw, self.oh, self.ow,
+            self.uniform, self.has_blur,
+        )
+
+    @property
+    def upload_bytes(self) -> int:
+        """Host->device bytes of the coefficient wire (blocks + tables)."""
+        return self.coef.nbytes + self.q.nbytes
+
+    def device_wire(self):
+        """Upload the wire: (y, cb, cr, q) on the device, the block
+        grids as views of one uploaded buffer."""
+        dev = self.device
+        flat = torch.from_numpy(self.coef).to(dev)
+        q = torch.from_numpy(self.q).to(dev)
+        y, cb, cr = (flat[a:b].view(shape) for a, b, shape in self._spans)
+        return y, cb, cr, q
+
+    def _device_x(self):
+        """Upload the block grids and decode them on the device:
+        K3 then K4, (B, 3, sh, sw) u8."""
+        planes = jpeg_decode_kernels.jpeg_islow(*self.device_wire())
+        return jpeg_decode_kernels.jpeg_upsample_rgb(
+            *planes, self.subsamp, self.true_h, self.true_w, self.sh, self.sw)
+
+
+_COEF_KINDS = ("coef", "coef444", "coef422", "coef440")
+
+
+def _sink_arg(sink: str):
+    """The BatchAssembly `jpeg420` argument of a sink name."""
+    if sink.startswith("png:"):
+        return ("png", int(sink.split(":", 1)[1]))
+    if sink not in ("rgb", "jpeg420", "webp420"):
+        raise NotImplementedError(
+            f"sink {sink!r} is not yet in the PyTorch port")
+    return "webp" if sink == "webp420" else (sink == "jpeg420")
+
+
+def make_assembly(plans, payloads, kinds, device: torch.device):
+    """The assembly for a homogeneous batch. Kinds: "rgb" (pixels out),
+    "jpeg420", "webp420", "png:N" for pixel sources (payloads are
+    (H, W, C) u8 arrays); "coef", "coef444", "coef422", "coef440", each
+    optionally with "+jpeg420", "+webp420" or "+png:N", for coefficient
+    sources (payloads are read_jpeg_coeffs dicts). The jpegdct sinks
+    and the CMYK kinds are not in the port yet."""
+    k0 = kinds[0] if kinds else "rgb"
+    base, _, sink = k0.partition("+")
+    if base in _COEF_KINDS:
+        return CoefBatchAssembly(plans, payloads, device,
+                                 _sink_arg(sink or "rgb"))
+    if sink:
+        raise NotImplementedError(
+            f"batch kind {k0!r} is not yet in the PyTorch port")
+    return BatchAssembly(plans, payloads, device, _sink_arg(k0))
 
 
 def transform_single(image: np.ndarray, params, device: torch.device,

@@ -40,6 +40,14 @@ def bucket_w(w: int) -> int:
     return -(-w // 128) * 128
 
 
+def bucket_h16(h: int) -> int:
+    """bucket_h rounded up to a multiple of 16: a coefficient batch's
+    block grids need whole 4:2:0 MCU rows (every _H_STEPS entry above 8
+    is a multiple of 16 already, so only h <= 8 differs)."""
+    b = bucket_h(h)
+    return b + 8 if b % 16 else b
+
+
 def bucket_b(b: int) -> int:
     for s in _B_STEPS:
         if b <= s:
@@ -154,6 +162,10 @@ def _uniform_bands(plan: ImagePlan) -> np.ndarray:
 
 
 def _uniform_entry(plan: ImagePlan):
+    # Coefficient batches use these entries unchanged: the decode
+    # kernel K4 writes the same (bucket_h, bucket_w) source layout as a
+    # pixel upload, with rows and columns past the true dims zero (and
+    # the matrices' columns there zero too).
     key = id(plan)
     hit = _UNIFORM_CACHE.get(key)
     if hit is not None and hit[0] is plan:

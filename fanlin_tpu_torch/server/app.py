@@ -41,7 +41,7 @@ from fanlin_tpu.utils.bytelru import ByteLRU
 
 from .. import device as device_mod
 from ..engine import Engine, native_codecs
-from ..ops import resample_kernels
+from ..ops import jpeg_decode_kernels, resample_kernels
 from .state import State
 
 log = logging.getLogger("fanlin.server")
@@ -184,11 +184,12 @@ async def ping_handler(request: web.Request) -> web.Response:
 
 async def stats_handler(request: web.Request) -> web.Response:
     """Additive observability endpoint (the reference has none):
-    engine counters, the CUDA kernel's launch counts, cache stats."""
+    engine counters, the CUDA kernels' launch counts, cache stats."""
     state: State = request.app[STATE_KEY]
     body = {
         "engine": dict(state.engine.stats),
-        "kernel_launches": resample_kernels.launch_counts(),
+        "kernel_launches": {**resample_kernels.launch_counts(),
+                            **jpeg_decode_kernels.launch_counts()},
         "caches": {
             "responses": (state.response_cache.stats()
                           if state.response_cache is not None else None),
@@ -272,11 +273,8 @@ async def build_state(cfg: config_mod.Config,
     device_mod.configure()
     if device is None:
         device = device_mod.cuda_device()
-    if cfg.tpu.device_decode:
-        log.info("tpu.device_decode: the coefficient path is not yet in the "
-                 "PyTorch port; every source is decoded on the host")
     native_codecs.set_webp_method(cfg.tpu.webp_method)
-    engine = Engine(device)
+    engine = Engine(device, device_decode=cfg.tpu.device_decode)
     if cfg.tpu.codec_threads:
         from concurrent.futures import ThreadPoolExecutor
 

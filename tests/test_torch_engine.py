@@ -1,5 +1,6 @@
 """The port's Engine (fanlin_tpu_torch.engine) against the JAX package's
-Engine on its pixel-source path (device_decode=False), on the CPU.
+Engine on the pixel-source path (device_decode=False on both), on the
+CPU; tests/test_torch_coef.py covers the coefficient path.
 
 For every golden source x golden case: the same mime type, decoded
 output pixels within 1 LSB of the reference's (the float resample may
@@ -37,7 +38,7 @@ def _one_thread():
 
 @pytest.fixture(scope="module")
 def engines():
-    return Engine(CPU), JaxEngine(device_decode=False)
+    return Engine(CPU, device_decode=False), JaxEngine(device_decode=False)
 
 
 def _src(name):
@@ -163,8 +164,16 @@ def test_engine_counts_and_never_launches_on_cpu(engines):
     assert rk.launch_counts() == {"resample": 0, "resample_blur": 0}
 
 
-def test_engine_rejects_coefficient_path():
-    with pytest.raises(NotImplementedError):
-        Engine(CPU, device_decode=True)
+def test_engine_serves_coefficient_path_and_rejects_device_dct():
+    """device_decode (the default) serves a JPEG through the coefficient
+    path, with the pixel engine's bytes; the device DCT sink is not in
+    the port yet."""
+    coef = Engine(CPU)
+    assert coef.device_decode
+    q = parse_query("w=30&h=20")
+    assert coef.process_image(_src("synth"), q, Format()) == \
+        Engine(CPU, device_decode=False).process_image(_src("synth"), q,
+                                                       Format())
+    assert coef.stats == {"pixel_src": 0, "coef_src": 1}
     with pytest.raises(NotImplementedError):
         Engine(CPU, device_dct=True)

@@ -181,7 +181,8 @@ def test_transform_single_matches():
 
 def test_coefficient_kinds_not_ported():
     tp, _, imgs = _batch(UNIFORM)
-    for kind in ("coef", "coef+jpeg420", "jpegdct:75", "cmyk420"):
+    for kind in ("coef+jpegdct:75", "jpegdct:75", "cmyk420",
+                 "cmyk444+jpeg420"):
         with pytest.raises(NotImplementedError):
             tfused.make_assembly(tp, imgs, [kind], CPU)
 

@@ -25,6 +25,9 @@ def test_port_modules_listed():
                      "fanlin_tpu_torch.ops.chain",
                      "fanlin_tpu_torch.ops.resample_kernels",
                      "fanlin_tpu_torch.ops.fused",
+                     "fanlin_tpu_torch.ops.jpeg_decode",
+                     "fanlin_tpu_torch.ops.jpeg_decode_kernels",
+                     "fanlin_tpu_torch.engine.jpeg_coeffs",
                      "fanlin_tpu_torch.engine.processor",
                      "fanlin_tpu_torch.server.app", "fanlin_tpu_torch.cli"):
         assert expected in names

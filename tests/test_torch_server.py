@@ -87,10 +87,13 @@ def test_gateway_requests():
 
             r = await client.get("/stats")
             stats = json.loads(await r.text())
-            assert stats["engine"]["pixel_src"] == 3
-            # the CPU runs the plain version: no kernel launches
-            assert stats["kernel_launches"] == {"resample": 0,
-                                                "resample_blur": 0}
+            # device_decode is on by default: JPEGs take the coefficient
+            # path
+            assert stats["engine"] == {"pixel_src": 0, "coef_src": 3}
+            # the CPU runs the plain versions: no kernel launches
+            assert stats["kernel_launches"] == {
+                "resample": 0, "resample_blur": 0, "jpeg_islow": 0,
+                "jpeg_upsample_rgb": 0}
         finally:
             await client.close()
 
