@@ -10,16 +10,18 @@ Phases (each failure exits non-zero; nothing is caught):
      nvcc each, started together) and the host JPEG entropy reader
      (csrc/jpeg_coeffs.cpp, the host C++ compiler)
   2. the resample kernel against its plain torch version on the card at
-     the main path's shapes and at bucket edges (<= 1 LSB, <= 0.5 % of
-     bytes differing), with median times of the main path's shapes (CUDA
-     events, plain/kernel/kernel/plain turns) and the in-band GFLOP and
-     TFLOP/s they give
+     the main path's shapes (the README request at every batch size the
+     batcher forms, B = 1, 2, 4, 8 for max_batch 8, and at B=16) and at
+     bucket edges (<= 1 LSB, <= 0.5 % of bytes differing), with median
+     times (CUDA events, plain/kernel/kernel/plain turns) and the in-band
+     GFLOP and TFLOP/s they give
   2b. the decode kernels (K3 jpeg_islow, K4 jpeg_upsample_rgb) against
-     their plain versions, 0 differing bytes, on lenna (4:4:4) B=1, synth
-     (4:2:0) B=16, a 12 MP 4:2:0 q90 JPEG B=2, a 4:2:2 JPEG B=4, 4:4:0
-     and gray batches from seeded coefficient grids and the crafted
-     out-of-range grid; median times at the first three, the reader's
-     host ms per image and the wire's bytes per image
+     their plain versions, 0 differing bytes, on lenna (4:4:4) at B = 1,
+     2, 4, 8, synth (4:2:0) at B = 8, 16, a 12 MP 4:2:0 q90 JPEG B=2, a
+     4:2:2 JPEG B=4, 4:4:0 and gray batches from seeded coefficient
+     grids and the crafted out-of-range grid; median times at lenna B=1
+     and B=8, synth B=16 and 12 MP, the reader's host ms per image and
+     the wire's bytes per image
   3. the golden floors of tests/test_golden_parity.py on tests/golden
      through both source paths: the pre-encode floor through the pixel
      and the coefficient assemblies, then the encoded floor through
@@ -28,10 +30,25 @@ Phases (each failure exits non-zero; nothing is caught):
      which must take the coefficient path and launch one resample, one
      K3 and one K4; the README request's stage times on both paths
   4. the port's HTTP server in-process on 127.0.0.1 over a file origin,
-     default config (device_decode on): /stats must count coef_src
+     default config (device_decode on, served through the micro-batcher):
+     /stats must count coef_src
+  5. the micro-batcher through build_state with the default config
+     (max_batch 8, window 2 ms): (a) 16 concurrent README requests from
+     16 threads through the server's engine must ride <= 4 batches, one
+     resample, one K3 and one K4 launch per batch, every batch uniform
+     and on the kernel, every body byte-equal to the serial Engine(dev)'s;
+     over HTTP in-process, (b) a mixed burst (two sources, two queries,
+     one blur) must keep its groups apart with the same checks and (c)
+     an EXIF orientation 6 JPEG and a progressive JPEG must take the
+     coefficient path; (d) wall time and
+     img/s of 16 README requests serial, through the locked serial
+     runner (from 16 threads, and over HTTP with the server's runner
+     swapped for it), and batched (threads and HTTP), and the
+     device-busy share of the batched HTTP burst (torch.profiler)
 Launch counts are set to 0 just before each main-path run (the pixel
-Engine, the coefficient Engine, the server) and read just after it;
-every kernel must have been launched by the coefficient path.
+Engine, the coefficient Engine, the server, each phase-5 burst) and read
+just after it; every kernel must have been launched by the coefficient
+path.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The port imports torch and never jax.
@@ -47,6 +64,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -58,16 +76,21 @@ MAX_LSB = 1
 MAX_FRAC = 0.005  # share of output bytes allowed to differ
 
 # (name, src_w, src_h, query, batch): the README workload (lenna 512x512
-# -> w=300&h=200) and its variants, crop, blur (the K2 kernel), an
+# -> w=300&h=200) at each batch the micro-batcher forms (bucket_b of 1-8
+# requests) and at 16, its variants, crop, blur (the K2 kernel), an
 # upscale (narrow bands, empty canvas tiles) and a 12 MP camera source
 # with and without blur.
 SHAPES = [
     ("readme_b1", 512, 512, "w=300&h=200", 1),
+    ("readme_b2", 512, 512, "w=300&h=200", 2),
+    ("readme_b4", 512, 512, "w=300&h=200", 4),
+    ("readme_b8", 512, 512, "w=300&h=200", 8),
     ("readme_b16", 512, 512, "w=300&h=200", 16),
     ("grayscale_b16", 512, 512, "w=300&h=200&grayscale=true", 16),
     ("inverse_b16", 512, 512, "w=300&h=200&inverse=true", 16),
     ("canvas_b16", 512, 512, "w=300&h=200&rgb=32,32,32", 16),
     ("crop_b16", 512, 512, "w=100&h=100&crop=true", 16),
+    ("blur_b8", 512, 512, "w=100&h=80&blur=1", 8),
     ("blur_b16", 512, 512, "w=100&h=80&blur=1", 16),
     ("upscale_b16", 512, 512, "w=700&h=600&rgb=7,8,9", 16),
     ("12mp_b2", 4000, 3000, "w=1200&h=800", 2),
@@ -254,11 +277,16 @@ def phase2(dev: torch.device) -> dict:
     return results
 
 
-# (name, source, batch, timed): the decode kernels' shapes. Sources
-# are golden files, PIL encodes of seeded images, or coefficient grids
-# made from a seed (PIL cannot write 4:4:0).
+# (name, source, batch, timed): the decode kernels' shapes, lenna at
+# each batch the micro-batcher forms. Sources are golden files, PIL
+# encodes of seeded images, or coefficient grids made from a seed (PIL
+# cannot write 4:4:0).
 DECODE_SHAPES = [
     ("lenna444_b1", "lenna", 1, True),
+    ("lenna444_b2", "lenna", 2, False),
+    ("lenna444_b4", "lenna", 4, False),
+    ("lenna444_b8", "lenna", 8, True),
+    ("synth420_b8", "synth", 8, False),
     ("synth420_b16", "synth", 16, True),
     ("12mp420_b2", "12mp", 2, True),
     ("pil422_b4", "pil422", 4, False),
@@ -396,7 +424,7 @@ def phase2b(dev: torch.device) -> dict:
                   f"{res['k4_ms']:.4f} plain_ms={res['k4_plain_ms']:.4f}; "
                   f"K3+K4 kernel_ms={res['ms']:.4f} "
                   f"plain_ms={res['plain_ms']:.4f}", flush=True)
-        if kind in ("lenna", "12mp"):
+        if name in ("lenna444_b1", "12mp420_b2"):
             reps = 20 if kind == "lenna" else 5
             host = []
             for _ in range(reps + 1):
@@ -528,20 +556,26 @@ def readme_stage_times(engine, label: str) -> dict:
     return med
 
 
+def _server_config(extra_providers=()):
+    from fanlin_tpu.config import Config
+
+    return Config.from_obj({
+        "port": 0, "bind_addr": "127.0.0.1", "max_clients": 8,
+        "client": {"s3": {"aws_region": "x"},
+                   "web": {"user_agent": "chip-smoke", "timeout": 2}},
+        "providers": [{"path": "baz", "src": "file://localhost" + GOLDEN},
+                      *extra_providers],
+    })
+
+
 async def _phase4(dev: torch.device) -> None:
     import aiohttp
     from aiohttp import web
     from PIL import Image
 
-    from fanlin_tpu.config import Config
     from fanlin_tpu_torch.server.app import build_state, create_app
 
-    cfg = Config.from_obj({
-        "port": 0, "bind_addr": "127.0.0.1", "max_clients": 8,
-        "client": {"s3": {"aws_region": "x"},
-                   "web": {"user_agent": "chip-smoke", "timeout": 2}},
-        "providers": [{"path": "baz", "src": "file://localhost" + GOLDEN}],
-    })
+    cfg = _server_config()
     state = await build_state(cfg)
     check(state.engine.runner.device.type == "cuda", "server not on CUDA")
     runner = web.AppRunner(create_app(cfg, state), access_log=None)
@@ -583,6 +617,240 @@ async def _phase4(dev: torch.device) -> None:
           flush=True)
 
 
+def _gen_sources() -> str:
+    """Phase 5 (c)'s sources, made from a seed into build/chip_smoke/
+    (git-ignored): an EXIF orientation 6 JPEG (4:2:0, MCU-aligned) and
+    a progressive one. Returns the directory."""
+    from PIL import Image
+
+    rng = np.random.default_rng(20261018)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    files = {
+        "rot6.jpg": _jpeg(_photo(640, 480, rng), quality=90, subsampling=2,
+                          exif=exif),
+        "progressive.jpg": _jpeg(_photo(800, 600, rng), quality=85,
+                                 subsampling=2, progressive=True),
+    }
+    out = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out, exist_ok=True)
+    for name, data in files.items():
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(data)
+    return out
+
+
+class _BatchLog:
+    """While active, records each batch the batcher assembles:
+    (images, distinct plans, distinct kinds, uses_kernel())."""
+
+    def __init__(self):
+        from fanlin_tpu_torch.ops import fused
+
+        self.rows = []
+        self._fused = fused
+        self._real = fused.make_assembly
+
+    def __enter__(self):
+        def make(plans, payloads, kinds, device):
+            asm = self._real(plans, payloads, kinds, device)
+            self.rows.append((len(plans), len({id(p) for p in plans}),
+                              len(set(kinds)), asm.uses_kernel()))
+            return asm
+
+        self._fused.make_assembly = make
+        return self
+
+    def __exit__(self, *exc):
+        self._fused.make_assembly = self._real
+
+
+def _thread_burst(engine, data: bytes, qs: str, n: int):
+    """n concurrent requests from n threads released together through
+    `engine`; returns (bodies, wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fanlin_tpu.spec.content import Format
+    from fanlin_tpu.spec.query import parse_query
+
+    q = parse_query(qs)
+    gate = threading.Barrier(n)
+
+    def one():
+        gate.wait()
+        return engine.process_image(data, q, Format())[1]
+
+    with ThreadPoolExecutor(n) as ex:
+        t0 = time.perf_counter()
+        bodies = [f.result() for f in [ex.submit(one) for _ in range(n)]]
+        return bodies, time.perf_counter() - t0
+
+
+async def _burst(session, base, urls):
+    """All of `urls` at once; returns (bodies, wall seconds)."""
+    async def one(url):
+        async with session.get(base + url) as r:
+            body = await r.read()
+            check(r.status == 200, f"{url}: status {r.status}")
+            return body
+
+    t0 = time.perf_counter()
+    bodies = await asyncio.gather(*(one(u) for u in urls))
+    return bodies, time.perf_counter() - t0
+
+
+def _serial_body(engine, url: str, folder: str) -> bytes:
+    from fanlin_tpu.spec.content import Format
+    from fanlin_tpu.spec.query import parse_query
+
+    path, _, qs = url.partition("?")
+    with open(os.path.join(folder, os.path.basename(path)), "rb") as f:
+        return engine.process_image(f.read(), parse_query(qs), Format())[1]
+
+
+def _busy_share(prof, wall_s: float) -> tuple:
+    """(device ms, busy share): the union of the CUDA activity
+    intervals (kernels, copies) the profiler saw, over the wall time."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    return busy_us / 1000.0, busy_us / 1e6 / wall_s
+
+
+async def _phase5(dev: torch.device) -> dict:
+    """The micro-batcher on the card: launch-count windows for bursts
+    (a), (b) and (c), and the timings of (d). Returns the windows."""
+    import aiohttp
+    from aiohttp import web
+    from torch.profiler import ProfilerActivity, profile
+
+    from fanlin_tpu.spec.content import Format
+    from fanlin_tpu.spec.query import parse_query
+    from fanlin_tpu_torch.engine import Engine
+    from fanlin_tpu_torch.server.app import build_state, create_app
+
+    gen = _gen_sources()
+    cfg = _server_config([{"path": "gen", "src": "file://localhost" + gen}])
+    check((cfg.tpu.max_batch, cfg.tpu.batch_window_ms) == (8, 2.0),
+          "phase 5 runs the default batcher config")
+    state = await build_state(cfg, device=dev)
+    batcher = state.engine.runner.batcher
+    serial = Engine(dev)
+    runner = web.AppRunner(create_app(cfg, state), access_log=None)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+    readme = "/baz/lenna_src.jpg?w=300&h=200"
+    with open(os.path.join(GOLDEN, "lenna_src.jpg"), "rb") as f:
+        lenna = f.read()
+    mixed = [f"/baz/{src}_src.jpg?{qs}" for src in ("lenna", "synth")
+             for qs in ("w=300&h=200", "w=120&h=90", "w=100&h=80&blur=1")]
+    oriented = ["/gen/rot6.jpg?w=300&h=200", "/gen/progressive.jpg?w=300&h=200"]
+    want = {u: _serial_body(serial, u, gen if u.startswith("/gen") else GOLDEN)
+            for u in [readme, *mixed, *oriented]}
+    windows = {}
+    try:
+        async with aiohttp.ClientSession() as s:
+            # warm-up: every request once (plans, cached matrices)
+            await _burst(s, base, [readme, *mixed, *oriented])
+            for name, urls in (("phase5a", [readme] * 16),
+                               ("phase5b", mixed * 3),
+                               ("phase5c", oriented * 2)):
+                before = dict(batcher.stats)
+                engine_before = dict(state.engine.stats)
+                with _BatchLog() as log:
+                    _reset_counts()
+                    if name == "phase5a":
+                        bodies, wall = await asyncio.to_thread(
+                            _thread_burst, state.engine, lenna, "w=300&h=200",
+                            16)
+                    else:
+                        bodies, wall = await _burst(s, base, urls)
+                    windows[name] = _counts()
+                images = batcher.stats["images"] - before["images"]
+                batches = batcher.stats["batches"] - before["batches"]
+                w = windows[name]
+                print(f"{name} {len(urls)} requests: {batches} batches "
+                      f"{[r[0] for r in log.rows]}, launches {w}, "
+                      f"wall {wall * 1000:.3f} ms", flush=True)
+                check(images == len(urls), f"{name}: {images} images")
+                check(len(log.rows) == batches
+                      and all(r[1] == r[2] == 1 and r[3] for r in log.rows),
+                      f"{name}: a batch mixed groups or skipped the kernel: "
+                      f"{log.rows}")
+                check(w["resample"] + w["resample_blur"] == batches
+                      and w["jpeg_islow"] == w["jpeg_upsample_rgb"] == batches,
+                      f"{name}: launches {w} for {batches} batches")
+                check(all(b == want[u] for u, b in zip(urls, bodies)),
+                      f"{name}: a batched body differs from the serial one")
+                if name == "phase5a":
+                    check(batches <= 4 and batches < 16,
+                          f"phase5a: 16 requests in {batches} batches")
+                if name == "phase5c":
+                    added = {k: v - engine_before[k]
+                             for k, v in state.engine.stats.items()}
+                    check(added == {"pixel_src": 0, "coef_src": len(urls)},
+                          f"phase5c: engine counted {added}")
+
+            # (d) 16 README requests: serial, the locked runner from 16
+            # threads and over HTTP, and batched from 16 threads and over
+            # HTTP; median of 5 each
+            q = parse_query("w=300&h=200")
+            batching = state.engine.runner
+            walls = {"serial": [], "locked_16_threads": [],
+                     "batched_16_threads": [], "locked_http": [],
+                     "batched_http": []}
+            for _ in range(5):
+                t0 = time.perf_counter()
+                for _ in range(16):
+                    serial.process_image(lenna, q, Format())
+                walls["serial"].append(time.perf_counter() - t0)
+                for mode, engine in (("locked_16_threads", serial),
+                                     ("batched_16_threads", state.engine)):
+                    walls[mode].append((await asyncio.to_thread(
+                        _thread_burst, engine, lenna, "w=300&h=200", 16))[1])
+                state.engine.runner = serial.runner
+                try:
+                    walls["locked_http"].append(
+                        (await _burst(s, base, [readme] * 16))[1])
+                finally:
+                    state.engine.runner = batching
+                walls["batched_http"].append(
+                    (await _burst(s, base, [readme] * 16))[1])
+            for mode, ws in walls.items():
+                med = statistics.median(ws)
+                print(f"phase5d {mode}: 16 README requests in "
+                      f"{med * 1000:.3f} ms (median of 5), "
+                      f"{16 / med:.2f} img/s", flush=True)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, wall = await _burst(s, base, [readme] * 16)
+                torch.cuda.synchronize()
+            dev_ms, share = _busy_share(prof, wall)
+            check(dev_ms > 0, "the profiler saw no device activity")
+            print(f"phase5d batched_http under torch.profiler: wall "
+                  f"{wall * 1000:.3f} ms, device busy {dev_ms:.4f} ms, "
+                  f"busy share {share * 100:.2f} %", flush=True)
+            async with s.get(base + "/stats") as r:
+                print("phase5 /stats batcher",
+                      json.dumps(json.loads(await r.text())["batcher"]),
+                      flush=True)
+    finally:
+        await runner.cleanup()
+    check(batcher._closed, "cleanup did not close the batcher")
+    return windows
+
+
 def main() -> int:
     smi = phase0()
     from fanlin_tpu_torch import device as device_mod
@@ -606,6 +874,7 @@ def main() -> int:
     _reset_counts()
     asyncio.run(_phase4(dev))
     windows["server"] = _counts()
+    windows.update(asyncio.run(_phase5(dev)))
     for name, c in windows.items():
         print(f"launch counts ({name}): {c}", flush=True)
     w = windows["coef engine"]
@@ -617,7 +886,7 @@ def main() -> int:
           and w["jpeg_islow"] == w["jpeg_upsample_rgb"] == 0,
           f"pixel engine launched {w} for {n_pixel} requests")
     for name in windows["coef engine"]:
-        for path in ("coef engine", "server"):
+        for path in ("coef engine", "server", "phase5b"):
             check(windows[path][name] > 0,
                   f"kernel {name} was never launched by the {path} run")
     launches = {k: sum(c[k] for c in windows.values())

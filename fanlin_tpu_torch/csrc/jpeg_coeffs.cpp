@@ -4,10 +4,11 @@
 // Port of fc_read_jpeg_coeffs (native/fanlin_codec.cpp), which runs
 // libjpeg's jpeg_read_coefficients. The card's machine has no libjpeg,
 // so this file reimplements the parts of libjpeg-turbo's marker reader
-// (jdmarker.c), input controller (jdinput.c) and sequential Huffman
-// decoder (jdhuff.c) that a baseline or extended-sequential 8-bit
-// Huffman stream reaches, and gives the same coefficients on every
-// stream libjpeg reads:
+// (jdmarker.c), input controller (jdinput.c), sequential Huffman
+// decoder (jdhuff.c) and progressive Huffman decoder (jdphuff.c) that
+// a baseline, extended-sequential or progressive 8-bit Huffman stream
+// reaches, and gives the same coefficients on every stream libjpeg
+// reads:
 //
 //   * block grids are libjpeg's: width_in_blocks =
 //     ceil(ceil(W * h_i / h_max) / 8) per component; interleaved scans
@@ -20,10 +21,17 @@
 //     current MCU decodes on zero bits and the rest of the restart
 //     interval stays zero (jdhuff's insufficient_data);
 //   * an invalid Huffman code decodes as 0 after 17 bits;
-//   * the quant tables reported are those defined at EOI.
+//   * the quant tables reported are those defined at EOI;
+//   * progressive scans (SOF2): DC first and refine, AC first and
+//     refine with EOB runs, successive approximation and restart
+//     intervals, each scan writing into the one coefficient grid per
+//     component as jpeg_read_coefficients does; an interleaved DC scan
+//     decodes whole MCUs (dummy blocks included), an AC scan covers
+//     exactly the grid; coefficients of scans that never arrive stay 0.
 //
-// Progressive (SOF2), lossless, arithmetic, 12-bit and anything else it
-// does not parse return non-zero, and the caller decodes pixels. Like
+// Lossless, arithmetic, 12-bit, DHT-less streams (libjpeg substitutes
+// its standard tables) and anything else it does not parse return
+// non-zero, and the caller decodes pixels. Like
 // fc_read_jpeg_coeffs it returns 2 for CMYK/YCCK/RGB colour spaces,
 // sampling layouts outside 4:2:0/4:2:2/4:4:0/4:4:4, per-component
 // chroma quant tables and coefficient blobs over 512 MiB.
@@ -63,9 +71,12 @@ struct Fail {
 
 [[noreturn]] void fail(int rc = 1) { throw Fail{rc}; }
 
-// A Huffman table as jpeg_make_d_derived_tbl derives it.
+// A Huffman table as jpeg_make_d_derived_tbl derives it. A table that
+// does not derive (JERR_BAD_HUFF_TABLE) fails only when a scan uses it,
+// as in libjpeg.
 struct HuffTable {
   bool defined = false;
+  bool valid = false;
   uint8_t bits[17];
   uint8_t vals[256];
   int32_t maxcode[18];
@@ -76,7 +87,7 @@ struct HuffTable {
   int32_t fast_ac[512];
 };
 
-void derive(HuffTable& t, bool is_dc) {
+bool derive(HuffTable& t, bool is_dc) {
   int huffsize[257];
   unsigned huffcode[257];
   int p = 0;
@@ -90,7 +101,7 @@ void derive(HuffTable& t, bool is_dc) {
   p = 0;
   while (huffsize[p]) {
     while (huffsize[p] == si) huffcode[p++] = code++;
-    if (code >= (1u << si)) fail();  // JERR_BAD_HUFF_TABLE
+    if (code >= (1u << si)) return false;  // JERR_BAD_HUFF_TABLE
     code <<= 1;
     ++si;
   }
@@ -119,11 +130,11 @@ void derive(HuffTable& t, bool is_dc) {
   }
   if (is_dc) {
     for (int i = 0; i < numsymbols; ++i) {
-      if (t.vals[i] > 15) fail();
+      if (t.vals[i] > 15) return false;
     }
   }
   for (int i = 0; i < 512; ++i) t.fast_ac[i] = 0;
-  if (is_dc) return;
+  if (is_dc) return true;
   p = 0;
   for (int l = 1; l <= 9; ++l) {
     for (int i = 1; i <= t.bits[l]; ++i, ++p) {
@@ -138,6 +149,7 @@ void derive(HuffTable& t, bool is_dc) {
       }
     }
   }
+  return true;
 }
 
 struct Component {
@@ -161,20 +173,20 @@ class Reader {
   size_t pos_ = 0;
 
   // jpeg_mem_src: past the end the source yields a fake EOI, again
-  // and again
+  // and again. Marker segments are read through it too, so a segment
+  // cut by the end of the data parses on FF D9 bytes as libjpeg's does.
   int byte() {
     const size_t p = pos_++;
     if (p < n_) return d_[p];
     return ((p - n_) & 1) ? 0xD9 : 0xFF;
   }
-  // a marker segment's bytes must lie within the buffer
-  int seg_byte(size_t end) {
-    if (pos_ >= end || pos_ >= n_) fail();
-    return d_[pos_++];
+  int two_bytes() {
+    const int hi = byte();
+    return (hi << 8) | byte();
   }
-  int seg_2bytes(size_t end) {
-    const int hi = seg_byte(end);
-    return (hi << 8) | seg_byte(end);
+  // skip_input_data: moves on through the same virtual stream
+  void skip(long count) {
+    if (count > 0) pos_ += static_cast<size_t>(count);
   }
 
   // marker state
@@ -185,6 +197,7 @@ class Reader {
   int next_restart_num_ = 0;
   int restart_interval_ = 0;
   bool multiple_scans_ = false;
+  bool progressive_ = false;
 
   // frame
   int width_ = 0, height_ = 0, ncomp_ = 0;
@@ -194,9 +207,14 @@ class Reader {
   uint16_t qtbl_[4][64];
   HuffTable dc_[4], ac_[4];
 
-  // scan
+  // scan: its components, spectral band [ss_, se_] and successive
+  // approximation bits (ah_, al_)
   int scan_n_ = 0;
   Component* scan_[4];
+  int ss_ = 0, se_ = 63, ah_ = 0, al_ = 0;
+  // entropy state, reset at each scan and restart
+  int last_dc_[4] = {0, 0, 0, 0};
+  unsigned eobrun_ = 0;
 
   // bit reader (jdhuff.c's bitread state)
   uint64_t buf_ = 0;
@@ -215,6 +233,8 @@ class Reader {
   void skip_variable();
   void initial_setup();
   void decode_scan();
+  template <typename F>
+  void for_each_mcu(bool skip_when_insufficient, F&& decode);
   void process_restart();
   void read_restart_marker();
   void resync_to_restart(int desired);
@@ -228,6 +248,11 @@ class Reader {
   int huff_decode(const HuffTable& t);
   void decode_block(int16_t* block, const HuffTable& dc, const HuffTable& ac,
                     int* last_dc);
+  // jdphuff.c's four MCU decoders, one block at a time
+  void dc_first(int16_t* block, const HuffTable& dc, int* last_dc);
+  void dc_refine(int16_t* block);
+  void ac_first(int16_t* block, const HuffTable& ac);
+  void ac_refine(int16_t* block, const HuffTable& ac);
 };
 
 void Reader::first_marker() {
@@ -252,128 +277,116 @@ int Reader::next_marker() {
 }
 
 void Reader::skip_variable() {
-  const size_t start = pos_;
-  const int length = seg_2bytes(start + 2);
-  if (length < 2 || start + length > n_) fail();
-  pos_ = start + length;
+  skip(two_bytes() - 2L);
 }
 
 void Reader::get_app(int marker) {
   // APP0 (JFIF) and APP14 (Adobe) decide the colour space
   // (jdmarker.c get_interesting_appn / examine_app0 / examine_app14)
-  const size_t start = pos_;
-  const int length = seg_2bytes(start + 2);
-  if (length < 2 || start + length > n_) fail();
-  const uint8_t* p = d_ + start + 2;
-  const int datalen = length - 2 < 14 ? length - 2 : 14;
+  long length = two_bytes() - 2L;
+  const int numtoread = length >= 14 ? 14 : (length > 0 ? int(length) : 0);
+  uint8_t p[14];
+  for (int i = 0; i < numtoread; ++i) p[i] = static_cast<uint8_t>(byte());
+  length -= numtoread;
   if (marker == 0xE0) {
-    if (datalen >= 14 && p[0] == 'J' && p[1] == 'F' && p[2] == 'I' &&
+    if (numtoread >= 14 && p[0] == 'J' && p[1] == 'F' && p[2] == 'I' &&
         p[3] == 'F' && p[4] == 0)
       saw_jfif_ = true;
   } else if (marker == 0xEE) {
-    if (datalen >= 12 && p[0] == 'A' && p[1] == 'd' && p[2] == 'o' &&
+    if (numtoread >= 12 && p[0] == 'A' && p[1] == 'd' && p[2] == 'o' &&
         p[3] == 'b' && p[4] == 'e') {
       saw_adobe_ = true;
       adobe_transform_ = p[11];
     }
   }
-  pos_ = start + length;
+  skip(length);
 }
 
 void Reader::get_sof(int marker) {
-  if (marker != 0xC0 && marker != 0xC1) fail();  // progressive, lossless, arithmetic
-  if (saw_sof_) fail();                            // JERR_SOF_DUPLICATE
-  const size_t start = pos_;
-  const int length = seg_2bytes(start + 2);
-  const size_t end = start + length;
-  if (end > n_) fail();
-  if (seg_byte(end) != 8) fail();  // data precision
-  height_ = seg_2bytes(end);
-  width_ = seg_2bytes(end);
-  ncomp_ = seg_byte(end);
+  // baseline, extended sequential, progressive; not lossless or
+  // arithmetic
+  if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2) fail();
+  if (saw_sof_) fail();  // JERR_SOF_DUPLICATE
+  progressive_ = marker == 0xC2;
+  const int length = two_bytes();
+  if (byte() != 8) fail();  // data precision
+  height_ = two_bytes();
+  width_ = two_bytes();
+  ncomp_ = byte();
   if (height_ <= 0 || width_ <= 0 || ncomp_ <= 0) fail();  // (no DNL)
   if (ncomp_ > 4) fail(2);
   if (length != 8 + ncomp_ * 3) fail();
   for (int ci = 0; ci < ncomp_; ++ci) {
     Component& c = comp_[ci];
-    c.id = seg_byte(end);
-    const int s = seg_byte(end);
+    c.id = byte();
+    const int s = byte();
     c.h = s >> 4;
     c.v = s & 15;
-    c.tq = seg_byte(end);
+    c.tq = byte();
     for (int pi = 0; pi < ci; ++pi) {
       if (comp_[pi].id == c.id) fail();
     }
   }
-  pos_ = end;
   saw_sof_ = true;
 }
 
 void Reader::get_dht() {
-  const size_t start = pos_;
-  const int length = seg_2bytes(start + 2);
-  const size_t end = start + length;
-  if (length < 2 || end > n_) fail();
-  while (pos_ + 16 < end) {
-    int index = seg_byte(end);
+  long length = two_bytes() - 2L;
+  while (length > 16) {
+    int index = byte();
     HuffTable t;
     t.bits[0] = 0;
     int count = 0;
     for (int i = 1; i <= 16; ++i) {
-      t.bits[i] = static_cast<uint8_t>(seg_byte(end));
+      t.bits[i] = static_cast<uint8_t>(byte());
       count += t.bits[i];
     }
-    if (count > 256 || pos_ + count > end) fail();
-    for (int i = 0; i < count; ++i) t.vals[i] = static_cast<uint8_t>(seg_byte(end));
+    length -= 1 + 16;
+    if (count > 256 || count > length) fail();  // JERR_BAD_HUFF_TABLE
+    for (int i = 0; i < count; ++i) t.vals[i] = static_cast<uint8_t>(byte());
     for (int i = count; i < 256; ++i) t.vals[i] = 0;
+    length -= count;
     const bool is_ac = index & 0x10;
     index &= ~0x10;
-    if (index < 0 || index >= 4) fail();
+    if (index < 0 || index >= 4) fail();  // JERR_DHT_INDEX
     t.defined = true;
-    derive(t, !is_ac);
+    t.valid = derive(t, !is_ac);
     (is_ac ? ac_ : dc_)[index] = t;
   }
-  if (pos_ != end) fail();
+  if (length != 0) fail();  // JERR_BAD_LENGTH
 }
 
 void Reader::get_dqt() {
-  const size_t start = pos_;
-  const int length = seg_2bytes(start + 2);
-  const size_t end = start + length;
-  if (length < 2 || end > n_) fail();
-  while (pos_ < end) {
-    const int n = seg_byte(end);
+  long length = two_bytes() - 2L;
+  while (length > 0) {
+    --length;
+    const int n = byte();
     const int prec = n >> 4;
     const int idx = n & 15;
     if (idx >= 4 || prec > 1) fail();
-    if (pos_ + 64 * (prec + 1) > end) fail();
     for (int i = 0; i < 64; ++i) {
-      const int v = prec ? seg_2bytes(end) : seg_byte(end);
+      const int v = prec ? two_bytes() : byte();
       qtbl_[idx][kNatural[i]] = static_cast<uint16_t>(v);
     }
     qdefined_[idx] = true;
+    length -= 64 * (prec + 1);
   }
-  if (pos_ != end) fail();
+  if (length != 0) fail();  // JERR_BAD_LENGTH
 }
 
 void Reader::get_dri() {
-  const size_t start = pos_;
-  const int length = seg_2bytes(start + 2);
-  if (length != 4) fail();
-  restart_interval_ = seg_2bytes(start + 4);
+  if (two_bytes() != 4) fail();
+  restart_interval_ = two_bytes();
 }
 
 void Reader::get_sos() {
   if (!saw_sof_) fail();  // JERR_SOS_NO_SOF
-  const size_t start = pos_;
-  const int length = seg_2bytes(start + 2);
-  const size_t end = start + length;
-  if (end > n_) fail();
-  const int n = seg_byte(end);
+  const int length = two_bytes();
+  const int n = byte();
   if (length != n * 2 + 6 || n < 1 || n > 4) fail();
   for (int i = 0; i < n; ++i) {
-    const int cc = seg_byte(end);
-    const int c = seg_byte(end);
+    const int cc = byte();
+    const int c = byte();
     Component* found = nullptr;
     for (int ci = 0; ci < ncomp_; ++ci) {
       if (comp_[ci].id == cc) found = &comp_[ci];
@@ -386,8 +399,20 @@ void Reader::get_sos() {
     found->ac_tbl = c & 15;
     scan_[i] = found;
   }
-  const int ss = seg_byte(end), se = seg_byte(end), a = seg_byte(end);
-  if (ss != 0 || se != 63 || a != 0) fail();  // not a sequential scan
+  ss_ = byte();
+  se_ = byte();
+  const int a = byte();
+  ah_ = a >> 4;
+  al_ = a & 15;
+  // a sequential scan with other values only warns
+  // (JWRN_NOT_SEQUENTIAL), and jdhuff decodes all 64 coefficients
+  if (progressive_) {
+    // jdphuff.c start_pass_phuff_decoder: JERR_BAD_PROGRESSION
+    bool bad = ss_ == 0 ? se_ != 0 : (ss_ > se_ || se_ > 63 || n != 1);
+    if (ah_ != 0 && al_ != ah_ - 1) bad = true;
+    if (al_ > 13) bad = true;
+    if (bad) fail();
+  }
   scan_n_ = n;
   next_restart_num_ = 0;
 }
@@ -409,7 +434,7 @@ void Reader::initial_setup() {
     c.wib = static_cast<int>((w + max_h_ * 8 - 1) / (max_h_ * 8));
     c.hib = static_cast<int>((h + max_v_ * 8 - 1) / (max_v_ * 8));
   }
-  multiple_scans_ = scan_n_ < ncomp_;
+  multiple_scans_ = scan_n_ < ncomp_ || progressive_;
 }
 
 // Read markers until SOS or EOI (jdmarker.c read_markers).
@@ -594,26 +619,27 @@ void Reader::process_restart() {
   if (unread_marker_ == 0) insufficient_ = false;
 }
 
-void Reader::decode_scan() {
-  for (int i = 0; i < scan_n_; ++i) {
-    const Component& c = *scan_[i];
-    if (c.dc_tbl >= 4 || c.ac_tbl >= 4 || !dc_[c.dc_tbl].defined ||
-        !ac_[c.ac_tbl].defined || c.tq >= 4 || !qdefined_[c.tq])
-      fail();  // JERR_NO_HUFF_TABLE / JERR_NO_QUANT_TABLE
-  }
-  int last_dc[4] = {0, 0, 0, 0};
+// Walk the scan's MCUs in stream order, handling restart intervals,
+// and call decode(block, i) for each block of scan component i. A
+// non-interleaved scan covers exactly the component's block grid; an
+// interleaved one covers whole MCUs, so blocks past the grid (inside
+// the grid's padding to whole MCUs) are decoded too. With
+// skip_when_insufficient, an MCU that starts after the data ran out is
+// left as it is (jdhuff/jdphuff's insufficient_data).
+template <typename F>
+void Reader::for_each_mcu(bool skip_when_insufficient, F&& decode) {
   buf_ = 0;
   bits_left_ = 0;
   insufficient_ = false;
+  eobrun_ = 0;
+  for (int i = 0; i < 4; ++i) last_dc_[i] = 0;
   int restarts_to_go = restart_interval_;
-
   auto mcu_start = [&]() {
-    if (restart_interval_) {
-      if (restarts_to_go == 0) {
-        process_restart();
-        for (int i = 0; i < 4; ++i) last_dc[i] = 0;
-        restarts_to_go = restart_interval_;
-      }
+    if (restart_interval_ && restarts_to_go == 0) {
+      process_restart();
+      for (int i = 0; i < 4; ++i) last_dc_[i] = 0;
+      eobrun_ = 0;
+      restarts_to_go = restart_interval_;
     }
   };
   auto mcu_end = [&]() {
@@ -622,14 +648,11 @@ void Reader::decode_scan() {
 
   if (scan_n_ == 1) {
     Component& c = *scan_[0];
-    const HuffTable& dc = dc_[c.dc_tbl];
-    const HuffTable& ac = ac_[c.ac_tbl];
     for (int by = 0; by < c.hib; ++by) {
       for (int bx = 0; bx < c.wib; ++bx) {
         mcu_start();
-        if (!insufficient_) {
-          decode_block(&c.grid[(static_cast<size_t>(by) * c.pw + bx) * 64],
-                       dc, ac, &last_dc[0]);
+        if (!(skip_when_insufficient && insufficient_)) {
+          decode(&c.grid[(static_cast<size_t>(by) * c.pw + bx) * 64], 0);
         }
         mcu_end();
       }
@@ -644,22 +667,153 @@ void Reader::decode_scan() {
   for (int my = 0; my < mcus_y; ++my) {
     for (int mx = 0; mx < mcus_x; ++mx) {
       mcu_start();
-      if (!insufficient_) {
+      if (!(skip_when_insufficient && insufficient_)) {
         for (int i = 0; i < scan_n_; ++i) {
           Component& c = *scan_[i];
-          const HuffTable& dc = dc_[c.dc_tbl];
-          const HuffTable& ac = ac_[c.ac_tbl];
           for (int yy = 0; yy < c.v; ++yy) {
             const size_t row = static_cast<size_t>(my * c.v + yy) * c.pw;
             for (int xx = 0; xx < c.h; ++xx) {
-              decode_block(&c.grid[(row + mx * c.h + xx) * 64], dc, ac,
-                           &last_dc[i]);
+              decode(&c.grid[(row + mx * c.h + xx) * 64], i);
             }
           }
         }
       }
       mcu_end();
     }
+  }
+}
+
+// jdphuff.c decode_mcu_DC_first, one block
+void Reader::dc_first(int16_t* block, const HuffTable& dc, int* last_dc) {
+  int s = huff_decode(dc);
+  if (s) s = extend(get_bits(s), s);
+  const long long v = static_cast<long long>(*last_dc) + s;
+  if (v > INT32_MAX || v < INT32_MIN) fail();  // JERR_BAD_DCT_COEF
+  *last_dc = static_cast<int>(v);
+  block[0] = static_cast<int16_t>(static_cast<unsigned>(v) << al_);
+}
+
+// decode_mcu_DC_refine: the next bit of the two's-complement DC value
+void Reader::dc_refine(int16_t* block) {
+  if (get_bits(1)) block[0] = static_cast<int16_t>(block[0] | (1 << al_));
+}
+
+// decode_mcu_AC_first, with the sequential path's 9-bit lookup for
+// codes whose magnitude bits fit in it
+void Reader::ac_first(int16_t* block, const HuffTable& ac) {
+  if (eobrun_ > 0) {  // a band of zeroes
+    --eobrun_;
+    return;
+  }
+  for (int k = ss_; k <= se_; ++k) {
+    if (bits_left_ < 9) fill(0);
+    if (bits_left_ >= 9) {
+      const int32_t e = ac.fast_ac[(buf_ >> (bits_left_ - 9)) & 511];
+      if (e) {
+        bits_left_ -= e & 255;
+        k += (e >> 8) & 15;
+        block[kNatural[k]] = static_cast<int16_t>(
+            static_cast<unsigned>(e >> 16) << al_);
+        continue;
+      }
+    }
+    int s = huff_decode(ac);
+    const int r = s >> 4;
+    s &= 15;
+    if (s) {
+      k += r;
+      block[kNatural[k]] = static_cast<int16_t>(
+          static_cast<unsigned>(extend(get_bits(s), s)) << al_);
+    } else if (r == 15) {  // ZRL
+      k += 15;
+    } else {  // EOBr: a run of 2^r + appended bits bands, this one included
+      eobrun_ = 1u << r;
+      if (r) eobrun_ += get_bits(r);
+      --eobrun_;
+      break;
+    }
+  }
+}
+
+// decode_mcu_AC_refine: correction bits for the coefficients already
+// non-zero, and newly non-zero coefficients of magnitude 1 << al_
+void Reader::ac_refine(int16_t* block, const HuffTable& ac) {
+  const int p1 = 1 << al_;
+  const int m1 = -p1;
+  auto correct = [&](int16_t* coef) {
+    if (get_bits(1) && (*coef & p1) == 0) {
+      *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+    }
+  };
+  int k = ss_;
+  if (eobrun_ == 0) {
+    for (; k <= se_; ++k) {
+      int s = huff_decode(ac);
+      int r = s >> 4;
+      s &= 15;
+      if (s) {  // the size should be 1 (libjpeg warns otherwise)
+        s = get_bits(1) ? p1 : m1;
+      } else if (r != 15) {
+        eobrun_ = 1u << r;
+        if (r) eobrun_ += get_bits(r);
+        break;  // the rest of the band is the EOB run's
+      }
+      // skip the already-non-zero coefficients (correcting each) and r
+      // zero ones
+      do {
+        int16_t* coef = block + kNatural[k];
+        if (*coef != 0) {
+          correct(coef);
+        } else if (--r < 0) {
+          break;  // the target zero coefficient
+        }
+        ++k;
+      } while (k <= se_);
+      if (s) block[kNatural[k]] = static_cast<int16_t>(s);
+    }
+  }
+  if (eobrun_ > 0) {
+    for (; k <= se_; ++k) {
+      int16_t* coef = block + kNatural[k];
+      if (*coef != 0) correct(coef);
+    }
+    --eobrun_;
+  }
+}
+
+void Reader::decode_scan() {
+  // tables the scan uses must be defined (JERR_NO_HUFF_TABLE /
+  // JERR_NO_QUANT_TABLE); a DC refinement scan uses none
+  const bool dc_scan = ss_ == 0, refine = ah_ != 0;
+  for (int i = 0; i < scan_n_; ++i) {
+    const Component& c = *scan_[i];
+    const bool need_dc = !progressive_ || (dc_scan && !refine);
+    const bool need_ac = !progressive_ || !dc_scan;
+    if ((need_dc && (c.dc_tbl >= 4 || !dc_[c.dc_tbl].defined ||
+                     !dc_[c.dc_tbl].valid)) ||
+        (need_ac && (c.ac_tbl >= 4 || !ac_[c.ac_tbl].defined ||
+                     !ac_[c.ac_tbl].valid)) ||
+        c.tq >= 4 || !qdefined_[c.tq])
+      fail();
+  }
+  if (!progressive_) {
+    for_each_mcu(true, [&](int16_t* block, int i) {
+      const Component& c = *scan_[i];
+      decode_block(block, dc_[c.dc_tbl], ac_[c.ac_tbl], &last_dc_[i]);
+    });
+  } else if (dc_scan && !refine) {
+    for_each_mcu(true, [&](int16_t* block, int i) {
+      dc_first(block, dc_[scan_[i]->dc_tbl], &last_dc_[i]);
+    });
+  } else if (dc_scan) {
+    // reads on past the end of the data: the zero bits change nothing
+    for_each_mcu(false, [&](int16_t* block, int) { dc_refine(block); });
+  } else if (!refine) {
+    const HuffTable& ac = ac_[scan_[0]->ac_tbl];
+    for_each_mcu(true, [&](int16_t* block, int) { ac_first(block, ac); });
+  } else {
+    const HuffTable& ac = ac_[scan_[0]->ac_tbl];
+    for_each_mcu(true, [&](int16_t* block, int) { ac_refine(block, ac); });
   }
 }
 

@@ -19,11 +19,12 @@ from ..ops import _build
 
 
 def read_jpeg_coeffs(data: bytes) -> Optional[dict]:
-    """Entropy-decode only. Returns None when the stream should take
-    the pixel path (progressive or arithmetic coding, 12-bit, CMYK/RGB
-    colour, a sampling layout outside 4:2:0/4:2:2/4:4:0/4:4:4, separate
-    chroma quant tables, a coefficient blob over 512 MiB, or bytes it
-    cannot parse).
+    """Entropy-decode only (baseline, extended-sequential and
+    progressive Huffman streams). Returns None when the stream should
+    take the pixel path (arithmetic coding, 12-bit, no DHT segment,
+    CMYK/RGB colour, a sampling layout outside 4:2:0/4:2:2/4:4:0/4:4:4,
+    separate chroma quant tables, a coefficient blob over 512 MiB, or
+    bytes it cannot parse).
 
     Returns {y, cb, cr: (bh, bw, 64) int16 natural-order blocks;
     lq, cq: (64,) uint16 natural-order quant tables; w, h: true dims;

@@ -15,15 +15,26 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+# Held while the library loads: a caller that finds the load started
+# waits for its result instead of reading "not built" meanwhile (under
+# the micro-batcher, concurrent first requests would otherwise pick
+# different encode paths and answer different bytes).
+_LOAD_LOCK = threading.Lock()
 
 
 def _load():
+    with _LOAD_LOCK:
+        return _load_once()
+
+
+def _load_once():
     global _LIB, _TRIED
     if _TRIED:
         return _LIB

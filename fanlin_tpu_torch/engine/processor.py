@@ -16,15 +16,20 @@ chain (reference src/handler.rs:185-309):
     the native codec core can finish them
 
 With `device_decode` (the default, as in the reference) a plain
-YCbCr JPEG with EXIF orientation 1 is only entropy-decoded on the host
-(`jpeg_coeffs.read_jpeg_coeffs`); the device decodes its coefficients
-as a prologue to the transform (`fused.CoefBatchAssembly`). Every
-other source, and every JPEG the reader refuses, is decoded on the host
-(`codecs.decode`); the bytes are the same either way. Not in the port
-yet: coefficient-domain EXIF rotation (`orient_meta`: rotated JPEGs
-take the pixel path), the device DCT (`device_dct`) and the CMYK/ICC
-hooks — a CMYK JPEG is converted by the decoder, as the reference does
-without an ICC profile configured.
+YCbCr JPEG, baseline or progressive, is only entropy-decoded on the
+host (`jpeg_coeffs.read_jpeg_coeffs`); the device decodes its
+coefficients as a prologue to the transform (`fused.CoefBatchAssembly`).
+An EXIF-rotated JPEG is rotated on its coefficient grids
+(`jpeg_decode.orient_meta`, jpegtran's lossless transforms); only a
+flip that is not MCU-aligned sends it to the pixel path. Every other
+source, and every JPEG the reader refuses, is decoded on the host
+(`codecs.decode`); the bytes are the same either way, except for a
+rotated source: libjpeg's iDCT and upsample rounding are not symmetric
+under a flip or transpose, so the rotated decode differs from the
+decoded-then-rotated pixels by a few LSB at source size (within 1 LSB
+after a downscale in the tests). Not in the port yet: the device
+DCT (`device_dct`) and the CMYK/ICC hooks — a CMYK JPEG is converted by
+the decoder, as the reference does without an ICC profile configured.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from fanlin_tpu.ops import filters
 from fanlin_tpu.spec import content as content_mod
 from fanlin_tpu.spec import query as query_mod
 
-from ..ops import fused, plan as plan_mod
+from ..ops import fused, jpeg_decode, plan as plan_mod
 from . import codecs, jpeg_coeffs, native_codecs, png_writer, svg
 
 # read_jpeg_coeffs' subsampling layout -> the coefficient batch kind
@@ -52,8 +57,9 @@ class ProcessError(Exception):
 
 
 class SyncDeviceRunner:
-    """One device batch per call, on the caller's thread. The server
-    calls it from codec threads; a lock serializes the device work."""
+    """The Engine's default runner: one device batch per call, on the
+    caller's thread, a lock serializing the device work. The server
+    serves through batcher.BatchingRunner instead."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -67,10 +73,12 @@ class SyncDeviceRunner:
 
 
 class Engine:
-    def __init__(self, device: torch.device, device_decode: bool = True,
-                 device_dct: bool = False):
+    def __init__(self, device: torch.device, runner=None,
+                 device_decode: bool = True, device_dct: bool = False):
         """device: where the transform runs (torch.device("cuda") to
         serve, torch.device("cpu") for the plain versions).
+        runner: runs the device batches; SyncDeviceRunner(device) when
+        None, the server passes a batcher.BatchingRunner.
         device_decode: JPEGs take the coefficient path. The device DCT
         is not ported yet."""
         if device_dct:
@@ -78,7 +86,7 @@ class Engine:
                 "device_dct: the device DCT sink is not yet in the PyTorch "
                 "port"
             )
-        self.runner = SyncDeviceRunner(device)
+        self.runner = runner if runner is not None else SyncDeviceRunner(device)
         self.device_decode = device_decode
         # observability: requests served by source kind (/stats)
         self.stats = {"pixel_src": 0, "coef_src": 0}
@@ -103,8 +111,12 @@ class Engine:
         t0 = time.perf_counter()
         orientation = codecs.read_orientation(data)
         meta = None
-        if self.device_decode and fmt == codecs.JPEG and orientation == 1:
+        if self.device_decode and fmt == codecs.JPEG:
             meta = jpeg_coeffs.read_jpeg_coeffs(data)
+            if meta is not None and orientation != 1:
+                # rotate the coefficient grids; a flip that is not
+                # MCU-aligned gives None and the pixel path
+                meta = jpeg_decode.orient_meta(meta, orientation)
         if meta is not None:
             # a gray JPEG decodes through zero chroma (r = g = b = y);
             # is_gray keeps the output pixel type of the host decode

@@ -8,6 +8,14 @@ Port of fanlin_tpu/ops/fused.py: the encode front-ends
 reference runs each batch as one jitted XLA program; here the same
 steps run eagerly on the assembly's device.
 
+Transfers: on CUDA a batch is staged straight into pinned host buffers,
+and `submit()` issues the uploads, the kernels and
+the downloads as non-blocking work on the caller's current stream,
+then records an event; `collect()` only waits on that event and copies
+each image's result out of the pinned buffers, so the batcher's collect
+thread never touches a device tensor. On the CPU (tests) the same code
+runs on plain host arrays with no event.
+
 Routing: a coefficient batch is decoded on the device by the two
 decode kernels (`jpeg_decode_kernels`), which write the same
 (B, 3, SH, SW) u8 batch a pixel upload would give. Every uniform batch
@@ -162,18 +170,95 @@ def _device_cached(arr, device: torch.device):
     key = (id(arr), str(device))
     hit = _DEVICE_MATRIX_CACHE.get(key)
     if hit is not None and hit[0] is arr:
-        return hit[1]
-    dev = torch.from_numpy(arr).to(device)
-    _DEVICE_MATRIX_CACHE.put(key, (arr, dev), arr.nbytes)
+        dev = hit[1]
+    else:
+        # a blocking copy: complete before any stream reads it (batches
+        # of several runners, each on its own stream, share the cache)
+        dev = torch.from_numpy(arr).to(device)
+        _DEVICE_MATRIX_CACHE.put(key, (arr, dev), arr.nbytes)
+    if device.type == "cuda":
+        # an eviction must not free it under another stream's reads
+        dev.record_stream(torch.cuda.current_stream(device))
     return dev
 
 
-def _to_device(arr, device: torch.device):
-    return None if arr is None else torch.from_numpy(arr).to(device)
+class _Transfer:
+    """The host side of one batch: the arrays it uploads and the host
+    copies of its result. On CUDA every array lives in a pinned buffer
+    (torch's caching host allocator, which reuses a freed block only
+    after the copies recorded on it have finished); uploads and
+    downloads are non-blocking copies on the current stream, ordered by
+    an event recorded after the downloads. A download's numpy view keeps
+    its buffer alive until collect() has copied each image out. On the
+    CPU (tests) the arrays are plain numpy, the device tensors share
+    their memory and there is no event."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        # id(array) -> (array, its pinned buffer); holding the array
+        # keeps its id from being reused
+        self._staged = {}
+        self.event = None
+
+    def zeros(self, shape, dtype=np.float32) -> np.ndarray:
+        """A zeroed host array to stage into (numpy.zeros' signature)."""
+        if not self.pinned:
+            return np.zeros(shape, dtype)
+        dtype = np.dtype(dtype)
+        buf = torch.empty(int(np.prod(shape)) * dtype.itemsize,
+                          dtype=torch.uint8, pin_memory=True)
+        arr = buf.numpy().view(dtype).reshape(shape)
+        arr.fill(0)
+        self._staged[id(arr)] = (arr, buf)
+        return arr
+
+    def upload(self, arr):
+        """A staged array on the device."""
+        if arr is None:
+            return None
+        if not self.pinned:
+            return torch.from_numpy(arr).to(self.device)
+        _, buf = self._staged[id(arr)]
+        dev = buf.to(self.device, non_blocking=True)
+        # the flat bytes, viewed as the array's dtype and shape
+        return dev.view(torch.from_numpy(arr[:0]).dtype).view(arr.shape)
+
+    def download(self, out):
+        """Start copying the device result (a tensor or a tuple of them)
+        to the host; returns the host arrays, readable after wait()."""
+        outs = out if isinstance(out, tuple) else (out,)
+        if not self.pinned:
+            host = tuple(o.cpu().numpy() for o in outs)
+        else:
+            host = []
+            for o in outs:
+                buf = torch.empty(o.numel() * o.element_size(),
+                                  dtype=torch.uint8, pin_memory=True)
+                h = buf.view(o.dtype).view(o.shape)
+                h.copy_(o, non_blocking=True)
+                host.append(h.numpy())
+            host = tuple(host)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(self.device))
+        return host if isinstance(out, tuple) else host[0]
+
+    def wait(self) -> None:
+        """Block until the batch's copies are done (touches no device
+        tensor, so any thread may call it)."""
+        if self.event is not None:
+            self.event.synchronize()
 
 
 class BatchAssembly:
-    """Host staging for one device batch of pixel sources."""
+    """Host staging for one device batch of pixel sources.
+
+    `submit()` uploads the staged arrays, runs the batch on the device
+    and starts the download, all asynchronously on the caller's current
+    CUDA stream; `collect()` waits on the batch's event and returns
+    per-image host arrays that own their memory. The device thread of
+    the batcher submits the next batch while another thread collects
+    this one."""
 
     def __init__(self, plans, images, device: torch.device, jpeg420=False):
         """plans: list[ImagePlan]; images: list[(H, W, 3|4) uint8].
@@ -186,6 +271,7 @@ class BatchAssembly:
             raise ValueError("one plan per image, at least one image")
         self.plans = plans
         self.device = device
+        self._io = _Transfer(device)
         n = len(plans)
         self.b = bucket_b(n)
         self.sh = bucket_h(max(p.src_h for p in plans))
@@ -205,11 +291,12 @@ class BatchAssembly:
         # ... and uploaded only when some source actually has one
         self.c_in = 4 if any(im.shape[2] == 4 for im in images) else 3
 
-        self.x = np.zeros((self.b, self.c_in, self.sh, self.sw), dtype=np.uint8)
+        self.x = self._io.zeros((self.b, self.c_in, self.sh, self.sw),
+                                np.uint8)
         (self.flags, self.fill, self.box,
          self.av, self.ah, self.bv, self.bh) = _pack_params(
             plans, self.b, self.sh, self.sw, self.oh, self.ow,
-            self.uniform, self.has_blur,
+            self.uniform, self.has_blur, zeros=self._io.zeros,
         )
         for i, (p, img) in enumerate(zip(plans, images)):
             c = img.shape[2]
@@ -222,18 +309,23 @@ class BatchAssembly:
         device; the CPU runs its plain version)."""
         return self.uniform and self.c_in == 3
 
+    @property
+    def upload_bytes(self) -> int:
+        """Host->device bytes of the pixel wire."""
+        return self.x.nbytes
+
     def _device_x(self):
         """The (B, c_in, sh, sw) u8 source batch on the device."""
-        return torch.from_numpy(self.x).to(self.device)
+        return self._io.upload(self.x)
 
     def submit(self):
-        """Upload the batch and run the chain and tail on the device
-        (asynchronously on CUDA); returns the device output."""
+        """Upload the batch, run the chain and tail on the device and
+        start the download, on the current stream (asynchronously on
+        CUDA). Returns the pending host result for collect()."""
         dev = self.device
         x = self._device_x()
-        flags = torch.from_numpy(self.flags).to(dev)
-        fill = torch.from_numpy(self.fill).to(dev)
-        box = torch.from_numpy(self.box).to(dev)
+        flags, fill, box = (self._io.upload(a)
+                            for a in (self.flags, self.fill, self.box))
         p0 = self.plans[0]
         if self.uniform:
             av, ah, bv, bh = (_device_cached(a, dev)
@@ -249,33 +341,35 @@ class BatchAssembly:
                                                 bv, bh)
                 out = out[:, :, : p0.out_h, : p0.out_w]
         else:
-            out = _transform_kernel(
-                x, _to_device(self.av, dev), _to_device(self.ah, dev), flags,
-                fill, box, _to_device(self.bv, dev), _to_device(self.bh, dev),
-            )
+            up = self._io.upload
+            out = _transform_kernel(x, up(self.av), up(self.ah), flags, fill,
+                                    box, up(self.bv), up(self.bh))
             if self.jpeg420:
                 out = out[:, :, : p0.out_h, : p0.out_w]
-        return _tail(out, self.c_out, self.jpeg420)
+        return self._io.download(_tail(out, self.c_out, self.jpeg420))
 
     def collect(self, out):
-        """Copy the device result to the host: per-image (out_h, out_w,
-        c_out) u8 arrays, or ("ycbcr420"|"webpyuv", y, cb, cr) /
-        ("pngrows", rows, w, h, nch) tuples for the native encoders."""
+        """Wait for the batch and return per-image results that own
+        their memory: (out_h, out_w, c_out) u8 arrays, or
+        ("ycbcr420"|"webpyuv", y, cb, cr) / ("pngrows", rows, w, h, nch)
+        tuples for the native encoders. Touches no device tensor."""
+        self._io.wait()
         n = len(self.plans)
         p0 = self.plans[0]
         if isinstance(self.jpeg420, tuple):
-            rows = out.cpu().numpy()  # (B, OH, 1 + OW*nch)
-            return [("pngrows", rows[i], p0.out_w, p0.out_h, self.jpeg420[1])
-                    for i in range(n)]
-        if self.jpeg420:
+            # out: (B, OH, 1 + OW*nch) rows
+            res = [("pngrows", out[i].copy(), p0.out_w, p0.out_h,
+                    self.jpeg420[1]) for i in range(n)]
+        elif self.jpeg420:
             tag = "webpyuv" if self.jpeg420 == "webp" else "ycbcr420"
-            y, cb, cr = (o.cpu().numpy() for o in out)
-            return [(tag, y[i], cb[i], cr[i]) for i in range(n)]
-        host = out.cpu().numpy()  # (B, C, OH|true_oh, OW|true_ow)
-        return [
-            np.ascontiguousarray(host[i, :, : p.out_h, : p.out_w].transpose(1, 2, 0))
-            for i, p in enumerate(self.plans)
-        ]
+            y, cb, cr = out
+            res = [(tag, y[i].copy(), cb[i].copy(), cr[i].copy())
+                   for i in range(n)]
+        else:
+            # out: (B, C, OH|true_oh, OW|true_ow)
+            res = [out[i, :, : p.out_h, : p.out_w].transpose(1, 2, 0).copy()
+                   for i, p in enumerate(self.plans)]
+        return res
 
     def run(self):
         return self.collect(self.submit())
@@ -308,6 +402,7 @@ class CoefBatchAssembly(BatchAssembly):
                              "and subsampling layout")
         self.plans = plans
         self.device = device
+        self._io = _Transfer(device)
         self.b = bucket_b(len(plans))
         # K4 writes the pixel batch's layout, so the resample sees what
         # a pixel batch of this source would upload
@@ -330,8 +425,8 @@ class CoefBatchAssembly(BatchAssembly):
         shapes = ((gh // 8, self.sw // 8),
                   (gh // (8 * dv), self.sw // (8 * dh)),
                   (gh // (8 * dv), self.sw // (8 * dh)))
-        self.coef = np.zeros(
-            self.b * sum(h * w for h, w in shapes) * 64, dtype=np.int16)
+        self.coef = self._io.zeros(
+            self.b * sum(h * w for h, w in shapes) * 64, np.int16)
         self._spans = []
         at = 0
         grids = []
@@ -340,7 +435,7 @@ class CoefBatchAssembly(BatchAssembly):
             self._spans.append((at, at + n, (self.b, h, w, 64)))
             grids.append(self.coef[at:at + n].reshape(self.b, h, w, 64))
             at += n
-        self.q = np.zeros((self.b, 2, 64), dtype=np.int32)
+        self.q = self._io.zeros((self.b, 2, 64), np.int32)
         for i, m in enumerate(metas):
             for grid, key in zip(grids, ("y", "cb", "cr")):
                 g = m[key]
@@ -350,7 +445,7 @@ class CoefBatchAssembly(BatchAssembly):
         (self.flags, self.fill, self.box,
          self.av, self.ah, self.bv, self.bh) = _pack_params(
             plans, self.b, self.sh, self.sw, self.oh, self.ow,
-            self.uniform, self.has_blur,
+            self.uniform, self.has_blur, zeros=self._io.zeros,
         )
 
     @property
@@ -361,9 +456,8 @@ class CoefBatchAssembly(BatchAssembly):
     def device_wire(self):
         """Upload the wire: (y, cb, cr, q) on the device, the block
         grids as views of one uploaded buffer."""
-        dev = self.device
-        flat = torch.from_numpy(self.coef).to(dev)
-        q = torch.from_numpy(self.q).to(dev)
+        flat = self._io.upload(self.coef)
+        q = self._io.upload(self.q)
         y, cb, cr = (flat[a:b].view(shape) for a, b, shape in self._spans)
         return y, cb, cr, q
 

@@ -1,17 +1,19 @@
 """The coefficient decode back half in plain torch: dequant, the
 bit-exact libjpeg islow iDCT, the fancy chroma upsample and the
-jdcolor YCbCr->RGB conversion.
+jdcolor YCbCr->RGB conversion; and `orient_meta`, EXIF orientation
+applied to the coefficient grids on the host.
 
-Port of fanlin_tpu/ops/jpeg_decode.py:88-361 and :645 with the same
-names and the same int32 arithmetic (arithmetic right shifts, wrapping
-products, saturation after the iDCT), on the device of the given
-tensors. These are the plain versions of the two CUDA kernels in
+Port of fanlin_tpu/ops/jpeg_decode.py:88-361, :645 and :925-1025 with
+the same names and the same int32 arithmetic (arithmetic right shifts,
+wrapping products, saturation after the iDCT), on the device of the
+given tensors. These are the plain versions of the two CUDA kernels in
 `ops.jpeg_decode_kernels` (K3 `jpeg_islow`, K4 `jpeg_upsample_rgb`),
 and the tests hold each against its JAX twin array for array.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _I32 = torch.int32
@@ -252,3 +254,97 @@ def blocks_to_planar(blocks: torch.Tensor):
     planar = ac.reshape(b, bh, bw, 8, 8).permute(0, 1, 3, 2, 4).reshape(
         b, bh * 8, bw * 8)
     return dc, planar
+
+
+# ----------------------------------------------------------------------------
+# EXIF orientation in the coefficient domain (jpegtran's transform math)
+# ----------------------------------------------------------------------------
+#
+# Flips and transposes are exact linear maps of the DCT basis, so the
+# host rotates the quantized coefficient grids instead of decoded
+# pixels, and rotated JPEGs keep the coefficient path:
+#   flip-H: reverse block columns, negate odd-v coefficients
+#   flip-V: reverse block rows,    negate odd-u coefficients
+#   transpose: transpose the block grid AND each block's (u, v)
+# Flips are exact only when the flipped axis has no partial MCU.
+# Transposes are always grid-exact, turn 4:2:2 into 4:4:0 and back, and
+# swap the chroma upsample's row and column rounding (jdsample's +8/+7),
+# so an orientation 5-8 source decodes within 1 LSB of the rotated
+# pixel decode on chroma, not byte-equal to it.
+
+# natural-order index -> (u, v)
+_NAT_U = np.arange(64) // 8
+_NAT_V = np.arange(64) % 8
+_TRANSPOSE_PERM = (np.arange(64) % 8) * 8 + np.arange(64) // 8  # (u,v)->(v,u)
+_SIGN_V = np.where(_NAT_V % 2 == 1, -1, 1).astype(np.int16)  # flip-H signs
+_SIGN_U = np.where(_NAT_U % 2 == 1, -1, 1).astype(np.int16)  # flip-V signs
+
+
+def _grid_flip_h(g: np.ndarray) -> np.ndarray:
+    return g[:, ::-1] * _SIGN_V
+
+
+def _grid_flip_v(g: np.ndarray) -> np.ndarray:
+    return g[::-1] * _SIGN_U
+
+
+def _grid_transpose(g: np.ndarray) -> np.ndarray:
+    return g.transpose(1, 0, 2)[:, :, _TRANSPOSE_PERM]
+
+
+# ops per EXIF orientation, composed to match
+# engine.codecs.apply_orientation (t = transpose, then h/v flips in the
+# transposed grid)
+_ORIENT_OPS = {
+    2: "h", 3: "hv", 4: "v",
+    5: "t", 6: "th", 7: "tvh", 8: "tv",
+}
+
+
+def orient_meta(meta: dict, orientation: int):
+    """Rotate a read_jpeg_coeffs dict in the coefficient domain to
+    match codecs.apply_orientation(pixels, orientation). Returns a new
+    dict (the input is never mutated), the input itself for orientation
+    1 or an out-of-range value, or None when the transform is not
+    grid-exact: a flip needs the flipped image axis MCU-aligned."""
+    ops = _ORIENT_OPS.get(orientation)
+    if ops is None:
+        return meta
+    subsamp = meta.get("subsamp", 420)
+    csv, csh = chroma_divisors(subsamp)
+    w, h = meta["w"], meta["h"]
+    new_subsamp = subsamp
+    if "t" in ops:
+        if csv != csh:
+            new_subsamp = {422: 440, 440: 422}[subsamp]
+        w, h = h, w
+        csv, csh = csh, csv
+    mcu_w, mcu_h = 8 * csh, 8 * csv
+    # flips act on the geometry after the transpose
+    if "h" in ops and w % mcu_w:
+        return None
+    if "v" in ops and h % mcu_h:
+        return None
+
+    def xform(g):
+        if "t" in ops:
+            g = _grid_transpose(g)
+        if "v" in ops:
+            g = _grid_flip_v(g)
+        if "h" in ops:
+            g = _grid_flip_h(g)
+        return np.ascontiguousarray(g)
+
+    # a shallow copy is the port's fork_meta: its metas carry no shared
+    # memo, and every swapped array below is a new one
+    out = dict(meta)
+    out["y"] = xform(meta["y"])
+    out["cb"] = xform(meta["cb"])
+    out["cr"] = xform(meta["cr"])
+    out["w"], out["h"] = w, h
+    out["subsamp"] = new_subsamp
+    if "t" in ops:
+        # quant tables follow the (u, v) swap
+        out["lq"] = np.ascontiguousarray(meta["lq"][_TRANSPOSE_PERM])
+        out["cq"] = np.ascontiguousarray(meta["cq"][_TRANSPOSE_PERM])
+    return out

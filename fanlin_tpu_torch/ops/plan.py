@@ -10,6 +10,7 @@ them, and the tests hold every plan equal to the reference's.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -80,6 +81,11 @@ class ImagePlan:
 # Plans hold dense (out x src) f32 matrices, so the cache is
 # byte-budgeted rather than count-bounded.
 _PLAN_CACHE = ByteLRU(max_bytes=192 * 1024 * 1024)
+# Misses are single-flight per key: concurrent first requests for one
+# (source, query) wait for one build and share its plan object, so
+# their batch is uniform. A hit takes no lock beyond the LRU's own.
+_PLAN_BUILDS: dict = {}
+_PLAN_BUILDS_LOCK = threading.Lock()
 
 
 def plan_image(src_w: int, src_h: int, params, filter_name: str = filters.LANCZOS3,
@@ -97,8 +103,17 @@ def plan_image(src_w: int, src_h: int, params, filter_name: str = filters.LANCZO
     hit = _PLAN_CACHE.get(key)
     if hit is not None:
         return hit
-    plan = _plan_image_uncached(src_w, src_h, params, filter_name, opaque)
-    _PLAN_CACHE.put(key, plan, plan.av.nbytes + plan.ah.nbytes)
+    with _PLAN_BUILDS_LOCK:
+        build = _PLAN_BUILDS.setdefault(key, threading.Lock())
+    with build:
+        plan = _PLAN_CACHE.get(key)
+        if plan is None:
+            plan = _plan_image_uncached(src_w, src_h, params, filter_name,
+                                        opaque)
+            _PLAN_CACHE.put(key, plan, plan.av.nbytes + plan.ah.nbytes)
+    with _PLAN_BUILDS_LOCK:
+        if _PLAN_BUILDS.get(key) is build:
+            del _PLAN_BUILDS[key]
     return plan
 
 
@@ -194,20 +209,21 @@ def _uniform_entry(plan: ImagePlan):
 
 
 def _pack_params(plans, b: int, sh: int, sw: int, oh: int, ow: int,
-                 uniform: bool, has_blur: bool):
+                 uniform: bool, has_blur: bool, zeros=np.zeros):
     """The per-image parameter arrays: (flags, fill, box) always;
     padded per-image (av, ah) and blur (bv, bh) stacks when the batch
-    isn't uniform (identity blur for images without one)."""
-    flags = np.zeros((b, 3), dtype=np.float32)
-    fill = np.zeros((b, 3), dtype=np.float32)
-    box = np.zeros((b, 4), dtype=np.int32)
+    isn't uniform (identity blur for images without one). `zeros`
+    allocates each zeroed array (the batch's upload staging)."""
+    flags = zeros((b, 3), dtype=np.float32)
+    fill = zeros((b, 3), dtype=np.float32)
+    box = zeros((b, 4), dtype=np.int32)
     av = ah = bv = bh = None
     if not uniform:
-        av = np.zeros((b, oh, sh), dtype=np.float32)
-        ah = np.zeros((b, ow, sw), dtype=np.float32)
+        av = zeros((b, oh, sh), dtype=np.float32)
+        ah = zeros((b, ow, sw), dtype=np.float32)
         if has_blur:
-            bv = np.zeros((b, oh, oh), dtype=np.float32)
-            bh = np.zeros((b, ow, ow), dtype=np.float32)
+            bv = zeros((b, oh, oh), dtype=np.float32)
+            bh = zeros((b, ow, ow), dtype=np.float32)
     for i, p in enumerate(plans):
         flags[i] = (float(p.gray), float(p.invert), float(p.use_canvas))
         fill[i] = p.fill

@@ -11,13 +11,18 @@ request semantics:
   processing errors — all three served with the fallback image when
   one is configured;
 * middleware: request trace log with latency (ms), 10 s timeout ->
-  408, concurrency cap = max_clients (main.rs:91-111);
+  408, concurrency cap = max_clients (main.rs:91-111); the timeout
+  middleware publishes the request's deadline and cancel event to the
+  micro-batcher, which sheds abandoned requests before device work;
 * response headers: Content-Type, Vary: Accept when webp/avif was
   requested, Server-Timing with f_fetch / f_process marks.
 
-One process, one device, one request per device call: there is no
-micro-batcher, mesh, compile cache or warmup yet. Config options whose
-code is not in the port raise at startup (`check_ported`).
+One process, one device. The engine serves through the micro-batcher
+(`engine.batcher`, `tpu.max_batch`, `batch_window_ms`,
+`pipeline_depth`, `max_queue`): concurrent requests of one shape group
+share a device batch. There is no mesh, compile cache or warmup yet.
+Config options whose code is not in the port raise at startup
+(`check_ported`).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import threading
 import time
 from typing import Optional
 
@@ -41,6 +47,9 @@ from fanlin_tpu.utils.bytelru import ByteLRU
 
 from .. import device as device_mod
 from ..engine import Engine, native_codecs
+from ..engine.batcher import (REQUEST_CANCEL, REQUEST_DEADLINE,
+                              BatcherOverload, BatchingRunner, MicroBatcher,
+                              RequestExpired)
 from ..ops import jpeg_decode_kernels, resample_kernels
 from .state import State
 
@@ -162,6 +171,13 @@ async def generic_handler(request: web.Request) -> web.Response:
             original, params, accepted, marks
         )
     except Exception as err:
+        if isinstance(err, BatcherOverload):
+            # admission control (tpu.max_queue): shed, don't queue
+            return web.Response(status=503, text="server overloaded")
+        if isinstance(err, RequestExpired):
+            # the batcher shed the entry at its deadline; the timeout
+            # middleware has usually answered 408 already
+            return web.Response(status=408)
         log.error("failed to process an image; %s %r", path, err)
         return await _fallback_or_message(
             state, path, params, accepted, 500, "server error on processing an image"
@@ -184,10 +200,13 @@ async def ping_handler(request: web.Request) -> web.Response:
 
 async def stats_handler(request: web.Request) -> web.Response:
     """Additive observability endpoint (the reference has none):
-    engine counters, the CUDA kernels' launch counts, cache stats."""
+    engine and batcher counters, the CUDA kernels' launch counts, cache
+    stats."""
     state: State = request.app[STATE_KEY]
+    batcher = getattr(state.engine.runner, "batcher", None)
     body = {
         "engine": dict(state.engine.stats),
+        "batcher": dict(batcher.stats) if batcher is not None else None,
         "kernel_launches": {**resample_kernels.launch_counts(),
                             **jpeg_decode_kernels.launch_counts()},
         "caches": {
@@ -220,10 +239,23 @@ async def trace_middleware(request: web.Request, handler):
 def make_timeout_middleware(timeout: float):
     @web.middleware
     async def timeout_middleware(request: web.Request, handler):
+        # the engine's worker thread inherits both through
+        # asyncio.to_thread's context copy: the batcher sheds an entry
+        # whose deadline passed or whose event fired before it pays
+        # staging or device time
+        REQUEST_DEADLINE.set(time.monotonic() + timeout)
+        cancel_ev = threading.Event()
+        REQUEST_CANCEL.set(cancel_ev)
         try:
             return await asyncio.wait_for(handler(request), timeout=timeout)
         except asyncio.TimeoutError:
+            cancel_ev.set()
             return web.Response(status=408)  # tower Timeout -> 408
+        except asyncio.CancelledError:
+            # client disconnect: work already handed to a thread or the
+            # batcher is not interrupted by the task's cancellation
+            cancel_ev.set()
+            raise
 
     return timeout_middleware
 
@@ -256,6 +288,9 @@ def create_app(cfg: config_mod.Config, state: State) -> web.Application:
 
     async def _cleanup(app_):
         await state.client.close()
+        batcher = getattr(state.engine.runner, "batcher", None)
+        if batcher is not None and not batcher.close():
+            log.error("batcher close timed out: device threads still busy")
 
     app.on_cleanup.append(_cleanup)
     return app
@@ -264,8 +299,11 @@ def create_app(cfg: config_mod.Config, state: State) -> web.Application:
 async def build_state(cfg: config_mod.Config,
                       device: Optional[torch.device] = None) -> State:
     """Startup sequence, mirroring reference main() (main.rs:63-81):
-    option check -> device -> infra client -> state -> fallback
-    preload (failure only warns).
+    option check -> device -> micro-batcher -> infra client -> state
+    -> fallback preload (failure only warns). The engine serves through
+    the micro-batcher (fanlin_tpu/server/app.py:488-495); the batcher's
+    failover knobs (`host_fallback`, `device_stall_s`, `spill_wait_ms`)
+    are not ported and do nothing.
 
     device: where the engine runs; defaults to CUDA and raises when
     CUDA is absent. Tests pass torch.device("cpu") explicitly."""
@@ -274,7 +312,12 @@ async def build_state(cfg: config_mod.Config,
     if device is None:
         device = device_mod.cuda_device()
     native_codecs.set_webp_method(cfg.tpu.webp_method)
-    engine = Engine(device, device_decode=cfg.tpu.device_decode)
+    batcher = MicroBatcher(cfg.tpu.max_batch, cfg.tpu.batch_window_ms,
+                           device=device,
+                           pipeline_depth=cfg.tpu.pipeline_depth,
+                           max_queue=cfg.tpu.max_queue)
+    engine = Engine(device, runner=BatchingRunner(batcher),
+                    device_decode=cfg.tpu.device_decode)
     if cfg.tpu.codec_threads:
         from concurrent.futures import ThreadPoolExecutor
 

@@ -210,25 +210,46 @@ def test_engine_counts_coef_src_and_matches_pixel_engine():
 
 @pytest.mark.parametrize("orientation", [1, 6])
 def test_engine_orientation_routes(orientation):
-    """EXIF orientation 1 takes the coefficient path; any other the
-    pixel path (coefficient-domain rotation is not ported yet). The
-    bytes are the pixel engine's either way."""
+    """EXIF orientation 1 and 6 (64 x 48 4:2:0, MCU-aligned) both take
+    the coefficient path; 6 rotates the coefficient grids. Orientation
+    1 gives the pixel engine's bytes; 6 its geometry, within the
+    transpose's rounding (tests/test_torch_orient.py holds it to 1 LSB
+    before the encode)."""
     data = _oriented_jpeg(orientation)
     coef, pixel = Engine(CPU), Engine(CPU, device_decode=False)
     q = parse_query("w=30&h=20")
-    assert coef.process_image(data, q, Format()) == \
-        pixel.process_image(data, q, Format())
-    want = {1: {"pixel_src": 0, "coef_src": 1},
-            6: {"pixel_src": 1, "coef_src": 0}}[orientation]
-    assert coef.stats == want
+    got = coef.process_image(data, q, Format())
+    want = pixel.process_image(data, q, Format())
+    assert coef.stats == {"pixel_src": 0, "coef_src": 1}
+    if orientation == 1:
+        assert got == want
+        return
+    assert got[0] == want[0] == "image/jpeg"
+    g, w = (np.asarray(Image.open(io.BytesIO(p)).convert("RGB"), np.float64)
+            for _, p in (got, want))
+    assert g.shape == w.shape == (20, 30, 3)
+    assert 10 * np.log10(255.0 ** 2 / np.mean((g - w) ** 2)) >= 40.0
 
 
 def test_engine_refused_jpeg_takes_pixel_path():
+    """A JPEG the reader refuses (CMYK) is decoded on the host."""
     buf = io.BytesIO()
-    Image.fromarray(make_test_image(64, 48)).save(buf, format="JPEG",
-                                                  progressive=True)
+    Image.fromarray(make_test_image(64, 48)).convert("CMYK").save(
+        buf, format="JPEG")
     engine = Engine(CPU)
     mime, _ = engine.process_image(buf.getvalue(), parse_query("w=30&h=20"),
                                    Format())
     assert mime == "image/jpeg"
     assert engine.stats == {"pixel_src": 1, "coef_src": 0}
+
+
+def test_engine_progressive_takes_coef_path():
+    """A progressive JPEG takes the coefficient path and gives the pixel
+    engine's bytes."""
+    data = _jpeg(make_test_image(101, 83, seed=9), quality=85,
+                 subsampling=2, progressive=True)
+    coef, pixel = Engine(CPU), Engine(CPU, device_decode=False)
+    q = parse_query("w=50&h=40")
+    assert coef.process_image(data, q, Format()) == \
+        pixel.process_image(data, q, Format())
+    assert coef.stats == {"pixel_src": 0, "coef_src": 1}

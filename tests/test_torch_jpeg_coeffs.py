@@ -6,7 +6,14 @@ Every key of the dict must be equal, arrays element for element with
 the same dtype and shape, on: the golden sources; PIL encodes at five
 sizes x three subsamplings x three qualities; native 4:4:0 streams; gray
 sources; restart-interval streams; streams cut inside the scan (libjpeg
-zero-fills and warns). Progressive, CMYK and garbage input return None.
+zero-fills and warns); progressive streams (4:4:4, 4:2:2, 4:2:0, gray,
+odd dims, restart intervals, cut inside a scan or between scans).
+
+What the reader refuses (None, and the caller decodes pixels): CMYK,
+arithmetic coding (SOF9), 12-bit samples, streams without DHT segments
+(libjpeg substitutes its standard tables), a progressive stream with an
+illegal successive-approximation value (libjpeg refuses it too),
+empty, garbage and header-only input.
 """
 
 import io
@@ -128,10 +135,50 @@ def test_restart_stream_cut_inside_the_scan(frac):
     _assert_same(data[: s0 + int((len(data) - s0) * frac)])
 
 
+def _segments(data: bytes):
+    """(marker, offset) of every marker segment before the first scan
+    and between scans (entropy-coded bytes skipped)."""
+    out, i = [], 2
+    while i + 4 <= len(data):
+        marker = data[i + 1]
+        out.append((marker, i))
+        length = data[i + 2] << 8 | data[i + 3]
+        i += 2 + length
+        if marker == 0xDA:  # skip the scan to the next marker
+            while i + 1 < len(data) and not (
+                    data[i] == 0xFF and data[i + 1] not in (0, 0xFF)
+                    and not 0xD0 <= data[i + 1] <= 0xD7):
+                i += 1
+            if data[i + 1] == 0xD9:
+                break
+    return out
+
+
 def _refused(kind):
     img = make_test_image(40, 30)
     if kind == "progressive":
-        return _pil_jpeg(img, quality=80, progressive=True)
+        # successive approximation Al = 14 in the first AC scan
+        data = bytearray(_pil_jpeg(img, quality=80, progressive=True))
+        sos = [o for m, o in _segments(bytes(data)) if m == 0xDA]
+        at = next(o for o in sos if data[o + 4] == 1 and data[o + 7] != 0)
+        data[at + 9] = 14
+        return bytes(data)
+    if kind == "arithmetic":
+        data = bytearray(_pil_jpeg(img, quality=80))
+        data[data.index(b"\xff\xc0") + 1] = 0xC9  # SOF9
+        return bytes(data)
+    if kind == "12bit":
+        data = bytearray(_pil_jpeg(img, quality=80))
+        data[data.index(b"\xff\xc0") + 4] = 12  # sample precision
+        return bytes(data)
+    if kind == "dht_less":
+        data = _pil_jpeg(img, quality=80)
+        for marker, at in reversed(_segments(data)):
+            if marker == 0xC4:
+                length = data[at + 2] << 8 | data[at + 3]
+                data = data[:at] + data[at + 2 + length:]
+        assert b"\xff\xc4" not in data[:data.index(b"\xff\xda")]
+        return data
     if kind == "cmyk":
         buf = io.BytesIO()
         Image.fromarray(img).convert("CMYK").save(buf, format="JPEG")
@@ -141,6 +188,66 @@ def _refused(kind):
 
 
 @pytest.mark.parametrize("kind", ["progressive", "cmyk", "empty", "garbage",
-                                  "zeros", "headers_only"])
+                                  "zeros", "headers_only", "arithmetic",
+                                  "12bit", "dht_less"])
 def test_refused_streams_return_none(kind):
     assert read_jpeg_coeffs(_refused(kind)) is None
+
+
+def _progressive(layout, w, h, quality, **kw):
+    img = make_test_image(w, h, seed=w * h + quality)
+    if layout == "gray":
+        img = np.asarray(Image.fromarray(img).convert("L"))
+    else:
+        kw["subsampling"] = {"444": 0, "422": 1, "420": 2}[layout]
+    data = _pil_jpeg(img, quality=quality, progressive=True, **kw)
+    assert b"\xff\xc2" in data  # SOF2
+    return data
+
+
+@needs_native
+@pytest.mark.parametrize("quality", [40, 90])
+@pytest.mark.parametrize("layout", ["444", "422", "420", "gray"])
+@pytest.mark.parametrize("dims", [(512, 512), (101, 83), (37, 23), (7, 5)])
+def test_progressive_streams(dims, layout, quality):
+    """DC first/refine and AC first/refine scans with EOB runs (libjpeg's
+    default progression script), array-equal to libjpeg."""
+    m = _assert_same(_progressive(layout, *dims, quality))
+    assert (m["w"], m["h"]) == dims
+    assert m["subsamp"] == {"444": 444, "422": 422, "420": 420,
+                            "gray": 444}[layout]
+
+
+@needs_native
+@pytest.mark.parametrize("layout", ["444", "420"])
+@pytest.mark.parametrize("restart", [{"restart_marker_rows": 1},
+                                     {"restart_marker_blocks": 3}])
+def test_progressive_restart_streams(restart, layout):
+    data = _progressive(layout, 101, 83, 80, **restart)
+    assert b"\xff\xdd" in data  # a DRI marker
+    _assert_same(data)
+
+
+@needs_native
+@pytest.mark.parametrize("layout", ["444", "420"])
+@pytest.mark.parametrize("where", ["first_scans", "late_scan", "between_scans",
+                                   "restart"])
+def test_progressive_streams_cut(where, layout):
+    """Cut inside a scan (the rest of that scan, and every later scan,
+    stays zero) or inside a DHT segment between scans (libjpeg parses
+    its fake EOI bytes as the table, then stops)."""
+    data = _progressive(layout, 101, 83, 80,
+                        **({"restart_marker_blocks": 3}
+                           if where == "restart" else {}))
+    scans = [o for m, o in _segments(data) if m == 0xDA]
+    if where == "between_scans":
+        dht = [o for m, o in _segments(data) if m == 0xC4 and o > scans[1]]
+        # marker, length, class/index and 16 counts, then one symbol
+        cut = dht[0] + 22
+        assert data[dht[0] + 2] << 8 | data[dht[0] + 3] > 21
+    elif where == "first_scans":
+        cut = scans[0] + (scans[1] - scans[0]) // 2
+    else:
+        cut = scans[-2] + (scans[-1] - scans[-2]) // 2
+    m = _assert_same(data[:cut])
+    assert m["y"].any()
