@@ -2,9 +2,10 @@
 
 A port of `fanlin_tpu` (JAX/XLA/Pallas) to PyTorch for an NVIDIA
 H100. It serves the same query API through the same HTTP entry point.
-Host modules that import no jax are reused from `fanlin_tpu` by import
-(config, spec, infra, utils, ops.filters, server.router/timing); the
-rest are ported module by module under the same names:
+The host modules that hold no device code are carried over as copies
+under the same names (config, spec, infra, utils.{bytelru, paths,
+logging}, ops.filters, server.{router, timing}); the rest are ported
+module by module under the same names:
 
   device      -> precision policy, explicit CUDA device
   ops.plan    -> per-image geometry plans and padded matrices
@@ -13,7 +14,7 @@ rest are ported module by module under the same names:
                  Pallas kernel of fanlin_tpu/ops/pallas_kernels.py)
   ops.jpeg_decode, ops.jpeg_decode_kernels + csrc/jpeg_decode.cu
               -> the coefficient decode (islow iDCT, upsample, colour):
-                 plain torch versions and two CUDA kernels
+                 plain torch versions and one fused CUDA kernel
   ops.fused   -> the transform chain, encode tails, BatchAssembly,
                  CoefBatchAssembly
   engine      -> codecs, jpeg_coeffs (the host JPEG entropy reader,
@@ -21,7 +22,7 @@ rest are ported module by module under the same names:
   server      -> aiohttp gateway
   cli         -> ``python -m fanlin_tpu_torch.cli -j '{...}'``
 
-This package imports torch and never jax.
+This package imports torch and nothing of jax or of `fanlin_tpu`.
 """
 
 __version__ = "0.1.0"

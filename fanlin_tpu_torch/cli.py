@@ -14,10 +14,9 @@ import sys
 
 from aiohttp import web
 
-from fanlin_tpu import config as config_mod
-from fanlin_tpu.utils import logging as json_logging
-
+from . import config as config_mod
 from .server.app import build_state, check_ported, create_app
+from .utils import logging as json_logging
 
 
 def parse_args(argv=None) -> argparse.Namespace:

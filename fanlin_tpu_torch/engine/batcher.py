@@ -27,8 +27,8 @@ stall watchdog, soft-degrade, spillover, cold-compile warm threads and
 mesh are not in the port (`tpu.host_fallback`, `device_stall_s` and
 `spill_wait_ms` do nothing yet).
 
-The port defines its own contextvars and exceptions: importing
-fanlin_tpu.engine.batcher would import jax.
+The port defines its own contextvars and exceptions: it imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Host-side codec stages: format sniffing, decode to RGBA tensors,
 and bitstream encoders.
 
-Carried over from fanlin_tpu/engine/codecs.py, which cannot be
-imported without jax (its package imports the JAX engine). The
+Carried over from fanlin_tpu/engine/codecs.py: the port imports
+nothing of the JAX package. The
 decoders it reaches lazily in other modules (exr_codec, extra_codecs,
 png16, tiff16) are not ported yet: those sources raise CodecError.
 

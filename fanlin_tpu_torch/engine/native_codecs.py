@@ -1,7 +1,7 @@
 """ctypes binding for the native codec core (native/libfanlincodec.so).
 
-Carried over from fanlin_tpu/engine/native_codecs.py (which cannot be
-imported without jax: its package imports the JAX engine). It loads the
+Carried over from fanlin_tpu/engine/native_codecs.py (the port
+imports nothing of the JAX package). It loads the
 same `native/` build the same way; only the encoders and the pixel
 decoder are bound here. The coefficient path reads JPEGs with the
 port's own reader (`engine.jpeg_coeffs`), which needs no libjpeg.

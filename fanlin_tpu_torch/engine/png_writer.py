@@ -8,8 +8,8 @@ tiers mirror the reference's quality mapping
 Fast; filtering is Adaptive like the image crate's
 FilterType::Adaptive.
 
-Carried over from fanlin_tpu/engine/png_writer.py, which
-cannot be imported without jax (its package imports the JAX engine).
+Carried over from fanlin_tpu/engine/png_writer.py: the port imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations

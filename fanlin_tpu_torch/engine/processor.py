@@ -41,11 +41,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from fanlin_tpu.ops import filters
-from fanlin_tpu.spec import content as content_mod
-from fanlin_tpu.spec import query as query_mod
-
-from ..ops import fused, jpeg_decode, plan as plan_mod
+from ..ops import filters, fused, jpeg_decode, plan as plan_mod
+from ..spec import content as content_mod
+from ..spec import query as query_mod
 from . import codecs, jpeg_coeffs, native_codecs, png_writer, svg
 
 # read_jpeg_coeffs' subsampling layout -> the coefficient batch kind

@@ -6,8 +6,8 @@ image/svg+xml — transforms are never applied to SVG. Mirrors
 reference src/handler.rs:368-396 (including the odd-trailing-byte ->
 space quirk of the UTF-16 chunking).
 
-Carried over from fanlin_tpu/engine/svg.py, which
-cannot be imported without jax (its package imports the JAX engine)."""
+Carried over from fanlin_tpu/engine/svg.py: the port imports nothing
+of the JAX package."""
 
 from __future__ import annotations
 

@@ -33,12 +33,28 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 # computes the band ranges for them.
 TILE_M, TILE_N, K_SLICE = 64, 32, 32
 
-# No --use_fast_math: the split-TF32 residual x - tf32(x) and the
-# rounding epilogue need IEEE f32 (no flush to zero).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC",
-              f"-DFANLIN_TILE_M={TILE_M}", f"-DFANLIN_TILE_N={TILE_N}",
-              f"-DFANLIN_K_SLICE={K_SLICE}")
+# The fused decode kernel's tiles (csrc/jpeg_decode.cu): chroma rows and
+# output columns per CTA. A tile is DEC_TILE_H output rows high for
+# 4:4:4, gray and 4:2:2 and twice that for 4:2:0 and 4:4:0
+# (jpeg_decode_kernels.decode_tile); DEC_TILE_W divides every bucket_w
+# (a multiple of 128), so a row of tiles covers the output.
+# tools/torch_decode_tiles.py times other heights.
+DEC_TILE_H, DEC_TILE_W = 16, 128
+
+
+def nvcc_flags(dec_tile_h: int = DEC_TILE_H) -> tuple:
+    """nvcc's arguments, with the decode kernel's tile height given.
+    No --use_fast_math: the split-TF32 residual x - tf32(x) and the
+    rounding epilogue need IEEE f32 (no flush to zero)."""
+    return ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-Xcompiler", "-fPIC",
+            f"-DFANLIN_TILE_M={TILE_M}", f"-DFANLIN_TILE_N={TILE_N}",
+            f"-DFANLIN_K_SLICE={K_SLICE}",
+            f"-DFANLIN_DEC_TILE_H={dec_tile_h}",
+            f"-DFANLIN_DEC_TILE_W={DEC_TILE_W}")
+
+
+NVCC_FLAGS = nvcc_flags()
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -82,18 +98,18 @@ def _target(name: str, pattern: str, flags) -> tuple:
     return sources, BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
+def build(flags: tuple = NVCC_FLAGS) -> Path:
     """Compile the kernel library if this exact source is not built
-    yet; returns its path. Each source compiles in its own nvcc
-    process, all started together; one more links them."""
-    sources, lib = _target("fanlin_kernels", "*.cu", NVCC_FLAGS)
+    yet with these flags; returns its path. Each source compiles in its
+    own nvcc process, all started together; one more links them."""
+    sources, lib = _target("fanlin_kernels", "*.cu", flags)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{lib.stem}.{os.getpid()}"
     nvcc = _nvcc()
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
-    jobs = [_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+    jobs = [_start([nvcc, *flags, "-c", "-o", str(obj), str(src)])
             for src, obj in zip(sources, objs)]
     for job in jobs:
         _run(job)
@@ -152,21 +168,27 @@ def load_host() -> ctypes.CDLL:
         return _HOST_LIB
 
 
-def load() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, argtypes in (
+            ("fanlin_resample_uniform", [p] * 13 + [i] * 10 + [p]),
+            ("fanlin_jpeg_islow", [p] * 7 + [i] * 5 + [p]),
+            ("fanlin_jpeg_upsample_rgb", [p] * 4 + [i] * 10 + [p]),
+            ("fanlin_jpeg_decode_rgb", [p] * 5 + [i] * 13 + [p])):
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def load(flags: tuple | None = None) -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared. Given
+    `flags` (see `nvcc_flags`), a library built with those instead,
+    loaded anew on each call (tools/torch_decode_tiles.py)."""
     global _LIB
+    if flags is not None:
+        return _declare(ctypes.CDLL(str(build(flags))))
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            fn = lib.fanlin_resample_uniform
-            fn.argtypes = [p] * 13 + [i] * 10 + [p]
-            fn.restype = ctypes.c_int
-            fn = lib.fanlin_jpeg_islow
-            fn.argtypes = [p] * 7 + [i] * 5 + [p]
-            fn.restype = ctypes.c_int
-            fn = lib.fanlin_jpeg_upsample_rgb
-            fn.argtypes = [p] * 4 + [i] * 10 + [p]
-            fn.restype = ctypes.c_int
-            _LIB = lib
+            _LIB = _declare(ctypes.CDLL(str(build())))
         return _LIB

@@ -16,8 +16,8 @@ each image's result out of the pinned buffers, so the batcher's collect
 thread never touches a device tensor. On the CPU (tests) the same code
 runs on plain host arrays with no event.
 
-Routing: a coefficient batch is decoded on the device by the two
-decode kernels (`jpeg_decode_kernels`), which write the same
+Routing: a coefficient batch is decoded on the device by the decode
+kernel (`jpeg_decode_kernels.jpeg_decode_rgb`), which writes the same
 (B, 3, SH, SW) u8 batch a pixel upload would give. Every uniform batch
 of opaque (3-channel) sources then goes through the hand-written CUDA
 resample kernel (`resample_kernels.resample_uniform`), whatever its
@@ -31,10 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fanlin_tpu.ops import filters
-from fanlin_tpu.utils.bytelru import ByteLRU
-
-from . import jpeg_decode, jpeg_decode_kernels, resample_kernels
+from ..utils.bytelru import ByteLRU
+from . import filters, jpeg_decode, jpeg_decode_kernels, resample_kernels
 from .chain import _transform_kernel, _transform_kernel_uniform
 from .plan import (_pack_params, _uniform_bands, _uniform_padded, bucket_b,
                    bucket_h, bucket_h16, bucket_w, plan_image)
@@ -379,15 +377,14 @@ class CoefBatchAssembly(BatchAssembly):
     """Host staging for one device batch of JPEG coefficient sources:
     the host half of fanlin_tpu/ops/fused.py CoefBatchAssembly
     (:1695-1829, :2065-2166). The device `x` comes from the decode
-    kernels (K3 `jpeg_islow`, K4 `jpeg_upsample_rgb`) instead of an
-    upload of pixels; everything after it is BatchAssembly's.
+    kernel (`jpeg_decode_rgb`) instead of an upload of pixels;
+    everything after it is BatchAssembly's.
 
     The wire is the simplest lossless one: int16 natural-order block
     grids, zero-padded to the bucket's block grid (luma bucket_h16 / 8
     by bucket_w / 8, chroma divided by chroma_divisors), uploaded as one
-    buffer, and the quant tables as (B, 2, 64) int32. Zero blocks
-    decode to flat 128 and lie outside the true rect, which K4 alone
-    reads."""
+    buffer, and the quant tables as (B, 2, 64) int32. The kernel reads
+    only the blocks of the true rect of the batch's real images."""
 
     def __init__(self, plans, metas, device: torch.device, jpeg420=False):
         """metas: read_jpeg_coeffs dicts (either package's), all of one
@@ -404,8 +401,8 @@ class CoefBatchAssembly(BatchAssembly):
         self.device = device
         self._io = _Transfer(device)
         self.b = bucket_b(len(plans))
-        # K4 writes the pixel batch's layout, so the resample sees what
-        # a pixel batch of this source would upload
+        # the decode writes the pixel batch's layout, so the resample
+        # sees what a pixel batch of this source would upload
         self.sh = bucket_h(self.true_h)
         self.sw = bucket_w(self.true_w)
         self.oh = bucket_h(max(p.out_h for p in plans))
@@ -462,11 +459,11 @@ class CoefBatchAssembly(BatchAssembly):
         return y, cb, cr, q
 
     def _device_x(self):
-        """Upload the block grids and decode them on the device:
-        K3 then K4, (B, 3, sh, sw) u8."""
-        planes = jpeg_decode_kernels.jpeg_islow(*self.device_wire())
-        return jpeg_decode_kernels.jpeg_upsample_rgb(
-            *planes, self.subsamp, self.true_h, self.true_w, self.sh, self.sw)
+        """Upload the block grids and decode them on the device in one
+        launch: (B, 3, sh, sw) u8."""
+        return jpeg_decode_kernels.jpeg_decode_rgb(
+            *self.device_wire(), self.subsamp, self.true_h, self.true_w,
+            self.sh, self.sw, len(self.plans))
 
 
 _COEF_KINDS = ("coef", "coef444", "coef422", "coef440")

@@ -6,8 +6,8 @@ applied to the coefficient grids on the host.
 Port of fanlin_tpu/ops/jpeg_decode.py:88-361, :645 and :925-1025 with
 the same names and the same int32 arithmetic (arithmetic right shifts,
 wrapping products, saturation after the iDCT), on the device of the
-given tensors. These are the plain versions of the two CUDA kernels in
-`ops.jpeg_decode_kernels` (K3 `jpeg_islow`, K4 `jpeg_upsample_rgb`),
+given tensors. These are the plain versions of the CUDA decode kernels
+in `ops.jpeg_decode_kernels` (`jpeg_decode_rgb`, and K3/K4 before it),
 and the tests hold each against its JAX twin array for array.
 """
 

@@ -1,21 +1,27 @@
 """The coefficient decode kernels: wrappers, plain versions, launch counts.
 
-K3 `jpeg_islow` and K4 `jpeg_upsample_rgb` (`csrc/jpeg_decode.cu`; see
-the note at the top of that file for what they replace and what bounds
-them) take the JAX package's coefficient decode (fanlin_tpu/ops/
-jpeg_decode.py, run as an XLA prologue of get_coef_program) to the
-card as two launches. On a CUDA tensor each wrapper launches its
-kernel; on a CPU tensor it runs its plain torch version, built from
-`ops.jpeg_decode`. There is no fallback: a failed build or launch
-raises. Both are integer work, bit-exact against the plain versions.
+`jpeg_decode_rgb` (`csrc/jpeg_decode.cu`; see the note at the top of
+that file for what it replaces, what bounds it and its design) takes the
+JAX package's coefficient decode (fanlin_tpu/ops/jpeg_decode.py, run as
+an XLA prologue of get_coef_program) to the card as one tiled launch:
+y (B, ybh, ybw, 64), cb and cr (B, cbh, cbw, 64) int16 natural-order
+blocks and q (B, 2, 64) int32 quant tables (luma, chroma) -> (B, 3,
+out_h, out_w) u8 RGB: dequant, islow iDCT, the layout's fancy upsample
+at the true chroma dims and jdcolor's conversion inside the true
+(true_h, true_w) rect, zeros outside it. Images i >= n are the batch's
+bucket padding: they decode as zero coefficients do, 128 inside the true
+rect, and their wire is never read.
 
-K3: y (B, ybh, ybw, 64), cb and cr (B, cbh, cbw, 64) int16 natural-order
-blocks; q (B, 2, 64) int32 quant tables (luma, chroma) -> the three u8
-sample planes (B, 8*bh, 8*bw).
+K3 `jpeg_islow` (blocks -> the three u8 sample planes (B, 8*bh, 8*bw))
+and K4 `jpeg_upsample_rgb` (the planes -> RGB) are its first form, two
+launches with the planes in device memory. Nothing on the serving path
+launches them; they stay as the yardstick the fused kernel is timed
+against, and their plain versions compose its plain version.
 
-K4: the three planes -> (B, 3, out_h, out_w) u8 RGB, the layout's fancy
-upsample at the true chroma dims and jdcolor's conversion inside the
-true (true_h, true_w) rect, zeros outside it.
+On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it
+runs its plain torch version, built from `ops.jpeg_decode`. There is no
+fallback: a failed build or launch raises. All are integer work,
+bit-exact against the plain versions.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import threading
 import torch
 
 from . import _build
+from ._build import DEC_TILE_H, DEC_TILE_W
 from . import jpeg_decode as jd
 
 _U8 = torch.uint8
@@ -34,7 +41,15 @@ _I32 = torch.int32
 # Launches of each CUDA kernel. Incremented only where the kernel is
 # launched; the CPU path and the plain versions never count.
 _COUNT_LOCK = threading.Lock()
-_LAUNCHES = {"jpeg_islow": 0, "jpeg_upsample_rgb": 0}
+_LAUNCHES = {"jpeg_decode_rgb": 0, "jpeg_islow": 0,
+             "jpeg_upsample_rgb": 0}
+
+
+def decode_tile(subsamp: int) -> tuple:
+    """(rows, cols) of output pixels in one of jpeg_decode_rgb's CTAs:
+    DEC_TILE_H chroma rows, so twice as many output rows where chroma is
+    halved vertically."""
+    return DEC_TILE_H * jd.chroma_divisors(subsamp)[0], DEC_TILE_W
 
 
 def launch_counts() -> dict:
@@ -163,3 +178,67 @@ def jpeg_upsample_rgb_ref(yp, cbp, crp, subsamp: int, true_h: int,
     cr = jd.upsample_chroma(crp.to(_I32), subsamp, true_h, true_w)
     rgb = torch.stack(jd.ycbcr_to_rgb_int(y, cb, cr), dim=1).to(_U8)
     return torch.nn.functional.pad(rgb, (0, out_w - true_w, 0, out_h - true_h))
+
+
+def _decode_rgb_args(y, cb, cr, q, subsamp, true_h, true_w, out_h, out_w, n):
+    dev = y.device
+    for t, name in ((y, "y"), (cb, "cb"), (cr, "cr")):
+        _check(t, name, _I16, 4, dev, 16)
+    _check(q, "q", _I32, 3, dev, 16)
+    b, ybh, ybw, k = y.shape
+    _, cbh, cbw, _ = cb.shape
+    if (k != 64 or tuple(cb.shape) != (b, cbh, cbw, 64)
+            or cr.shape != cb.shape or tuple(q.shape) != (b, 2, 64)):
+        raise ValueError("expected y (B, ybh, ybw, 64), cb and cr (B, cbh, "
+                         "cbw, 64) and q (B, 2, 64)")
+    if subsamp not in (420, 422, 440, 444):
+        raise ValueError(f"subsamp {subsamp}: expected 420, 422, 440 or 444")
+    dv, dh = jd.chroma_divisors(subsamp)
+    if not (0 < true_h <= min(out_h, 8 * ybh)
+            and 0 < true_w <= min(out_w, 8 * ybw)
+            and -(-true_h // dv) <= 8 * cbh and -(-true_w // dh) <= 8 * cbw
+            and out_w % DEC_TILE_W == 0 and 0 <= n <= b):
+        raise ValueError(f"true dims {(true_h, true_w)} do not fit the grids "
+                         f"{tuple(y.shape)}, {tuple(cb.shape)} or the output "
+                         f"{(out_h, out_w)} (width a multiple of "
+                         f"{DEC_TILE_W}), or n={n} is not in [0, {b}]")
+
+
+def jpeg_decode_rgb(y, cb, cr, q, subsamp: int, true_h: int, true_w: int,
+                    out_h: int, out_w: int, n: int):
+    """The whole decode of a batch: block grids -> (B, 3, out_h, out_w)
+    u8 RGB, zero outside the true rect; images i >= n decode as zero
+    coefficients. One launch on CUDA."""
+    _decode_rgb_args(y, cb, cr, q, subsamp, true_h, true_w, out_h, out_w, n)
+    dev = y.device
+    if dev.type == "cpu":
+        return jpeg_decode_rgb_ref(y, cb, cr, q, subsamp, true_h, true_w,
+                                   out_h, out_w, n)
+    if dev.type != "cuda":
+        raise ValueError(f"jpeg_decode_rgb: unsupported device {dev}")
+    lib = _build.load()
+    b, ybh, ybw, _ = y.shape
+    _, cbh, cbw, _ = cb.shape
+    out = torch.empty((b, 3, out_h, out_w), dtype=_U8, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fanlin_jpeg_decode_rgb(
+            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), q.data_ptr(),
+            out.data_ptr(), b, n, ybh, ybw, cbh, cbw, subsamp, true_h, true_w,
+            out_h, out_w, *decode_tile(subsamp), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"jpeg_decode_rgb launch failed: CUDA error {rc}")
+    _count("jpeg_decode_rgb")
+    return out
+
+
+def jpeg_decode_rgb_ref(y, cb, cr, q, subsamp: int, true_h: int, true_w: int,
+                        out_h: int, out_w: int, n: int):
+    """Plain torch version of jpeg_decode_rgb, on any device: K3's and
+    K4's plain versions composed, then images i >= n set to what zero
+    coefficients decode to (128 inside the true rect, 0 outside)."""
+    rgb = jpeg_upsample_rgb_ref(*jpeg_islow_ref(y, cb, cr, q), subsamp,
+                                true_h, true_w, out_h, out_w)
+    if n < rgb.shape[0]:
+        rgb[n:] = 0
+        rgb[n:, :, :true_h, :true_w] = 128
+    return rgb

@@ -2,9 +2,10 @@
 and their band ranges for the CUDA kernel.
 
 Port of fanlin_tpu/ops/fused.py:47-183 and 1026-1093 (numpy only,
-built on the shared `fanlin_tpu.ops.filters`). The bucket tables are
-kept as they are: batch grouping and the uniform-matrix caches key on
-them, and the tests hold every plan equal to the reference's.
+built on `ops.filters`, the port's copy of the JAX package's). The
+bucket tables are kept as they are: batch grouping and the
+uniform-matrix caches key on them, and the tests hold every plan equal
+to the reference's.
 """
 
 from __future__ import annotations
@@ -15,9 +16,8 @@ from typing import Tuple
 
 import numpy as np
 
-from fanlin_tpu.ops import filters
-from fanlin_tpu.utils.bytelru import ByteLRU
-
+from ..utils.bytelru import ByteLRU
+from . import filters
 from .resample_kernels import band_ranges
 
 # Shape buckets: H padded to a multiple of 8, W to a multiple of 128.
@@ -178,7 +178,7 @@ def _uniform_bands(plan: ImagePlan) -> np.ndarray:
 
 def _uniform_entry(plan: ImagePlan):
     # Coefficient batches use these entries unchanged: the decode
-    # kernel K4 writes the same (bucket_h, bucket_w) source layout as a
+    # kernel writes the same (bucket_h, bucket_w) source layout as a
     # pixel upload, with rows and columns past the true dims zero (and
     # the matrices' columns there zero too).
     key = id(plan)

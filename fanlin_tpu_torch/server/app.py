@@ -37,21 +37,20 @@ from typing import Optional
 import torch
 from aiohttp import web
 
-from fanlin_tpu import config as config_mod
-from fanlin_tpu.infra import Client
-from fanlin_tpu.server.timing import HEADER_KEY as TIMING_HEADER
-from fanlin_tpu.server.timing import Timer
-from fanlin_tpu.spec import content as content_mod
-from fanlin_tpu.spec import query as query_mod
-from fanlin_tpu.utils.bytelru import ByteLRU
-
+from .. import config as config_mod
 from .. import device as device_mod
 from ..engine import Engine, native_codecs
 from ..engine.batcher import (REQUEST_CANCEL, REQUEST_DEADLINE,
                               BatcherOverload, BatchingRunner, MicroBatcher,
                               RequestExpired)
+from ..infra import Client
 from ..ops import jpeg_decode_kernels, resample_kernels
+from ..spec import content as content_mod
+from ..spec import query as query_mod
+from ..utils.bytelru import ByteLRU
 from .state import State
+from .timing import HEADER_KEY as TIMING_HEADER
+from .timing import Timer
 
 log = logging.getLogger("fanlin.server")
 

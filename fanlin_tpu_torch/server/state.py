@@ -1,9 +1,9 @@
 """Gateway state: provider routing, origin dispatch, fallback images.
 
 Port of fanlin_tpu/server/state.py (reference src/handler.rs:13-183)
-around the port's `Engine`; routing, origins and paths are the shared
-`fanlin_tpu.server.router`, `fanlin_tpu.infra` and
-`fanlin_tpu.utils.paths`:
+around the port's `Engine`; routing, origins and paths are the port's
+copies of the JAX package's host modules (`server.router`, `infra`,
+`utils.paths`):
 
 * ``get_image`` routes the request path to a provider and dispatches
   on the src URI scheme (s3 / http / https / file); unknown schemes
@@ -19,14 +19,13 @@ import asyncio
 from typing import Dict, List, Optional, Tuple
 from urllib.parse import urlsplit
 
-from fanlin_tpu import config as config_mod
-from fanlin_tpu.infra import Client
-from fanlin_tpu.server.router import Router
-from fanlin_tpu.spec import content as content_mod
-from fanlin_tpu.spec import query as query_mod
-from fanlin_tpu.utils import paths
-
+from .. import config as config_mod
 from ..engine import Engine
+from ..infra import Client
+from ..spec import content as content_mod
+from ..spec import query as query_mod
+from ..utils import paths
+from .router import Router
 
 
 class State:

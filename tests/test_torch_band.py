@@ -25,14 +25,15 @@ import pytest
 import torch
 
 from chip_smoke import SHAPES
-from fanlin_tpu.ops import filters
 from fanlin_tpu.ops import fused as jfused
 from fanlin_tpu.ops import pallas_kernels
-from fanlin_tpu.spec.query import parse_query
+from fanlin_tpu.spec.query import parse_query as jparse_query
+from fanlin_tpu_torch.ops import filters
 from fanlin_tpu_torch.ops import fused as tfused
 from fanlin_tpu_torch.ops import plan as tplan
 from fanlin_tpu_torch.ops import resample_kernels as rk
 from fanlin_tpu_torch.ops.chain import _post_resample
+from fanlin_tpu_torch.spec.query import parse_query
 from tests.conftest import make_test_image
 
 CPU = torch.device("cpu")
@@ -301,7 +302,7 @@ def banded_chain(flags, fill, box, av, ah, x, bv=None, bh=None, prod=prod_f32):
 
 
 def _case(query, src=64, seeds=(0, 1)):
-    plan = jfused.plan_image(src, src, parse_query(query), opaque=True)
+    plan = jfused.plan_image(src, src, jparse_query(query), opaque=True)
     imgs = [make_test_image(src, src, seed=s) for s in seeds]
     asm = jfused.BatchAssembly([plan] * len(imgs), imgs)
     av, ah, bv, bh = jfused._uniform_padded(plan)

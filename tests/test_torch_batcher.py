@@ -22,13 +22,14 @@ from PIL import Image
 from fanlin_tpu.engine import batcher as jbatcher
 from fanlin_tpu.engine import native_codecs
 from fanlin_tpu.ops import fused as jfused
-from fanlin_tpu.spec.query import parse_query
+from fanlin_tpu.spec.query import parse_query as jparse_query
 from fanlin_tpu_torch.engine import batcher as batcher_mod
 from fanlin_tpu_torch.engine.batcher import (BatcherOverload, BatchingRunner,
                                              MicroBatcher, _group_key)
 from fanlin_tpu_torch.engine.jpeg_coeffs import read_jpeg_coeffs
 from fanlin_tpu_torch.ops import fused
 from fanlin_tpu_torch.ops import plan as plan_mod
+from fanlin_tpu_torch.spec.query import parse_query
 from tests.conftest import make_test_image
 
 CPU = torch.device("cpu")
@@ -82,7 +83,8 @@ def test_batched_results_match_sync():
 
     for i in range(6):
         np.testing.assert_array_equal(results[i], _single(imgs[i], q))
-        _close(results[i], jfused.transform_single(imgs[i], q))
+        _close(results[i], jfused.transform_single(
+            imgs[i], jparse_query("w=32&h=32")))
 
 
 def test_mixed_shapes_group_separately():
@@ -303,10 +305,10 @@ KINDS = ["rgb", "jpeg420", "webp420", "png:1", "png:3", "png:4", "jpegdct:75",
 @pytest.mark.parametrize("kind", KINDS)
 def test_group_key_matches_jax(kind):
     for w, h, qs in PLAN_CASES:
-        q = parse_query(qs)
-        got = _group_key(plan_mod.plan_image(w, h, q, opaque=True), kind)
-        want = jbatcher._group_key(jfused.plan_image(w, h, q, opaque=True),
-                                   kind)
+        got = _group_key(
+            plan_mod.plan_image(w, h, parse_query(qs), opaque=True), kind)
+        want = jbatcher._group_key(
+            jfused.plan_image(w, h, jparse_query(qs), opaque=True), kind)
         assert got == want, (w, h, qs)
 
 
@@ -364,7 +366,8 @@ def test_batched_coef_outputs_match_jax_and_serial():
             continue
         np.testing.assert_array_equal(got, serial)
         jm = jmetas[n]
-        jp = jfused.plan_image(jm["w"], jm["h"], parse_query(qs), opaque=True)
+        jp = jfused.plan_image(jm["w"], jm["h"], jparse_query(qs),
+                               opaque=True)
         _close(got, jfused.CoefBatchAssembly([jp], [jm]).run()[0])
 
 

@@ -19,14 +19,15 @@ from PIL import Image
 
 from fanlin_tpu.engine import native_codecs
 from fanlin_tpu.ops import fused as jfused
-from fanlin_tpu.spec.content import Format
-from fanlin_tpu.spec.query import parse_query
+from fanlin_tpu.spec.query import parse_query as jparse_query
 from fanlin_tpu_torch.engine import Engine, codecs
 from fanlin_tpu_torch.engine.jpeg_coeffs import read_jpeg_coeffs
 from fanlin_tpu_torch.ops import fused as tfused
 from fanlin_tpu_torch.ops import jpeg_decode_kernels as jk
 from fanlin_tpu_torch.ops import plan as tplan
 from fanlin_tpu_torch.ops import resample_kernels as rk
+from fanlin_tpu_torch.spec.content import Format
+from fanlin_tpu_torch.spec.query import parse_query
 from tests.conftest import make_test_image
 
 CPU = torch.device("cpu")
@@ -88,7 +89,7 @@ def _run(meta, qs, kind_sink=""):
 def test_coef_assembly_matches_jax(name, qs):
     data = _golden(name)
     meta = native_codecs.read_jpeg_coeffs(data)  # the JAX package's dict
-    jplan = jfused.plan_image(meta["w"], meta["h"], parse_query(qs),
+    jplan = jfused.plan_image(meta["w"], meta["h"], jparse_query(qs),
                               opaque=True)
     want = jfused.CoefBatchAssembly([jplan], [meta]).run()[0]
     _close(_run(meta, qs), want)

@@ -18,12 +18,14 @@ import torch
 from PIL import Image
 
 from fanlin_tpu.engine import Engine as JaxEngine
-from fanlin_tpu.spec.content import Format, extract_accepted_image_formats
-from fanlin_tpu.spec.query import parse_query
+from fanlin_tpu.spec import content as jcontent
+from fanlin_tpu.spec.query import parse_query as jparse_query
 from fanlin_tpu_torch.engine import Engine, ProcessError, codecs
 from fanlin_tpu_torch.ops import fused as tfused
 from fanlin_tpu_torch.ops import plan as tplan
 from fanlin_tpu_torch.ops import resample_kernels as rk
+from fanlin_tpu_torch.spec.content import Format, extract_accepted_image_formats
+from fanlin_tpu_torch.spec.query import parse_query
 from tests.conftest import make_test_image, psnr
 from tests.test_golden_parity import CASES
 
@@ -63,7 +65,8 @@ def test_engine_matches_reference_and_golden(engines, src_name, cfg, qs):
     data = _src(src_name)
     q = parse_query(qs)
     mime, payload = port.process_image(data, q, Format())
-    ref_mime, ref_payload = ref.process_image(data, q, Format())
+    ref_mime, ref_payload = ref.process_image(data, jparse_query(qs),
+                                              jcontent.Format())
     assert mime == ref_mime == "image/jpeg"
     got = _decode(payload)
     assert _max_lsb(got, _decode(ref_payload)) <= 1
@@ -87,9 +90,10 @@ def test_engine_matches_reference_and_golden(engines, src_name, cfg, qs):
 def test_engine_output_formats(engines, qs, accept, mime):
     port, ref = engines
     data = _src("lenna")
-    fmt = extract_accepted_image_formats(accept)
-    got_mime, got = port.process_image(data, parse_query(qs), fmt)
-    ref_mime, want = ref.process_image(data, parse_query(qs), fmt)
+    got_mime, got = port.process_image(
+        data, parse_query(qs), extract_accepted_image_formats(accept))
+    ref_mime, want = ref.process_image(
+        data, jparse_query(qs), jcontent.extract_accepted_image_formats(accept))
     assert got_mime == ref_mime == mime
     assert _max_lsb(_decode(got), _decode(want)) <= 1
 
@@ -107,7 +111,8 @@ def test_engine_png_rgba_source(engines, qs):
     Image.fromarray(rgba, "RGBA").save(buf, format="PNG")
     data = buf.getvalue()
     got_mime, got = port.process_image(data, parse_query(qs), Format())
-    ref_mime, want = ref.process_image(data, parse_query(qs), Format())
+    ref_mime, want = ref.process_image(data, jparse_query(qs),
+                                       jcontent.Format())
     assert got_mime == ref_mime == "image/png"
     assert _max_lsb(_decode(got), _decode(want)) <= 1
 
@@ -118,9 +123,11 @@ def test_engine_gif(engines):
     buf = io.BytesIO()
     frames[0].save(buf, format="GIF", save_all=True, append_images=frames[1:],
                    duration=100, loop=0)
-    q = parse_query("w=20&h=16")
-    got_mime, got = port.process_image(buf.getvalue(), q, Format())
-    ref_mime, want = ref.process_image(buf.getvalue(), q, Format())
+    got_mime, got = port.process_image(buf.getvalue(), parse_query("w=20&h=16"),
+                                       Format())
+    ref_mime, want = ref.process_image(buf.getvalue(),
+                                       jparse_query("w=20&h=16"),
+                                       jcontent.Format())
     assert got_mime == ref_mime == "image/gif"
     with Image.open(io.BytesIO(got)) as a, Image.open(io.BytesIO(want)) as b:
         assert a.n_frames == b.n_frames == 3
@@ -133,7 +140,8 @@ def test_engine_svg_and_unknown(engines):
            b'<rect width="10" height="10"/></svg>')
     q = parse_query("w=5&h=5")
     assert port.process_image(svg, q, Format()) == ref.process_image(
-        svg, q, Format()) == ("image/svg+xml", svg)
+        svg, jparse_query("w=5&h=5"), jcontent.Format()) == \
+        ("image/svg+xml", svg)
     with pytest.raises(ProcessError):
         port.process_image(b"this is not an image\n", q, Format())
 
@@ -141,9 +149,10 @@ def test_engine_svg_and_unknown(engines):
 def test_engine_as_is_passthrough(engines):
     port, ref = engines
     data = _src("lenna")
-    q = parse_query("quality=30")  # no transform requested
-    assert port.process_image(data, q, Format()) == ref.process_image(
-        data, q, Format()) == ("image/jpeg", data)
+    # no transform requested
+    assert port.process_image(data, parse_query("quality=30"), Format()) == \
+        ref.process_image(data, jparse_query("quality=30"),
+                          jcontent.Format()) == ("image/jpeg", data)
 
 
 def test_engine_unported_decoders_raise(engines):

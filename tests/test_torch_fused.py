@@ -14,12 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from fanlin_tpu.ops import filters
 from fanlin_tpu.ops import fused as jfused
-from fanlin_tpu.spec.query import parse_query
+from fanlin_tpu.spec.query import parse_query as jparse_query
+from fanlin_tpu_torch.ops import filters
 from fanlin_tpu_torch.ops import fused as tfused
 from fanlin_tpu_torch.ops import plan as tplan
 from fanlin_tpu_torch.ops import resample_kernels as rk
+from fanlin_tpu_torch.spec.query import parse_query as tparse_query
 from tests.conftest import make_test_image
 
 CPU = torch.device("cpu")
@@ -57,9 +58,10 @@ def _batch(specs, rgba=False, filter_name=filters.LANCZOS3):
         img = make_test_image(w, h, seed=seed)
         if rgba:
             img = _rgba(img, seed)
-        q = parse_query(qs)
-        tp.append(tplan.plan_image(w, h, q, filter_name, opaque=not rgba))
-        jp.append(jfused.plan_image(w, h, q, filter_name, opaque=not rgba))
+        tp.append(tplan.plan_image(w, h, tparse_query(qs), filter_name,
+                                   opaque=not rgba))
+        jp.append(jfused.plan_image(w, h, jparse_query(qs), filter_name,
+                                    opaque=not rgba))
         imgs.append(img)
     return tp, jp, imgs
 
@@ -104,10 +106,10 @@ def test_gray_wins_over_invert():
 def test_opaque_batch_downloads_alpha_when_asked():
     """A plan made without opaque=True wants alpha: the kernel's three
     channels get a constant 255 alpha plane, as in the reference."""
-    q = parse_query("w=50&h=30&crop=true")
+    qs = "w=50&h=30&crop=true"
     img = make_test_image(64, 48, seed=10)
-    tp = tplan.plan_image(64, 48, q)
-    jp = jfused.plan_image(64, 48, q)
+    tp = tplan.plan_image(64, 48, tparse_query(qs))
+    jp = jfused.plan_image(64, 48, jparse_query(qs))
     got = tfused.make_assembly([tp, tp], [img, img], ["rgb"], CPU).run()
     want = jfused.make_assembly([jp, jp], [img, img], ["rgb"]).run()
     assert got[0].shape == want[0].shape == (30, 50, 4)
@@ -174,9 +176,9 @@ def test_tails_bit_exact(shape):
 
 def test_transform_single_matches():
     img = make_test_image(40, 30, seed=14)
-    q = parse_query("w=20&h=20&rgb=1,2,3")
-    _close(tfused.transform_single(img, q, CPU),
-           jfused.transform_single(img, q))
+    qs = "w=20&h=20&rgb=1,2,3"
+    _close(tfused.transform_single(img, tparse_query(qs), CPU),
+           jfused.transform_single(img, jparse_query(qs)))
 
 
 def test_coefficient_kinds_not_ported():

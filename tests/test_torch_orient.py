@@ -23,13 +23,14 @@ from PIL import Image
 from fanlin_tpu.engine import native_codecs
 from fanlin_tpu.ops import fused as jfused
 from fanlin_tpu.ops import jpeg_decode as jjd
-from fanlin_tpu.spec.content import Format
-from fanlin_tpu.spec.query import parse_query
+from fanlin_tpu.spec.query import parse_query as jparse_query
 from fanlin_tpu_torch.engine import Engine, codecs
 from fanlin_tpu_torch.engine.jpeg_coeffs import read_jpeg_coeffs
 from fanlin_tpu_torch.ops import fused as tfused
 from fanlin_tpu_torch.ops import jpeg_decode as tjd
 from fanlin_tpu_torch.ops import plan as tplan
+from fanlin_tpu_torch.spec.content import Format
+from fanlin_tpu_torch.spec.query import parse_query
 from tests.conftest import make_test_image
 
 CPU = torch.device("cpu")
@@ -140,7 +141,8 @@ def test_rotated_coef_batch_matches_jax_and_pixel_path(layout, orientation):
     tp = tplan.plan_image(tmeta["w"], tmeta["h"], q, opaque=True)
     got = tfused.make_assembly([tp], [tmeta], [KIND[tmeta["subsamp"]]],
                                CPU).run()[0]
-    jp = jfused.plan_image(jmeta["w"], jmeta["h"], q, opaque=True)
+    jp = jfused.plan_image(jmeta["w"], jmeta["h"], jparse_query("w=30&h=20"),
+                           opaque=True)
     want = jfused.CoefBatchAssembly([jp], [jmeta]).run()[0]
     np.testing.assert_array_equal(got, want)
     img, _, _ = codecs.decode(data)

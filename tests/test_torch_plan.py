@@ -7,10 +7,12 @@ import numpy as np
 import pytest
 import torch
 
-from fanlin_tpu.ops import filters
+from fanlin_tpu.ops import filters as jfilters
 from fanlin_tpu.ops import fused as jfused
-from fanlin_tpu.spec.query import parse_query
+from fanlin_tpu.spec.query import parse_query as jparse_query
+from fanlin_tpu_torch.ops import filters as tfilters
 from fanlin_tpu_torch.ops import plan as tplan
+from fanlin_tpu_torch.spec.query import parse_query as tparse_query
 
 
 @pytest.fixture(autouse=True)
@@ -58,19 +60,22 @@ def _same_plan(a, b):
 @pytest.mark.parametrize("opaque", [True, False])
 @pytest.mark.parametrize("src_w,src_h,qs", CASES)
 def test_plan_image_matches(src_w, src_h, qs, opaque):
-    q = parse_query(qs)
+    q = tparse_query(qs)
     _same_plan(tplan.plan_image(src_w, src_h, q, opaque=opaque),
-               jfused.plan_image(src_w, src_h, q, opaque=opaque))
+               jfused.plan_image(src_w, src_h, jparse_query(qs),
+                                 opaque=opaque))
     # identical queries share one plan object (uniform batching)
     assert (tplan.plan_image(src_w, src_h, q, opaque=opaque)
-            is tplan.plan_image(src_w, src_h, q, opaque=opaque))
+            is tplan.plan_image(src_w, src_h, tparse_query(qs),
+                                opaque=opaque))
 
 
 @pytest.mark.parametrize("src_w,src_h,qs", CASES)
 def test_uniform_padded_matches(src_w, src_h, qs):
-    q = parse_query(qs)
-    got = tplan._uniform_padded(tplan.plan_image(src_w, src_h, q))
-    want = jfused._uniform_padded(jfused.plan_image(src_w, src_h, q))
+    got = tplan._uniform_padded(
+        tplan.plan_image(src_w, src_h, tparse_query(qs)))
+    want = jfused._uniform_padded(
+        jfused.plan_image(src_w, src_h, jparse_query(qs)))
     for g, w in zip(got, want):
         assert (g is None) == (w is None)
         if g is not None:
@@ -85,7 +90,7 @@ def test_pack_params_matches(uniform):
     if uniform:
         specs = [specs[1]] * 3
     args = []
-    for mod in (tplan, jfused):
+    for mod, parse_query in ((tplan, tparse_query), (jfused, jparse_query)):
         plans = [mod.plan_image(w, h, parse_query(qs)) for w, h, qs in specs]
         b = mod.bucket_b(len(plans))
         sh = mod.bucket_h(max(p.src_h for p in plans))
@@ -112,6 +117,7 @@ def test_buckets_match(n):
 
 def test_nearest_filter_plan_matches():
     """GIF frames plan with the Nearest filter."""
-    q = parse_query("w=33&h=21")
-    _same_plan(tplan.plan_image(64, 48, q, filters.NEAREST),
-               jfused.plan_image(64, 48, q, filters.NEAREST))
+    _same_plan(tplan.plan_image(64, 48, tparse_query("w=33&h=21"),
+                                tfilters.NEAREST),
+               jfused.plan_image(64, 48, jparse_query("w=33&h=21"),
+                                 jfilters.NEAREST))

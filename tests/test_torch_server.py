@@ -16,12 +16,12 @@ import torch
 from aiohttp.test_utils import TestClient, TestServer
 from PIL import Image
 
-from fanlin_tpu.config import Config, ConfigError
-from fanlin_tpu.spec import query as query_mod
 from fanlin_tpu_torch import cli
+from fanlin_tpu_torch.config import Config, ConfigError
 from fanlin_tpu_torch.ops.plan import plan_image
 from fanlin_tpu_torch.server.app import (STATE_KEY, build_state, check_ported,
                                          create_app)
+from fanlin_tpu_torch.spec import query as query_mod
 
 GOLDEN = os.path.abspath(os.path.join(os.path.dirname(__file__), "golden"))
 CPU = torch.device("cpu")
@@ -98,8 +98,8 @@ def test_gateway_requests():
             assert stats["engine"] == {"pixel_src": 0, "coef_src": 3}
             # the CPU runs the plain versions: no kernel launches
             assert stats["kernel_launches"] == {
-                "resample": 0, "resample_blur": 0, "jpeg_islow": 0,
-                "jpeg_upsample_rgb": 0}
+                "resample": 0, "resample_blur": 0, "jpeg_decode_rgb": 0,
+                "jpeg_islow": 0, "jpeg_upsample_rgb": 0}
         finally:
             await client.close()
 
