@@ -7,8 +7,9 @@ Phases (each failure exits non-zero; nothing is caught):
   0. versions, card name and power limit (nvidia-smi), host codecs;
      exits non-zero when CUDA is absent
   1. build the CUDA kernels (csrc/resample.cu, csrc/jpeg_decode.cu, one
-     nvcc each, started together) and the host JPEG entropy reader
-     (csrc/jpeg_coeffs.cpp, the host C++ compiler)
+     nvcc each, started together) and the host JPEG entropy reader and
+     encoder (csrc/jpeg_coeffs.cpp, csrc/jpeg_encode.cpp, the host C++
+     compiler)
   2. the resample kernel against its plain torch version on the card at
      the main path's shapes (the README request at every batch size the
      batcher forms, B = 1, 2, 4, 8 for max_batch 8, and at B=16) and at
@@ -53,11 +54,37 @@ Phases (each failure exits non-zero; nothing is caught):
      runner (from 16 threads, and over HTTP with the server's runner
      swapped for it), and batched (threads and HTTP), and the
      device-busy share of the batched HTTP burst (torch.profiler)
+  6. the jpegdct sink (tpu.device_dct): (a) the K9 tail
+     (ops/dct.ycbcr420_to_planar, torch code) on the card against the
+     same function on the CPU, 0 coefficients differing, at README B=1
+     and 8, 301x199 B=4 (q 50/75/100 each) and 12 MP B=2; (b) the port's
+     encoder on the card's tail output: read back by the port's reader
+     it gives the tail's blocks within the true block counts, noise in
+     the padded blocks past them leaves the bytes unchanged (libjpeg's
+     dummy blocks), PIL opens it; (c) the golden corpus through
+     Engine(dev, device_dct=True) and Engine(dev, device_decode=False,
+     device_dct=True): >= 44 dB against the golden JPEGs (the JAX
+     package's own jpegdct route scores 44.09 dB at worst there; the
+     45 dB floor is for libjpeg's integer DCT), one resample (plus one
+     jpeg_decode_rgb on the coefficient route) per request, every
+     request on a jpegdct batch; (d) the server with "tpu":
+     {"device_dct": true}: the README request 200 image/jpeg, and 16
+     README requests from 16 threads in <= 4 batches with the bodies of
+     a serial Engine(dev, device_dct=True);
+     (e) README stage times of the jpegdct and the default route in
+     turns, the tail's device ms (torch.profiler, all its kernels) and
+     event ms at README B=8 and 12 MP B=2 beside its bound (bytes at
+     3.35 TB/s), the encoder's host ms per README image; (f) one small
+     source per format decoded outside PIL (QOI, farbfeld, HDR, PAM,
+     16-bit PNM/PNG/TIFF, float TIFF, 16-bit gray TIFF, OpenEXR), made
+     from a seed into build/chip_smoke/, through Engine(dev): served
+     with its format's mime type
 Launch counts are set to 0 just before each main-path run (the pixel
-Engine, the coefficient Engine, the server, each phase-5 burst) and read
-just after it; every kernel of the serving path (resample,
-resample_blur, jpeg_decode_rgb) must have been launched by the
-coefficient engine, the server and phase 5 (b).
+Engine, the coefficient Engine, the server, each phase-5 burst, the two
+jpegdct engines and the jpegdct server burst of phase 6) and read just
+after it; every kernel of the serving path (resample, resample_blur,
+jpeg_decode_rgb) must have been launched by the coefficient engine, the
+server and phase 5 (b).
 
 The second-to-last line is {"kernels": [...]}: each kernel's main-path
 launches (K3/K4: 0, with phase 2b's as checked_launches), worst error,
@@ -178,6 +205,7 @@ def phase1() -> None:
     host = _build.build_host()
     _build.load_host()
     print(f"phase1 built {os.path.relpath(lib, ROOT)} in {t1 - t0:.2f} s, "
+          "the host reader and encoder "
           f"{os.path.relpath(host, ROOT)} in {time.perf_counter() - t1:.2f} s",
           flush=True)
 
@@ -756,23 +784,42 @@ def phase3_pre_encode(dev: torch.device) -> None:
         check(differ == 0, f"{src}/{cfg}: coefficient and pixel paths differ")
 
 
-def phase3_engine(dev: torch.device, device_decode: bool):
-    """The port's Engine on the golden corpus: the encoded floor, and
-    per request one resample launch, plus one jpeg_decode_rgb launch (and
-    none of K3/K4) and a coef_src count on the coefficient path. Returns
-    (engine, requests)."""
+# The jpegdct route's floor against the golden JPEGs. Those were encoded
+# with libjpeg's integer DCT; a float DCT quantises some coefficients the
+# other way, and the JAX package's own jpegdct route scores 44.09 dB at
+# worst against them (lenna/crop100; tests/test_torch_dct.py
+# test_jpegdct_golden_floor, on the CPU).
+DCT_GOLDEN_FLOOR_DB = 44.0
+
+
+def phase3_engine(dev: torch.device, device_decode: bool,
+                  device_dct: bool = False):
+    """The port's Engine on the golden corpus: the encoded floor (with
+    device_dct, DCT_GOLDEN_FLOOR_DB, and every request on a jpegdct
+    batch), and per request one resample launch, plus one
+    jpeg_decode_rgb launch (and none of K3/K4) and a coef_src count on
+    the coefficient path. Returns (engine, requests)."""
     from PIL import Image
 
     from fanlin_tpu_torch.spec.content import Format
     from fanlin_tpu_torch.engine import Engine
 
-    engine = Engine(dev, device_decode=device_decode)
-    path = "coef" if device_decode else "pixel"
+    engine = Engine(dev, device_decode=device_decode, device_dct=device_dct)
+    path = ("coef" if device_decode else "pixel") + (
+        " jpegdct" if device_dct else "")
+    phase = "phase6c" if device_dct else "phase3"
     n = 0
     for src, data, cfg, q in _golden_sources():
         before = _counts()
-        mime, payload = engine.process_image(data, q, Format())
+        with _BatchLog() as log:
+            mime, payload = engine.process_image(data, q, Format())
         added = {k: v - before[k] for k, v in _counts().items()}
+        dct_sink = any(k.split("+")[-1].startswith("jpegdct:")
+                       for k in log.kinds)
+        # every golden case has an RGB or RGBA output (a grayscale one
+        # is on a fill canvas), so every one takes jpegdct when asked
+        check(dct_sink == device_dct,
+              f"{path} {src}/{cfg}: batch kinds {log.kinds}")
         n += 1
         resample = added["resample"] + added["resample_blur"]
         decode = (added["jpeg_decode_rgb"], added["jpeg_islow"],
@@ -786,9 +833,10 @@ def phase3_engine(dev: torch.device, device_decode: bool):
         golden_enc = _golden_rgb(f"{src}_{cfg}.jpg")
         check(got.shape == golden_enc.shape, f"{src}/{cfg}: shape")
         d_enc = psnr(got, golden_enc)
-        print(f"phase3 {path} {src}/{cfg} encoded {d_enc:.2f} dB, "
-              f"launches {added}", flush=True)
-        check(d_enc >= 45.0, f"{src}/{cfg}: encoded {d_enc:.2f} dB < 45")
+        print(f"{phase} {path} {src}/{cfg} encoded {d_enc:.2f} dB, "
+              f"launches {added}, kinds {log.kinds}", flush=True)
+        floor = DCT_GOLDEN_FLOOR_DB if device_dct else 45.0
+        check(d_enc >= floor, f"{src}/{cfg}: encoded {d_enc:.2f} dB < {floor}")
     want = {"pixel_src": 0, "coef_src": n} if device_decode else \
         {"pixel_src": n, "coef_src": 0}
     check(engine.stats == want, f"{path} engine stats {engine.stats}")
@@ -904,13 +952,15 @@ def _gen_sources() -> str:
 
 
 class _BatchLog:
-    """While active, records each batch the batcher assembles:
-    (images, distinct plans, distinct kinds, uses_kernel())."""
+    """While active, records each batch assembled (by the batcher or an
+    Engine's serial runner): (images, distinct plans, distinct kinds,
+    uses_kernel()), and the kinds of every batch."""
 
     def __init__(self):
         from fanlin_tpu_torch.ops import fused
 
         self.rows = []
+        self.kinds = []
         self._fused = fused
         self._real = fused.make_assembly
 
@@ -919,6 +969,7 @@ class _BatchLog:
             asm = self._real(plans, payloads, kinds, device)
             self.rows.append((len(plans), len({id(p) for p in plans}),
                               len(set(kinds)), asm.uses_kernel()))
+            self.kinds.extend(kinds)
             return asm
 
         self._fused.make_assembly = make
@@ -1115,6 +1166,316 @@ async def _phase5(dev: torch.device) -> dict:
     return windows
 
 
+# Phase 6 (a)'s K9 shapes: (name, w, h, batch) of the tail's input
+# planes, the qualities each is checked at, and whether (e) times it
+K9_SHAPES = [
+    ("readme_b1", 300, 200, 1, (50, 75, 100), False),
+    ("readme_b8", 300, 200, 8, (50, 75, 100), True),
+    ("odd_301x199_b4", 301, 199, 4, (50, 75, 100), False),
+    ("12mp_b2", 4000, 3000, 2, (75,), True),
+]
+# f32 outside the tensor cores, one H100 SXM (NVIDIA's data sheet)
+F32_FLOP_PER_S = 67e12
+
+
+def k9_bound(w: int, h: int, b: int) -> dict:
+    """The least work of the K9 tail on b images of (h, w) Y and
+    (ceil(h/2), ceil(w/2)) chroma u8 planes: the planes read once, the
+    padded int16 coefficient planes written once; per coefficient two
+    8-term f32 dot products (a multiply-add as two), the divide and the
+    round half away from zero (4 more)."""
+    ch, cw = -(-h // 2), -(-w // 2)
+    coefs = (-(-h // 16) * 16 * (-(-w // 16) * 16)
+             + 2 * (-(-ch // 8) * 8) * (-(-cw // 8) * 8))
+    nbytes = b * (h * w + 2 * ch * cw + 2 * coefs)
+    flop = b * coefs * (2 * 2 * 8 + 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / F32_FLOP_PER_S * 1e3
+    return {"bytes": nbytes, "f32_flop": flop, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _device_ms_all(fn, calls: int) -> float:
+    """Device ms per call of `fn`: every CUDA activity torch.profiler saw
+    over `calls` calls (K9 is torch code: many small kernels), summed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(us > 0, "the profiler saw no device time for the K9 tail")
+    return us / 1000.0 / calls
+
+
+def phase6_tail(dev: torch.device) -> dict:
+    """(a) K9 on the card against K9 on the CPU, (b) the encoder round
+    trip on the card's coefficients, (e) the tail's device and event ms
+    and bound, and the encoder's host ms per README image."""
+    from PIL import Image
+
+    from fanlin_tpu_torch.engine.jpeg_coeffs import read_jpeg_coeffs
+    from fanlin_tpu_torch.engine.jpeg_encode import encode_jpeg_coeffs
+    from fanlin_tpu_torch.ops import dct, fused
+
+    rng = np.random.default_rng(20261016)
+    timed = {}
+    for name, w, h, b, qualities, time_it in K9_SHAPES:
+        rgb = torch.from_numpy(np.stack([_photo(w, h, rng) for _ in range(b)]))
+        planes = [p.contiguous()
+                  for p in fused._ycbcr420_tail(rgb.permute(0, 3, 1, 2))]
+        variants = [("photo", planes)]
+        if name == "readme_b1":  # flat planes: every DC a tie at q50
+            variants.append(("flat", [torch.full_like(p, v) for p, v in
+                                      zip(planes, (137, 77, 200))]))
+        for content, host in variants:
+            on_card = [p.to(dev) for p in host]
+            for q in qualities:
+                cpu = dct.ycbcr420_to_planar(*host, *dct.ijg_quant_tables(q))
+                card = dct.ycbcr420_to_planar(*on_card,
+                                              *dct.device_quant_tables(q, dev))
+                torch.cuda.synchronize()
+                differ = sum(_bytes_differing(c.cpu(), p)[0]
+                             for c, p in zip(card, cpu))
+                total = sum(p.numel() for p in cpu)
+                print(f"phase6a K9 {name} {content} {w}x{h} B={b} q{q}: "
+                      f"{differ} of {total} coefficients differ, card against "
+                      f"CPU", flush=True)
+                check(differ == 0, f"phase6a {name} {content} q{q}: {differ} "
+                      f"coefficients differ")
+        card_planes = [p.to(dev) for p in planes]
+        card = dct.ycbcr420_to_planar(*card_planes,
+                                      *dct.device_quant_tables(q, dev))
+        if name in ("readme_b1", "odd_301x199_b4"):
+            # (b) the card's coefficients through the port's encoder
+            for i in range(b):
+                blocks = [dct.blocks_from_planar(c[i].cpu().numpy())
+                          for c in card]
+                out = encode_jpeg_coeffs(*blocks, w, h, q)
+                check(out is not None, f"phase6b {name}: encoder refused")
+                meta = read_jpeg_coeffs(out)
+                bh, bw = -(-h // 8), -(-w // 8)
+                check(meta is not None and (meta["w"], meta["h"]) == (w, h)
+                      and np.array_equal(meta["y"], blocks[0][:bh, :bw])
+                      and np.array_equal(meta["cb"], blocks[1])
+                      and np.array_equal(meta["cr"], blocks[2]),
+                      f"phase6b {name}: read-back differs")
+                noisy = blocks[0].copy()
+                noisy[bh:] = rng.integers(-999, 999, noisy[bh:].shape)
+                noisy[:, bw:] = rng.integers(-999, 999, noisy[:, bw:].shape)
+                check(encode_jpeg_coeffs(noisy, blocks[1], blocks[2], w, h,
+                                         q) == out,
+                      f"phase6b {name}: a padded block reached the stream")
+                with Image.open(io.BytesIO(out)) as im:
+                    im.load()
+                    check(im.size == (w, h), f"phase6b {name}: PIL {im.size}")
+            print(f"phase6b encoder round trip {name} q{q}: exact, padded "
+                  f"blocks unread, PIL opens it ({len(out)} B)", flush=True)
+        if not time_it:
+            continue
+        tables = dct.device_quant_tables(75, dev)
+
+        def tail(card_planes=card_planes, tables=tables):
+            return dct.ycbcr420_to_planar(*card_planes, *tables)
+
+        dev_ms = _device_ms_all(tail, 10)
+        ev_ms = _time_turns({"k9": tail}, 10, 5)["k9"]
+        t0 = time.perf_counter()
+        dct.ycbcr420_to_planar(*planes, *dct.ijg_quant_tables(75))
+        plain_ms = (time.perf_counter() - t0) * 1000.0
+        bnd = k9_bound(w, h, b)
+        timed[name] = {"device_ms": dev_ms, "ms": ev_ms, "plain_ms": plain_ms,
+                       **bnd}
+        print(f"phase6e K9 {name}: device_ms={dev_ms:.4f} (torch.profiler, "
+              f"all kernels) event_ms={ev_ms:.4f} cpu_plain_ms={plain_ms:.4f} "
+              f"needs {bnd['bytes']} B and {bnd['f32_flop'] / 1e9:.4f} f32 "
+              f"GFLOP: bound_ms={bnd['bound_ms']:.4f} by {bnd['bound_by']} "
+              f"({bnd['bound_ms'] / dev_ms * 100:.1f} % of device time)",
+              flush=True)
+    # the encoder's host ms on a README image's coefficients (lenna)
+    from fanlin_tpu_torch.spec.query import parse_query
+    from fanlin_tpu_torch.engine import codecs
+    from fanlin_tpu_torch.ops import plan as plan_mod
+
+    with open(os.path.join(GOLDEN, "lenna_src.jpg"), "rb") as f:
+        img, _, _ = codecs.decode(f.read())
+    plan = plan_mod.plan_image(512, 512, parse_query("w=300&h=200"),
+                               opaque=True)
+    res = fused.make_assembly([plan], [img], ["jpegdct:75"], dev).run()[0]
+    ts = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        encode_jpeg_coeffs(*res[1:])
+        ts.append((time.perf_counter() - t0) * 1000.0)
+    timed["encode_ms"] = statistics.median(ts)
+    print(f"phase6e encoder host ms per README image (median of 50): "
+          f"{timed['encode_ms']:.4f}", flush=True)
+    return timed
+
+
+def _png16_bytes(a16: np.ndarray, ctype: int) -> bytes:
+    """A 16-bit PNG (filter 0 rows) of an (h, w, c) uint16 array."""
+    import struct
+    import zlib
+
+    def chunk(typ, body):
+        return (struct.pack(">I", len(body)) + typ + body
+                + struct.pack(">I", zlib.crc32(typ + body) & 0xFFFFFFFF))
+
+    h, w, _ = a16.shape
+    rows = b"".join(b"\x00" + a16[y].astype(">u2").tobytes() for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows, 6)) + chunk(b"IEND", b""))
+
+
+def _tiff_bytes(a: np.ndarray) -> bytes:
+    """A little-endian, uncompressed, one-strip TIFF of an (h, w, spp)
+    uint16 or float32 array."""
+    import struct
+
+    h, w, spp = a.shape
+    fl = a.dtype == np.float32
+    data = a.astype("<f4" if fl else "<u2").tobytes()
+    tags = [(256, 3, [w]), (257, 3, [h]), (258, 3, [32 if fl else 16] * spp),
+            (259, 3, [1]), (262, 3, [2 if spp >= 3 else 1]), (273, 4, [0]),
+            (277, 3, [spp]), (278, 3, [h]), (279, 4, [len(data)]),
+            (284, 3, [1])] + ([(339, 3, [3] * spp)] if fl else [])
+    over_at = 8 + 2 + 12 * len(tags) + 4
+    over = bytearray()
+    entries = []
+    data_at = over_at + sum(2 * len(v) for _, t, v in tags
+                            if t == 3 and len(v) > 2)
+    for tag, typ, vals in tags:
+        if tag == 273:
+            vals = [data_at]
+        fmt = "H" if typ == 3 else "I"
+        packed = struct.pack("<" + fmt * len(vals), *vals)
+        if len(packed) <= 4:
+            entries.append(struct.pack("<HHI", tag, typ, len(vals))
+                           + packed.ljust(4, b"\x00"))
+        else:
+            entries.append(struct.pack("<HHII", tag, typ, len(vals),
+                                       over_at + len(over)))
+            over += packed
+    return (b"II*\x00" + struct.pack("<IH", 8, len(tags)) + b"".join(entries)
+            + struct.pack("<I", 0) + bytes(over) + data)
+
+
+def phase6_formats(dev: torch.device) -> None:
+    """(f) One small source per format the port decodes outside PIL,
+    made from a seed into build/chip_smoke/, through Engine(dev)."""
+    from fanlin_tpu_torch.spec.content import Format
+    from fanlin_tpu_torch.spec.query import parse_query
+    from fanlin_tpu_torch.engine import Engine, codecs, exr_codec, extra_codecs
+
+    rng = np.random.default_rng(20261019)
+    img = _photo(48, 40, rng)
+    rgba = np.dstack([img, rng.integers(0, 256, (40, 48), dtype=np.uint8)])
+    a16 = rng.integers(0, 65536, (40, 48, 3), dtype=np.uint16)
+    g16 = rng.integers(0, 65536, (40, 48, 1), dtype=np.uint16)
+    f32 = rng.uniform(-0.2, 1.2, (40, 48, 3)).astype(np.float32)
+    files = {
+        "f1.qoi": extra_codecs.encode_qoi(rgba),
+        "f1.ff": extra_codecs.encode_farbfeld(rgba),
+        "f1.hdr": extra_codecs.encode_hdr(img),
+        "f1.pam": extra_codecs.encode_pam(rgba),
+        "f1_16.ppm": b"P6\n48 40\n65535\n" + a16.astype(">u2").tobytes(),
+        "f1_16.png": _png16_bytes(a16, 2),
+        "f1_16_gray.png": _png16_bytes(g16, 0),
+        "f1_16.tif": _tiff_bytes(a16),
+        "f1_float.tif": _tiff_bytes(f32),
+        "f1_16_gray.tif": _tiff_bytes(g16),
+        "f1.exr": exr_codec.encode_exr(img, compression=exr_codec._ZIP),
+    }
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    engine = Engine(dev)
+    q = parse_query("w=40&h=30")
+    for name, data in files.items():
+        with open(os.path.join(out_dir, name), "wb") as f:
+            f.write(data)
+        with open(os.path.join(out_dir, name), "rb") as f:
+            data = f.read()
+        fmt = codecs.sniff_format(data)
+        mime, body = engine.process_image(data, q, Format())
+        arr = codecs.decode(body)[0]
+        print(f"phase6f {name}: {fmt} -> {mime}, {len(body)} B, "
+              f"{arr.shape[1]}x{arr.shape[0]}", flush=True)
+        check(mime == codecs.MIME[fmt] and arr.shape[:2] == (30, 40),
+              f"phase6f {name}: {mime} {arr.shape}")
+    check(engine.stats == {"pixel_src": len(files), "coef_src": 0},
+          f"phase6f engine stats {engine.stats}")
+
+
+async def _phase6_server(dev: torch.device) -> dict:
+    """(d) The server with tpu.device_dct: the README request over HTTP,
+    then 16 README requests from 16 threads through its engine. Returns
+    the burst's launch-count window."""
+    import aiohttp
+    from aiohttp import web
+
+    from fanlin_tpu_torch.config import Config
+    from fanlin_tpu_torch.engine import Engine
+    from fanlin_tpu_torch.server.app import build_state, create_app
+
+    cfg = Config.from_obj({
+        "port": 0, "bind_addr": "127.0.0.1", "max_clients": 8,
+        "client": {"s3": {"aws_region": "x"},
+                   "web": {"user_agent": "chip-smoke", "timeout": 2}},
+        "providers": [{"path": "baz", "src": "file://localhost" + GOLDEN}],
+        "tpu": {"device_dct": True},
+    })
+    state = await build_state(cfg)
+    check(state.engine.device_dct, "the server's engine ignores device_dct")
+    batcher = state.engine.runner.batcher
+    runner = web.AppRunner(create_app(cfg, state), access_log=None)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+    with open(os.path.join(GOLDEN, "lenna_src.jpg"), "rb") as f:
+        lenna = f.read()
+    want = _serial_body(Engine(dev, device_dct=True),
+                        "/baz/lenna_src.jpg?w=300&h=200", GOLDEN)
+    try:
+        async with aiohttp.ClientSession() as s:
+            async with s.get(base + "/baz/lenna_src.jpg?w=300&h=200") as r:
+                body = await r.read()
+                check(r.status == 200
+                      and r.headers["Content-Type"] == "image/jpeg",
+                      f"phase6d README status {r.status}")
+                check(body == want, "phase6d: the HTTP body differs from "
+                      "the serial Engine's")
+        before = dict(batcher.stats)
+        with _BatchLog() as log:
+            _reset_counts()
+            bodies, wall = await asyncio.to_thread(
+                _thread_burst, state.engine, lenna, "w=300&h=200", 16)
+            window = _counts()
+        batches = batcher.stats["batches"] - before["batches"]
+        print(f"phase6d jpegdct server: 16 README requests from 16 threads "
+              f"in {batches} batches {[r[0] for r in log.rows]}, kinds "
+              f"{sorted(set(log.kinds))}, launches {window}, wall "
+              f"{wall * 1000:.3f} ms", flush=True)
+        check(batches <= 4 and len(log.rows) == batches
+              and all(r[1] == r[2] == 1 and r[3] for r in log.rows)
+              and set(log.kinds) == {"coef444+jpegdct:75"},
+              f"phase6d: {batches} batches, {log.rows}, {set(log.kinds)}")
+        check(window["resample"] == window["jpeg_decode_rgb"] == batches,
+              f"phase6d: launches {window} for {batches} batches")
+        check(all(b == want for b in bodies),
+              "phase6d: a batched body differs from the serial one")
+    finally:
+        await runner.cleanup()
+    return window
+
+
 def main() -> int:
     smi = phase0()
     from fanlin_tpu_torch import device as device_mod
@@ -1141,18 +1502,31 @@ def main() -> int:
     asyncio.run(_phase4(dev))
     windows["server"] = _counts()
     windows.update(asyncio.run(_phase5(dev)))
+    k9 = phase6_tail(dev)
+    _reset_counts()
+    dct_coef_engine, n_dct_coef = phase3_engine(dev, True, device_dct=True)
+    windows["coef jpegdct engine"] = _counts()
+    _reset_counts()
+    _, n_dct_pixel = phase3_engine(dev, False, device_dct=True)
+    windows["pixel jpegdct engine"] = _counts()
+    windows["jpegdct server"] = asyncio.run(_phase6_server(dev))
+    phase6_formats(dev)
     for name, c in windows.items():
         print(f"launch counts ({name}): {c}", flush=True)
-    w = windows["coef engine"]
-    check(w["resample"] + w["resample_blur"] == n_coef
-          and w["jpeg_decode_rgb"] == n_coef
-          and w["jpeg_islow"] == w["jpeg_upsample_rgb"] == 0,
-          f"coefficient engine launched {w} for {n_coef} requests")
-    w = windows["pixel engine"]
-    check(w["resample"] + w["resample_blur"] == n_pixel
-          and w["jpeg_decode_rgb"] == w["jpeg_islow"]
-          == w["jpeg_upsample_rgb"] == 0,
-          f"pixel engine launched {w} for {n_pixel} requests")
+    for path, n in (("coef engine", n_coef), ("coef jpegdct engine",
+                                               n_dct_coef)):
+        w = windows[path]
+        check(w["resample"] + w["resample_blur"] == n
+              and w["jpeg_decode_rgb"] == n
+              and w["jpeg_islow"] == w["jpeg_upsample_rgb"] == 0,
+              f"{path} launched {w} for {n} requests")
+    for path, n in (("pixel engine", n_pixel), ("pixel jpegdct engine",
+                                                 n_dct_pixel)):
+        w = windows[path]
+        check(w["resample"] + w["resample_blur"] == n
+              and w["jpeg_decode_rgb"] == w["jpeg_islow"]
+              == w["jpeg_upsample_rgb"] == 0,
+              f"{path} launched {w} for {n} requests")
     for name in MAIN_PATH_KERNELS:
         for path in ("coef engine", "server", "phase5b"):
             check(windows[path][name] > 0,
@@ -1160,7 +1534,14 @@ def main() -> int:
     launches = {k: sum(c[k] for c in windows.values())
                 for k in windows["server"]}
     readme_stage_times(pixel_engine, "pixel")
-    readme_stage_times(coef_engine, "coefficient")
+    # the default route (coefficient, PIL encode on the card's machine)
+    # and the jpegdct route in turns
+    for label, engine in (("coefficient", coef_engine),
+                          ("jpegdct coefficient", dct_coef_engine),
+                          ("jpegdct coefficient", dct_coef_engine),
+                          ("coefficient", coef_engine)):
+        readme_stage_times(engine, label)
+    print("phase6e K9 tail summary " + json.dumps(k9), flush=True)
     check("jax" not in sys.modules, "jax was imported")
     check("fanlin_tpu" not in sys.modules, "fanlin_tpu was imported")
 

@@ -2,9 +2,8 @@
 and bitstream encoders.
 
 Carried over from fanlin_tpu/engine/codecs.py: the port imports
-nothing of the JAX package. The
-decoders it reaches lazily in other modules (exr_codec, extra_codecs,
-png16, tiff16) are not ported yet: those sources raise CodecError.
+nothing of the JAX package. The decoders and encoders it reaches lazily
+(exr_codec, extra_codecs, png16, tiff16) are the port's copies.
 
 These are the host bookends around the device transform program —
 entropy-coded bitstreams don't vectorize, so (like the reference,
@@ -201,35 +200,6 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
     return img
 
 
-def _not_ported(what: str) -> CodecError:
-    """The error for a source the reference decodes with a module that
-    is not in the PyTorch port yet (exr_codec, extra_codecs, png16,
-    tiff16): the request fails like any undecodable source (500 +
-    fallback) instead of being served from a different decode."""
-    return CodecError(f"{what} decode is not yet ported to fanlin_tpu_torch")
-
-
-def _pnm_maxval(data: bytes) -> int:
-    """maxval of a binary P5/P6 header (comments skipped), 0 when the
-    header does not parse (PIL then reports the error)."""
-    toks, pos, n = [], 2, len(data)
-    while len(toks) < 3 and pos < n:
-        ch = data[pos]
-        if ch == 0x23:  # '#': comment to end of line
-            while pos < n and data[pos] not in (0x0A, 0x0D):
-                pos += 1
-        elif chr(ch).isspace():
-            pos += 1
-        elif 0x30 <= ch <= 0x39:
-            start = pos
-            while pos < n and 0x30 <= data[pos] <= 0x39:
-                pos += 1
-            toks.append(int(data[start:pos]))
-        else:
-            return 0
-    return toks[2] if len(toks) == 3 else 0
-
-
 def decode(data: bytes) -> Tuple[np.ndarray, bool, bool]:
     """Decode bytes -> ((H, W, 3|4) uint8, has_alpha, is_gray).
 
@@ -238,10 +208,6 @@ def decode(data: bytes) -> Tuple[np.ndarray, bool, bool]:
     come back RGBA. has_alpha / is_gray describe the *source* color
     model so the encoder can preserve the reference's output pixel
     type (Luma stays Luma, RGB stays RGB, handler.rs:224-228 notes).
-
-    Sources the reference decodes outside PIL (OpenEXR, QOI, farbfeld,
-    Radiance HDR, PAM, 16-bit PNM/PNG/TIFF, wide grayscale) raise
-    CodecError until their decoders are ported.
     """
     if data[:3] == b"\xff\xd8\xff":
         native = _native().decode_jpeg(data)
@@ -251,16 +217,78 @@ def decode(data: bytes) -> Tuple[np.ndarray, bool, bool]:
                 arr = np.repeat(arr, 3, axis=2)
             return arr, False, is_gray
     if data[:4] == b"\x76\x2f\x31\x01":
-        raise _not_ported("OpenEXR")
+        from . import exr_codec
+
+        try:
+            return exr_codec.decode_exr(data), False, False
+        except exr_codec.ExrError as e:
+            raise CodecError(str(e)) from e
     if (data[:4] == b"qoif" or data[:8] == b"farbfeld"
             or data[:10] == b"#?RADIANCE" or data[:6] == b"#?RGBE"):
-        raise _not_ported("QOI/farbfeld/HDR")
-    if data[:2] == b"P7" or (data[:2] in (b"P5", b"P6")
-                             and _pnm_maxval(data) > 255):
-        raise _not_ported("PAM / 16-bit PNM")
-    if (data[:8] == b"\x89PNG\r\n\x1a\n" and len(data) > 24
-            and data[24] == 16):
-        raise _not_ported("16-bit PNG")
+        # formats PIL can't read; image-crate parity via extra_codecs
+        from . import extra_codecs
+
+        try:
+            if data[:4] == b"qoif":
+                arr = extra_codecs.decode_qoi(data)
+                has_alpha = len(data) > 12 and data[12] == 4
+            elif data[:8] == b"farbfeld":
+                arr = extra_codecs.decode_farbfeld(data)
+                has_alpha = True
+            else:
+                arr = extra_codecs.decode_hdr(data)
+                has_alpha = False
+        except extra_codecs.ExtraCodecError as e:
+            raise CodecError(str(e)) from e
+        if not has_alpha:
+            arr = np.ascontiguousarray(arr[:, :, :3])
+        return arr, has_alpha, False
+    if data[:2] in (b"P7", b"P5", b"P6"):
+        # PNM corners PIL gets wrong: PAM (P7, unsupported) and 16-bit
+        # P5/P6 (maxval > 255: clipped/garbage) — the image crate
+        # decodes both (extra_codecs); 8-bit PNM falls through to PIL
+        from . import extra_codecs
+
+        try:
+            if data[:2] == b"P7":
+                arr, has_alpha, is_gray = extra_codecs.decode_pam(data)
+                return np.ascontiguousarray(arr), has_alpha, is_gray
+            hdr = extra_codecs.pnm_wide_header(data)
+            if hdr is not None:
+                arr = extra_codecs.decode_pnm_wide(data, hdr)
+                is_gray = arr.shape[2] == 1
+                if is_gray:
+                    arr = np.repeat(arr, 3, axis=2)
+                return np.ascontiguousarray(arr), False, is_gray
+        except extra_codecs.ExtraCodecError as e:
+            raise CodecError(str(e)) from e
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        # 16-bit PNGs decode raw: PIL's RGB;16B raw modes keep only
+        # the high byte and drop color-key tRNS, where the image
+        # crate scales round(v*255/65535) and expands the alpha
+        # plane (PARITY known-diff #11, now closed). Damage falls
+        # back to PIL so corrupt-input statuses stay PIL-defined.
+        from . import png16
+
+        if png16.is_png16(data):
+            try:
+                return png16.decode_png16(data)
+            except png16.Png16Error:
+                pass
+    if data[:2] in (b"II", b"MM"):
+        # 16-bit color TIFFs (classic or BigTIFF): same high-byte
+        # story as PNG (PIL's RGB;16 raw modes), same fix — raw
+        # decode with the crate's round scaling; unsupported layouts
+        # fall back to PIL's high-byte read (tiff16._container
+        # rejects non-TIFF II/MM prefixes before any IFD walk)
+        from . import tiff16
+
+        parsed = tiff16.sniff16_parsed(data)
+        if parsed is not None:
+            try:
+                return tiff16.decode_tiff16(data, parsed)
+            except tiff16.Tiff16Error:
+                pass
     try:
         with Image.open(io.BytesIO(data)) as im:
             _check_decode_alloc(im.size, im.mode)
@@ -268,25 +296,40 @@ def decode(data: bytes) -> Tuple[np.ndarray, bool, bool]:
                 # zero-dim sources break geometry planning downstream;
                 # checked pre-load so every mode branch below is covered
                 raise CodecError("zero-dimension image")
-            bps = getattr(im, "tag_v2", {}).get(258, ())
-            if im.format == "TIFF" and any(b > 8 for b in bps):
-                raise _not_ported("16/32-bit TIFF")
             im.load()
             mode = im.mode
             # tRNS color keys on non-palette modes count too: the
             # crate's png EXPAND turns RGB/L + tRNS into an alpha
             # plane, and PIL's convert("RGBA") applies the key from
-            # im.info (1-bit grayscale opens as mode "1" and carries
-            # the same key)
+            # im.info (16-bit keys route through png16 above; 1-bit
+            # grayscale opens as mode "1" and carries the same key)
             has_alpha = mode in ("RGBA", "LA", "PA") or (
                 mode in ("P", "RGB", "L", "1")
                 and "transparency" in im.info
             )
             is_gray = mode in ("L", "LA", "I", "I;16", "1")
-            if mode.startswith("I") or mode == "F":
-                # wide grayscale: the reference scales it through
-                # extra_codecs (PIL clips or truncates it)
-                raise _not_ported("wide grayscale")
+            # Wide-grayscale modes PIL mangles (clips I;16/I at 255,
+            # int-truncates F) scale through extra_codecs' shared
+            # slabbed scaler — one-shot float32 copies of a
+            # gate-passing I;16 source are ~1 GiB, the allocation
+            # class the 512 MiB gate exists to stop. The scaler's u8
+            # clamp maps out-of-range samples to 0/255, so mode I
+            # (32-bit container, real content is 16-bit) is exactly
+            # clip(v, 0, 65535) scaled, and mode F is
+            # round(clamp(v, 0, 1)*255) like the HDR/EXR float paths.
+            # The image crate scales Luma16 the same way and has no
+            # 32-bit-integer pixel type either (known-diff #11).
+            _wide_gray = {"I;16": (np.uint16, 65535),
+                          "I": (np.int32, 65535),
+                          "F": (np.float32, 1)}.get(
+                "I;16" if mode.startswith("I;16") else mode)
+            if _wide_gray is not None:
+                from . import extra_codecs
+
+                dt, maxval = _wide_gray
+                rgb = extra_codecs.gray_to_rgb_u8(
+                    np.asarray(im, dtype=dt), maxval)
+                return rgb, False, True
             out = im.convert("RGBA") if has_alpha else im.convert("RGB")
             arr = np.asarray(out, dtype=np.uint8)
             if arr.ndim != 3 or arr.shape[2] not in (3, 4):
@@ -393,11 +436,36 @@ def encode(img: np.ndarray, fmt: str, quality: int, mode: str) -> bytes:
         # image's generic write_to(Pnm) emits binary PGM/PPM — and
         # P7 PAM for alpha-bearing pixel types (PNM has no alpha)
         if mode in ("RGBA", "LA", "PA"):
-            raise CodecError("PAM encode is not yet ported to fanlin_tpu_torch")
+            from . import extra_codecs
+
+            # a transport-pruned (3-plane, known-255-alpha) array is
+            # re-expanded so the PAM carries the alpha channel the
+            # output pixel type declares (known-diff #4 invariant)
+            rgba = np.asarray(_to_pil(img, "RGBA"), dtype=np.uint8)
+            return extra_codecs.encode_pam(rgba, gray_alpha=mode == "LA")
         m = "L" if mode in ("L", "LA") else "RGB"
         _to_pil(img, m).save(buf, format="PPM")
-    elif fmt in (QOI, FARBFELD, HDR, OPENEXR):
-        raise CodecError(f"{fmt} encode is not yet ported to fanlin_tpu_torch")
+    elif fmt == QOI:
+        from . import extra_codecs
+
+        return extra_codecs.encode_qoi(img)
+    elif fmt == FARBFELD:
+        from . import extra_codecs
+
+        return extra_codecs.encode_farbfeld(img)
+    elif fmt == HDR:
+        from . import extra_codecs
+
+        return extra_codecs.encode_hdr(img)
+    elif fmt == OPENEXR:
+        from . import exr_codec
+
+        # ZIP-compressed HALF scanlines: ~60x smaller than
+        # the uncompressed writer on photographic content for a little
+        # host zlib; every reader (incl. the reference's exr crate)
+        # decodes ZIP. Bitstream differs from the crate's RLE+f32
+        # output either way — pixel parity is what's pinned.
+        return exr_codec.encode_exr(img, compression=exr_codec._ZIP)
     else:
         # DDS: the image crate has no DDS encoder either, so the
         # reference's write_to(Dds) errors exactly the same way (-> 500)

@@ -2,9 +2,11 @@
 
 Carried over from fanlin_tpu/engine/native_codecs.py (the port
 imports nothing of the JAX package). It loads the
-same `native/` build the same way; only the encoders and the pixel
-decoder are bound here. The coefficient path reads JPEGs with the
-port's own reader (`engine.jpeg_coeffs`), which needs no libjpeg.
+same `native/` build the same way; only the encoders, the pixel
+decoder and the host decoders' optional passes (PNG unfilter, TIFF
+LZW, EXR PIZ Huffman) are bound here. The coefficient path reads and
+writes JPEGs with the port's own reader and encoder
+(`engine.jpeg_coeffs`, `engine.jpeg_encode`), which need no libjpeg.
 
 Loads lazily; every entry point returns None when the library isn't
 built or rejects the input, and the caller falls back to the PIL path.
@@ -120,6 +122,29 @@ def _load_once():
             lib.fc_deflate_zlib.restype = ctypes.c_int
         except AttributeError:
             pass  # older .so without libdeflate
+        try:
+            lib.fc_exr_huf.argtypes = [
+                u8p, ctypes.c_size_t,
+                ctypes.POINTER(ctypes.c_uint16), ctypes.c_size_t,
+            ]
+            lib.fc_exr_huf.restype = ctypes.c_int
+        except AttributeError:
+            pass  # older .so without the EXR PIZ entropy stage
+        try:
+            lib.fc_png_unfilter.argtypes = [
+                u8p, ctypes.c_size_t, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int, u8p,
+            ]
+            lib.fc_png_unfilter.restype = ctypes.c_int
+        except AttributeError:
+            pass  # older .so without the PNG unfilter pass
+        try:
+            lib.fc_tiff_lzw.argtypes = [
+                u8p, ctypes.c_size_t, u8p, ctypes.c_size_t,
+            ]
+            lib.fc_tiff_lzw.restype = ctypes.c_int
+        except AttributeError:
+            pass  # older .so without the TIFF LZW pass
         lib.fc_free.argtypes = [u8p]
         _LIB = lib
         break
@@ -237,6 +262,61 @@ def deflate_zlib(data: bytes, level: int) -> Optional[bytes]:
         return ctypes.string_at(out, out_len.value)
     finally:
         lib.fc_free(out)
+
+
+def png_unfilter(raw: bytes, h: int, rowbytes: int,
+                 bpp: int) -> Optional[np.ndarray]:
+    """PNG scanline unfilter (fc_png_unfilter) -> (h, rowbytes) uint8
+    array of reconstructed bytes, or None when the native core is
+    unbuilt/old or the stream is short/invalid (the caller falls back
+    to the pure-python unfilter)."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "fc_png_unfilter"):
+        return None
+    out = np.empty((h, rowbytes), np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    src = ctypes.cast(ctypes.c_char_p(raw), u8p)
+    rc = lib.fc_png_unfilter(
+        src, len(raw), h, rowbytes, int(bpp),
+        out.ctypes.data_as(u8p),
+    )
+    if rc != 0:
+        return None
+    return out
+
+
+def tiff_lzw(data: bytes, out_len: int) -> Optional[np.ndarray]:
+    """TIFF LZW decode (fc_tiff_lzw) -> out_len uint8 array, or None
+    when the native core is unbuilt/old or the stream is damaged
+    (the caller decides between the bounded python mirror and the
+    PIL fallback)."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "fc_tiff_lzw"):
+        return None
+    out = np.empty(out_len, np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    src = ctypes.cast(ctypes.c_char_p(data), u8p)
+    rc = lib.fc_tiff_lzw(src, len(data), out.ctypes.data_as(u8p),
+                         out_len)
+    if rc != 0:
+        return None
+    return out
+
+
+def exr_huf_uncompress(data: bytes, n_out: int) -> Optional[np.ndarray]:
+    """OpenEXR PIZ Huffman stage (fc_exr_huf) -> uint16 array, or None
+    when the native core is unbuilt/old or the stream is invalid (the
+    caller falls back to the byte-exact pure-python decoder)."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "fc_exr_huf"):
+        return None
+    out = np.empty(n_out, np.uint16)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    rc = lib.fc_exr_huf(
+        ctypes.cast(ctypes.c_char_p(data), u8p), len(data),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)), n_out,
+    )
+    return out if rc == 0 else None
 
 
 # VP8 effort (WebPConfig.method 0-6; libwebp default 4), set once at

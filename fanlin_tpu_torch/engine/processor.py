@@ -27,9 +27,12 @@ source, and every JPEG the reader refuses, is decoded on the host
 rotated source: libjpeg's iDCT and upsample rounding are not symmetric
 under a flip or transpose, so the rotated decode differs from the
 decoded-then-rotated pixels by a few LSB at source size (within 1 LSB
-after a downscale in the tests). Not in the port yet: the device
-DCT (`device_dct`) and the CMYK/ICC hooks — a CMYK JPEG is converted by
-the decoder, as the reference does without an ICC profile configured.
+after a downscale in the tests). With `device_dct`, a JPEG output in
+RGB/RGBA mode takes the `jpegdct:Q` sink: the device also runs the 8x8
+DCT and quantisation (`ops.dct`) and the host only entropy-codes the
+coefficients with the port's own encoder (`jpeg_encode`). Not in the
+port yet: the CMYK/ICC hooks — a CMYK JPEG is converted by the decoder,
+as the reference does without an ICC profile configured.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ import torch
 from ..ops import filters, fused, jpeg_decode, plan as plan_mod
 from ..spec import content as content_mod
 from ..spec import query as query_mod
-from . import codecs, jpeg_coeffs, native_codecs, png_writer, svg
+from . import codecs, jpeg_coeffs, jpeg_encode, native_codecs, png_writer, svg
 
 # read_jpeg_coeffs' subsampling layout -> the coefficient batch kind
 _COEF_KIND = {420: "coef", 422: "coef422", 440: "coef440", 444: "coef444"}
@@ -77,15 +80,12 @@ class Engine:
         serve, torch.device("cpu") for the plain versions).
         runner: runs the device batches; SyncDeviceRunner(device) when
         None, the server passes a batcher.BatchingRunner.
-        device_decode: JPEGs take the coefficient path. The device DCT
-        is not ported yet."""
-        if device_dct:
-            raise NotImplementedError(
-                "device_dct: the device DCT sink is not yet in the PyTorch "
-                "port"
-            )
+        device_decode: JPEGs take the coefficient path.
+        device_dct: JPEG outputs take the jpegdct sink (device DCT and
+        quantisation, host entropy coding only)."""
         self.runner = runner if runner is not None else SyncDeviceRunner(device)
         self.device_decode = device_decode
+        self.device_dct = device_dct
         # observability: requests served by source kind (/stats)
         self.stats = {"pixel_src": 0, "coef_src": 0}
 
@@ -162,11 +162,14 @@ class Engine:
             marks.append(("f_encode", (time.perf_counter() - t2) * 1000.0))
         return (codecs.MIME[out_fmt], payload)
 
-    @staticmethod
-    def _sink(params, plan, out_fmt: str, mode: str) -> str:
+    def _sink(self, params, plan, out_fmt: str, mode: str) -> str:
         """The batch kind: which encode front-end runs on the device
-        (the host then finishes with entropy coding only)."""
+        (the host then finishes with entropy coding only). The reference
+        gates jpegdct on its native libjpeg build; the port's encoder
+        needs no libjpeg and builds wherever a C++ compiler does."""
         if out_fmt == codecs.JPEG and mode in ("RGB", "RGBA"):
+            if self.device_dct:
+                return f"jpegdct:{min(max(params.quality(), 1), 100)}"
             return "jpeg420" if native_codecs.available() else "rgb"
         if out_fmt == codecs.PNG and mode in ("L", "LA", "RGB", "RGBA"):
             # adaptive filter choice on the device; the host runs zlib
@@ -199,6 +202,12 @@ class Engine:
         if isinstance(out, tuple) and out[0] == "pngrows":
             _, rows, w, h, nch = out
             return png_writer.write_png(rows, w, h, nch, quality)
+        if isinstance(out, tuple) and out[0] == "coeffs":
+            _, yc, cbc, crc, w, h, q = out
+            payload = jpeg_encode.encode_jpeg_coeffs(yc, cbc, crc, w, h, q)
+            if payload is None:
+                raise codecs.CodecError("coefficient jpeg encode failed")
+            return payload
         return codecs.encode(out, out_fmt, quality, mode)
 
     @staticmethod

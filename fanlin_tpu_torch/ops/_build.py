@@ -5,9 +5,9 @@ root, keyed by a hash of its sources and flags, and loaded with ctypes:
 
 * `load()`: the CUDA kernels, `fanlin_tpu_torch/csrc/*.cu`, compiled
   with nvcc for sm_90a;
-* `load_host()`: host code, `csrc/*.cpp` (the JPEG entropy reader),
-  compiled with the host C++ compiler; it needs no CUDA and no
-  libjpeg, so it builds wherever a `c++` does.
+* `load_host()`: host code, `csrc/*.cpp` (the JPEG entropy reader and
+  encoder), compiled with the host C++ compiler; it needs no CUDA and
+  no libjpeg, so it builds wherever a `c++` does.
 
 Both run at first use, never at import: the CPU test suite imports
 every module on a machine without nvcc. A failed build raises; nothing
@@ -134,7 +134,7 @@ def _cxx() -> str:
         if found:
             return found
     raise RuntimeError("no host C++ compiler (c++ or g++): cannot build the "
-                       "host JPEG reader")
+                       "host JPEG reader and encoder")
 
 
 def build_host() -> Path:
@@ -152,8 +152,8 @@ def build_host() -> Path:
 
 
 def load_host() -> ctypes.CDLL:
-    """The built host library (the JPEG entropy reader) with its C
-    signatures declared."""
+    """The built host library (the JPEG entropy reader and encoder) with
+    its C signatures declared."""
     global _HOST_LIB
     with _HOST_LOCK:
         if _HOST_LIB is None:
@@ -161,6 +161,9 @@ def load_host() -> ctypes.CDLL:
             p = ctypes.c_void_p
             fn = lib.fanlin_read_jpeg_coeffs
             fn.argtypes = [p, ctypes.c_size_t, p, p, p]
+            fn.restype = ctypes.c_int
+            fn = lib.fanlin_encode_jpeg_coeffs
+            fn.argtypes = [p, p, p] + [ctypes.c_int] * 3 + [p, p]
             fn.restype = ctypes.c_int
             lib.fanlin_free.argtypes = [p]
             lib.fanlin_free.restype = None

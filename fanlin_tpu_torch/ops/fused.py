@@ -1,7 +1,8 @@
 """The encode tails and the batch assembly.
 
 Port of fanlin_tpu/ops/fused.py: the encode front-ends
-(`_ycbcr420_tail`, `_png_tail`, `_webp420_tail`, fused.py:431-596),
+(`_ycbcr420_tail`, `_png_tail`, `_webp420_tail`, fused.py:431-596, and
+the jpegdct tail of `_make_tail`, :521-547, with the DCT in `ops.dct`),
 `BatchAssembly` for pixel sources (fused.py:1112-1525) and
 `CoefBatchAssembly` for JPEG coefficient sources (fused.py:1695-1829,
 2065-2166). The chain itself (fused.py:307-430) is in `ops.chain`. The
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from ..utils.bytelru import ByteLRU
-from . import filters, jpeg_decode, jpeg_decode_kernels, resample_kernels
+from . import dct, filters, jpeg_decode, jpeg_decode_kernels, resample_kernels
 from .chain import _transform_kernel, _transform_kernel_uniform
 from .plan import (_pack_params, _uniform_bands, _uniform_padded, bucket_b,
                    bucket_h, bucket_h16, bucket_w, plan_image)
@@ -141,10 +142,22 @@ def _webp420_tail(out_u8):
     return to_u8(y), to_u8(u), to_u8(v)
 
 
+def _jpegdct_tail(out_u8, quality: int):
+    """The device JPEG back half (K9): the YCbCr 4:2:0 front-end, then
+    edge pad, level shift, 8x8 DCT and quantisation with the encoder's
+    tables at `quality`. Returns the three (B, padded H, padded W) int16
+    planar coefficient planes (the reference's pack level 2)."""
+    return dct.ycbcr420_to_planar(
+        *_ycbcr420_tail(out_u8),
+        *dct.device_quant_tables(quality, out_u8.device))
+
+
 def _tail(out, c_out: int, sink):
     """The encode front-end selected by `sink` (False = pixels), or the
     pixel batch trimmed/extended to `c_out` channels."""
     if isinstance(sink, tuple):
+        if sink[0] == "jpegdct":
+            return _jpegdct_tail(out, sink[1])
         return _png_tail(out, sink[1])
     if sink == "webp":
         return _webp420_tail(out)
@@ -262,9 +275,11 @@ class BatchAssembly:
         """plans: list[ImagePlan]; images: list[(H, W, 3|4) uint8].
 
         jpeg420: False (pixels out), True (JPEG YCbCr 4:2:0 front-end),
-        "webp" (WebP-range YUV 4:2:0) or ("png", N) (PNG filter
-        front-end, N channels). The front-ends need one true output
-        geometry per batch; a batch without it downloads pixels."""
+        "webp" (WebP-range YUV 4:2:0), ("png", N) (PNG filter
+        front-end, N channels) or ("jpegdct", Q) (the front-end, DCT and
+        quantisation at quality Q: coefficient planes out). The sinks
+        need one true output geometry per batch; a batch without it
+        downloads pixels."""
         if len(plans) != len(images) or not plans:
             raise ValueError("one plan per image, at least one image")
         self.plans = plans
@@ -350,11 +365,18 @@ class BatchAssembly:
         """Wait for the batch and return per-image results that own
         their memory: (out_h, out_w, c_out) u8 arrays, or
         ("ycbcr420"|"webpyuv", y, cb, cr) / ("pngrows", rows, w, h, nch)
-        tuples for the native encoders. Touches no device tensor."""
+        / ("coeffs", y, cb, cr, w, h, q) tuples for the host encoders
+        (coefficients as (rows, cols, 64) int16 block grids). Touches no
+        device tensor."""
         self._io.wait()
         n = len(self.plans)
         p0 = self.plans[0]
-        if isinstance(self.jpeg420, tuple):
+        if isinstance(self.jpeg420, tuple) and self.jpeg420[0] == "jpegdct":
+            # out: three (B, PH, PW) int16 planar planes
+            res = [("coeffs",
+                    *(dct.blocks_from_planar(o[i]) for o in out),
+                    p0.out_w, p0.out_h, self.jpeg420[1]) for i in range(n)]
+        elif isinstance(self.jpeg420, tuple):
             # out: (B, OH, 1 + OW*nch) rows
             res = [("pngrows", out[i].copy(), p0.out_w, p0.out_h,
                     self.jpeg420[1]) for i in range(n)]
@@ -470,9 +492,20 @@ _COEF_KINDS = ("coef", "coef444", "coef422", "coef440")
 
 
 def _sink_arg(sink: str):
-    """The BatchAssembly `jpeg420` argument of a sink name."""
+    """The BatchAssembly `jpeg420` argument of a sink name.
+
+    A jpegdct batch downloads its coefficients as full int16 planar
+    planes: the reference's pack level 2. Its narrower levels (-1/0/1:
+    DC + low corner, int4 nibbles + residual, int8) and the overflow
+    ladder that re-runs a saturating batch one level wider are the
+    narrow-link download rungs, not ported here: they are lossless, so
+    every level serves the same bytes, and the ladder's re-run would
+    touch device tensors from the collect thread, which the batcher's
+    design forbids. tpu.dct_pack_floor is accepted and does nothing."""
     if sink.startswith("png:"):
         return ("png", int(sink.split(":", 1)[1]))
+    if sink.startswith("jpegdct:"):
+        return ("jpegdct", int(sink.split(":", 1)[1]))
     if sink not in ("rgb", "jpeg420", "webp420"):
         raise NotImplementedError(
             f"sink {sink!r} is not yet in the PyTorch port")
@@ -481,11 +514,11 @@ def _sink_arg(sink: str):
 
 def make_assembly(plans, payloads, kinds, device: torch.device):
     """The assembly for a homogeneous batch. Kinds: "rgb" (pixels out),
-    "jpeg420", "webp420", "png:N" for pixel sources (payloads are
-    (H, W, C) u8 arrays); "coef", "coef444", "coef422", "coef440", each
-    optionally with "+jpeg420", "+webp420" or "+png:N", for coefficient
-    sources (payloads are read_jpeg_coeffs dicts). The jpegdct sinks
-    and the CMYK kinds are not in the port yet."""
+    "jpeg420", "webp420", "png:N", "jpegdct:Q" for pixel sources
+    (payloads are (H, W, C) u8 arrays); "coef", "coef444", "coef422",
+    "coef440", each optionally with "+jpeg420", "+webp420", "+png:N" or
+    "+jpegdct:Q", for coefficient sources (payloads are read_jpeg_coeffs
+    dicts). The CMYK kinds are not in the port yet."""
     k0 = kinds[0] if kinds else "rgb"
     base, _, sink = k0.partition("+")
     if base in _COEF_KINDS:

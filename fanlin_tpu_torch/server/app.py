@@ -22,7 +22,10 @@ One process, one device. The engine serves through the micro-batcher
 `pipeline_depth`, `max_queue`): concurrent requests of one shape group
 share a device batch. There is no mesh, compile cache or warmup yet.
 Config options whose code is not in the port raise at startup
-(`check_ported`).
+(`check_ported`). Accepted but inert: the batcher's failover knobs
+(`tpu.host_fallback`, `device_stall_s`, `spill_wait_ms`) and
+`tpu.dct_pack_floor` (jpegdct batches always download full int16
+coefficients, the reference's widest pack level).
 """
 
 from __future__ import annotations
@@ -63,7 +66,6 @@ REQUEST_TIMEOUT_SECS = 10.0  # tower TimeoutLayer (main.rs:105-107)
 # Config options whose code is not in the port yet: serving them would
 # silently serve something else, so startup refuses them.
 _UNPORTED = (
-    ("tpu.device_dct", lambda c: c.tpu.device_dct),
     ("tpu.fast_decode", lambda c: c.tpu.fast_decode),
     ("tpu.device_icc", lambda c: c.tpu.device_icc),
     ("tpu.fast", lambda c: c.tpu.fast),
@@ -302,7 +304,7 @@ async def build_state(cfg: config_mod.Config,
     -> fallback preload (failure only warns). The engine serves through
     the micro-batcher (fanlin_tpu/server/app.py:488-495); the batcher's
     failover knobs (`host_fallback`, `device_stall_s`, `spill_wait_ms`)
-    are not ported and do nothing.
+    and `dct_pack_floor` are not ported and do nothing.
 
     device: where the engine runs; defaults to CUDA and raises when
     CUDA is absent. Tests pass torch.device("cpu") explicitly."""
@@ -316,7 +318,8 @@ async def build_state(cfg: config_mod.Config,
                            pipeline_depth=cfg.tpu.pipeline_depth,
                            max_queue=cfg.tpu.max_queue)
     engine = Engine(device, runner=BatchingRunner(batcher),
-                    device_decode=cfg.tpu.device_decode)
+                    device_decode=cfg.tpu.device_decode,
+                    device_dct=cfg.tpu.device_dct)
     if cfg.tpu.codec_threads:
         from concurrent.futures import ThreadPoolExecutor
 

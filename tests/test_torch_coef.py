@@ -175,13 +175,49 @@ def test_coef_batch_refuses_mixed_geometry():
         tfused.CoefBatchAssembly([plan, plan], [a, b], CPU)
 
 
-@pytest.mark.parametrize("kind", ["coef+jpegdct:75", "cmyk420", "jpegdct:75",
-                                  "coef444+cmyk"])
+@pytest.mark.parametrize("kind", ["cmyk420", "coef444+cmyk"])
 def test_unported_coef_kinds_raise(kind):
     meta = read_jpeg_coeffs(_golden("lenna"))
     plan = tplan.plan_image(512, 512, parse_query("w=30&h=20"), opaque=True)
     with pytest.raises(NotImplementedError):
         tfused.make_assembly([plan], [meta], [kind], CPU)
+
+
+@pytest.mark.parametrize("quality", [75, 92])
+@pytest.mark.parametrize("name", ["lenna", "synth"])
+def test_coef_jpegdct_kinds_match_jax(name, quality):
+    """"+jpegdct:Q" on a coefficient source gives the coefficient tuples
+    of the JAX CoefBatchAssembly (equal but at quantisation ties, see
+    tests/test_torch_dct.py), and exactly what "jpegdct:Q" gives on the
+    decoded pixels."""
+    data = _golden(name)
+    meta = read_jpeg_coeffs(data)
+    qs = "w=300&h=200"
+    kind = f"{KIND[meta['subsamp']]}+jpegdct:{quality}"
+    got = _run(meta, qs, f"+jpegdct:{quality}")
+    jplan = jfused.plan_image(meta["w"], meta["h"], jparse_query(qs),
+                              opaque=True)
+    jfused.set_host_fallback(False)  # a narrow-rung overflow re-runs inline
+    try:
+        want = jfused.make_assembly([jplan], [native_codecs.read_jpeg_coeffs(
+            data)], [kind]).run()[0]
+    finally:
+        jfused.set_host_fallback(True)
+    assert got[0] == want[0] == "coeffs" and got[4:] == want[4:] == \
+        (300, 200, quality)
+    for g, w in zip(got[1:4], want[1:4]):
+        assert g.shape == w.shape and g.dtype == w.dtype == np.int16
+        d = np.abs(g.astype(np.int32) - w)
+        assert d.max() <= 1 and (d > 0).mean() < 2e-3
+    img, _, _ = codecs.decode(data)
+    plan = tplan.plan_image(512, 512, parse_query(qs), opaque=True)
+    pixel = tfused.make_assembly([plan], [img], [f"jpegdct:{quality}"],
+                                 CPU).run()[0]
+    for g, p in zip(got, pixel):
+        if isinstance(p, np.ndarray):
+            np.testing.assert_array_equal(g, p)
+        else:
+            assert g == p
 
 
 def _oriented_jpeg(orientation):

@@ -18,9 +18,12 @@ import torch
 from PIL import Image
 
 from fanlin_tpu.engine import Engine as JaxEngine
+from fanlin_tpu.engine import exr_codec as jexr
+from fanlin_tpu.engine import extra_codecs as jextra
 from fanlin_tpu.spec import content as jcontent
 from fanlin_tpu.spec.query import parse_query as jparse_query
 from fanlin_tpu_torch.engine import Engine, ProcessError, codecs
+from fanlin_tpu_torch.engine.processor import SyncDeviceRunner
 from fanlin_tpu_torch.ops import fused as tfused
 from fanlin_tpu_torch.ops import plan as tplan
 from fanlin_tpu_torch.ops import resample_kernels as rk
@@ -28,6 +31,8 @@ from fanlin_tpu_torch.spec.content import Format, extract_accepted_image_formats
 from fanlin_tpu_torch.spec.query import parse_query
 from tests.conftest import make_test_image, psnr
 from tests.test_golden_parity import CASES
+from tests.test_png16 import make_png16
+from tests.test_tiff16 import make_tiff16
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 CPU = torch.device("cpu")
@@ -155,13 +160,81 @@ def test_engine_as_is_passthrough(engines):
                           jcontent.Format()) == ("image/jpeg", data)
 
 
-def test_engine_unported_decoders_raise(engines):
-    port, _ = engines
-    q = parse_query("w=10&h=10")
-    for data in (b"\x76\x2f\x31\x01" + bytes(64), b"qoif" + bytes(64),
-                 b"P6\n2 2\n65535\n" + bytes(24)):
-        with pytest.raises(ProcessError, match="not yet ported"):
-            port.process_image(data, q, Format())
+def _f1_sources():
+    """One seeded source per format the port decodes outside PIL (and the
+    16-bit PNG and TIFF layouts the reference hands to PIL), written with
+    the JAX package's encoders and the 16-bit test writers."""
+    rng = np.random.default_rng(61)
+    img = make_test_image(48, 40, seed=61)
+    rgba = np.dstack([img, rng.integers(0, 256, (40, 48), dtype=np.uint8)])
+    a16 = rng.integers(0, 65536, (40, 48, 3), dtype=np.uint16)
+    a16[0, 0] = 500  # the crate's round scaling gives 2 where PIL gives 1
+    g16 = rng.integers(0, 65536, (40, 48, 1), dtype=np.uint16)
+    f32 = rng.uniform(-0.2, 1.2, (40, 48, 3)).astype(np.float32)
+    damaged = bytearray(make_png16(a16, 2))
+    damaged[damaged.index(b"IDAT") + 6] ^= 0xFF  # CRC mismatch
+    srcs = {
+        "qoi_rgba": jextra.encode_qoi(rgba),
+        "qoi_rgb": jextra.encode_qoi(img),
+        "farbfeld": jextra.encode_farbfeld(rgba),
+        "hdr": jextra.encode_hdr(img),
+        "pam_rgba": jextra.encode_pam(rgba),
+        "pam_gray_alpha": jextra.encode_pam(rgba, gray_alpha=True),
+        "pnm16_rgb": b"P6\n48 40\n65535\n" + a16.astype(">u2").tobytes(),
+        "pnm16_gray": b"P5\n48 40\n65535\n" + g16.astype(">u2").tobytes(),
+        "png16_rgb": make_png16(a16, 2),
+        "png16_rgba": make_png16(np.dstack([a16, g16]), 6),
+        "png16_gray": make_png16(g16, 0),
+        "png16_damaged": bytes(damaged),  # png16 refuses it; PIL too
+        "tiff16_rgb_lzw": make_tiff16(a16, compression=5, rows_per_strip=4),
+        "tiff_float_rgb": make_tiff16(f32),
+        "tiff16_tiled_flag": make_tiff16(a16, extra_tags=[(322, 3, [8])]),
+        "tiff16_gray": make_tiff16(g16),  # wide gray, through PIL (I;16)
+        "tiff_float_gray": make_tiff16(f32[:, :, :1]),  # PIL mode F
+        "exr_rgb_zip": jexr.encode_exr(img, compression=jexr._ZIP),
+    }
+    for name in sorted(os.listdir(os.path.join(GOLDEN, "exr"))):
+        if name.endswith(".exr"):
+            with open(os.path.join(GOLDEN, "exr", name), "rb") as f:
+                srcs["exr_" + name[:-4]] = f.read()
+    return srcs
+
+
+F1_SOURCES = _f1_sources()
+
+
+def _outcome(engine, data, q, accepted, error):
+    try:
+        return engine.process_image(data, q, accepted)
+    except error as e:
+        return ("error", type(e).__name__)
+
+
+@pytest.mark.parametrize("qs", ["w=40&h=30", "w=24&h=24&crop=true&grayscale=true"])
+@pytest.mark.parametrize("name", sorted(F1_SOURCES))
+def test_engine_unported_decoders_raise(engines, name, qs):
+    """Formerly refused by the port (500): every source the reference
+    decodes outside PIL is now served with the reference's mime type and
+    bytes (within the chain's 1 LSB where they differ), and what the
+    reference refuses the port refuses too."""
+    from fanlin_tpu.engine.processor import ProcessError as JaxProcessError
+
+    data = F1_SOURCES[name]
+    port = Engine(CPU, device_decode=False)
+    got = _outcome(port, data, parse_query(qs), Format(), ProcessError)
+    want = _outcome(JaxEngine(device_decode=False), data, jparse_query(qs),
+                    jcontent.Format(), JaxProcessError)
+    assert got[0] == want[0]
+    if name == "png16_damaged":
+        assert got == ("error", "ProcessError")
+        return
+    assert got[0] != "error" and port.stats["pixel_src"] == 1
+    if got[1] != want[1]:
+        # an alpha source runs the float torch chain, which may flip a .5
+        # boundary (the 1 LSB budget); the decoders themselves are equal
+        # (test_torch_host_modules.py)
+        a, b = codecs.decode(got[1])[0], codecs.decode(want[1])[0]
+        assert _max_lsb(a, b) <= 1
 
 
 def test_engine_counts_and_never_launches_on_cpu(engines):
@@ -173,16 +246,60 @@ def test_engine_counts_and_never_launches_on_cpu(engines):
     assert rk.launch_counts() == {"resample": 0, "resample_blur": 0}
 
 
-def test_engine_serves_coefficient_path_and_rejects_device_dct():
+def test_engine_serves_coefficient_path_and_device_dct():
     """device_decode (the default) serves a JPEG through the coefficient
-    path, with the pixel engine's bytes; the device DCT sink is not in
-    the port yet."""
+    path, with the pixel engine's bytes; with device_dct the JPEG leaves
+    through the jpegdct sink, on either source path, with equal bytes."""
     coef = Engine(CPU)
-    assert coef.device_decode
+    assert coef.device_decode and not coef.device_dct
     q = parse_query("w=30&h=20")
     assert coef.process_image(_src("synth"), q, Format()) == \
         Engine(CPU, device_decode=False).process_image(_src("synth"), q,
                                                        Format())
     assert coef.stats == {"pixel_src": 0, "coef_src": 1}
-    with pytest.raises(NotImplementedError):
-        Engine(CPU, device_dct=True)
+    kinds = []
+
+    class Recorder(SyncDeviceRunner):
+        def run(self, plans, images, kinds_=None):
+            kinds.extend(kinds_)
+            return super().run(plans, images, kinds_)
+
+    dct_coef = Engine(CPU, runner=Recorder(CPU), device_dct=True)
+    dct_pixel = Engine(CPU, runner=Recorder(CPU), device_decode=False,
+                       device_dct=True)
+    a = dct_coef.process_image(_src("synth"), q, Format())
+    b = dct_pixel.process_image(_src("synth"), q, Format())
+    assert a == b and a[0] == "image/jpeg"
+    assert kinds == ["coef+jpegdct:75", "jpegdct:75"]
+    assert dct_coef.stats == {"pixel_src": 0, "coef_src": 1}
+    assert dct_pixel.stats == {"pixel_src": 1, "coef_src": 0}
+
+
+@pytest.mark.parametrize("fmt", ["png", "tiff"])
+def test_engine_16bit_pil_fallback_matches(monkeypatch, fmt):
+    """Without the native unfilter/LZW pass (the card's machine) a large
+    16-bit PNG or LZW TIFF exceeds the bounded python pass and both
+    packages hand it to PIL's high-byte read: same bytes."""
+    from fanlin_tpu.engine import native_codecs as jnative
+    from fanlin_tpu.engine import png16 as jpng16
+    from fanlin_tpu.engine import tiff16 as jtiff16
+    from fanlin_tpu_torch.engine import native_codecs, png16, tiff16
+
+    a16 = np.random.default_rng(62).integers(0, 65536, (40, 48, 3),
+                                             dtype=np.uint16)
+    if fmt == "png":
+        data = make_png16(a16, 2)
+        for mod, nat in ((png16, native_codecs), (jpng16, jnative)):
+            monkeypatch.setattr(nat, "png_unfilter", lambda *a: None)
+            monkeypatch.setattr(mod, "_PY_UNFILTER_MAX", 64)
+    else:
+        data = make_tiff16(a16, compression=5, rows_per_strip=4)
+        for mod, nat in ((tiff16, native_codecs), (jtiff16, jnative)):
+            monkeypatch.setattr(nat, "tiff_lzw", lambda *a: None)
+            monkeypatch.setattr(mod, "_PY_LZW_MAX", 64)
+    assert codecs.decode(data)[0][0, 0, 0] == a16[0, 0, 0] >> 8  # high byte
+    q = parse_query("w=40&h=30")
+    got = Engine(CPU, device_decode=False).process_image(data, q, Format())
+    want = JaxEngine(device_decode=False).process_image(
+        data, jparse_query("w=40&h=30"), jcontent.Format())
+    assert got == want

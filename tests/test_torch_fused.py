@@ -16,6 +16,7 @@ import torch
 
 from fanlin_tpu.ops import fused as jfused
 from fanlin_tpu.spec.query import parse_query as jparse_query
+from fanlin_tpu_torch.ops import dct as tdct
 from fanlin_tpu_torch.ops import filters
 from fanlin_tpu_torch.ops import fused as tfused
 from fanlin_tpu_torch.ops import plan as tplan
@@ -183,10 +184,41 @@ def test_transform_single_matches():
 
 def test_coefficient_kinds_not_ported():
     tp, _, imgs = _batch(UNIFORM)
-    for kind in ("coef+jpegdct:75", "jpegdct:75", "cmyk420",
-                 "cmyk444+jpeg420"):
+    for kind in ("cmyk420", "cmyk444+jpeg420"):
         with pytest.raises(NotImplementedError):
             tfused.make_assembly(tp, imgs, [kind], CPU)
+
+
+@pytest.mark.parametrize("specs", [UNIFORM, MIXED, MIXED_GEOM],
+                         ids=["uniform", "mixed", "mixed_geom"])
+def test_jpegdct_assembly_matches(specs):
+    """"jpegdct:Q": the port's coefficient tuples equal the JAX assembly's
+    but at quantisation ties (tests/test_torch_dct.py), and are the K9
+    tail of the port's own jpeg420 planes exactly; a batch of several
+    output geometries goes out as pixels, as in the reference."""
+    tp, jp, imgs = _batch(specs)
+    got = tfused.make_assembly(tp, imgs, ["jpegdct:80"], CPU).run()
+    jfused.set_host_fallback(False)  # a narrow-rung overflow re-runs inline
+    try:
+        want = jfused.make_assembly(jp, imgs, ["jpegdct:80"]).run()
+    finally:
+        jfused.set_host_fallback(True)
+    if specs is MIXED_GEOM:
+        for g, w in zip(got, want):
+            assert isinstance(g, np.ndarray) and isinstance(w, np.ndarray)
+            _close(g, w)
+        return
+    planes = tfused.make_assembly(tp, imgs, ["jpeg420"], CPU).run()
+    lq, cq = tdct.ijg_quant_tables(80)
+    for g, w, p in zip(got, want, planes):
+        assert g[0] == w[0] == "coeffs" and g[4:] == w[4:] == \
+            (tp[0].out_w, tp[0].out_h, 80)
+        tail = tdct.ycbcr420_to_planar(
+            *(torch.from_numpy(a[None]) for a in p[1:]), lq, cq)
+        for k in range(3):
+            np.testing.assert_array_equal(
+                g[1 + k], tdct.blocks_from_planar(tail[k].numpy())[0])
+            _close(g[1 + k], w[1 + k], max_frac=2e-3)
 
 
 def test_cpu_assemblies_never_launch_the_kernel():

@@ -39,7 +39,13 @@ def test_port_modules_listed():
                      "fanlin_tpu_torch.utils.bytelru",
                      "fanlin_tpu_torch.ops.filters",
                      "fanlin_tpu_torch.server.router",
-                     "fanlin_tpu_torch.server.timing"):
+                     "fanlin_tpu_torch.server.timing",
+                     "fanlin_tpu_torch.ops.dct",
+                     "fanlin_tpu_torch.engine.jpeg_encode",
+                     "fanlin_tpu_torch.engine.png16",
+                     "fanlin_tpu_torch.engine.tiff16",
+                     "fanlin_tpu_torch.engine.extra_codecs",
+                     "fanlin_tpu_torch.engine.exr_codec"):
         assert expected in names
 
 

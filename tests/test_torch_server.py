@@ -18,10 +18,12 @@ from PIL import Image
 
 from fanlin_tpu_torch import cli
 from fanlin_tpu_torch.config import Config, ConfigError
+from fanlin_tpu_torch.engine import Engine
 from fanlin_tpu_torch.ops.plan import plan_image
 from fanlin_tpu_torch.server.app import (STATE_KEY, build_state, check_ported,
                                          create_app)
 from fanlin_tpu_torch.spec import query as query_mod
+from fanlin_tpu_torch.spec.content import Format
 
 GOLDEN = os.path.abspath(os.path.join(os.path.dirname(__file__), "golden"))
 CPU = torch.device("cpu")
@@ -107,7 +109,6 @@ def test_gateway_requests():
 
 
 @pytest.mark.parametrize("tpu,extra", [
-    ('{"device_dct": true}', ""),
     ('{"fast_decode": true}', ""),
     ('{"device_icc": true}', ""),
     ('{"workers": 2}', ""),
@@ -126,6 +127,35 @@ def test_unported_options_refused_at_startup(tpu, extra):
 
 def test_default_config_accepted():
     check_ported(_config())
+
+
+@pytest.mark.parametrize("device_decode", [True, False])
+def test_device_dct_accepted(device_decode):
+    """tpu.device_dct (and the inert dct_pack_floor) start the server,
+    and a JPEG request leaves through the jpegdct sink with the bytes of
+    a serial Engine(device_dct=True)."""
+    tpu = ('{"device_dct": true, "dct_pack_floor": -1, "device_decode": %s}'
+           % json.dumps(device_decode))
+    check_ported(_config(tpu))
+
+    async def body():
+        client = await _client(_config(tpu))
+        try:
+            state = client.server.app[STATE_KEY]
+            assert state.engine.device_dct
+            r = await client.get("/baz/lenna_src.jpg?w=300&h=200")
+            assert r.status == 200
+            assert r.headers["Content-Type"] == "image/jpeg"
+            return await r.read()
+        finally:
+            await client.close()
+
+    got = asyncio.run(body())
+    with open(os.path.join(GOLDEN, "lenna_src.jpg"), "rb") as f:
+        want = Engine(CPU, device_decode=device_decode,
+                      device_dct=True).process_image(
+            f.read(), query_mod.parse_query("w=300&h=200"), Format())[1]
+    assert got == want
 
 
 def test_build_state_needs_cuda_by_default():
