@@ -4,10 +4,12 @@
 Usage, from the repository root:  python3 chip_smoke.py
 
 Phases (each failure exits non-zero; nothing is caught):
-  0. versions, card name and power limit (nvidia-smi), host codecs;
-     exits non-zero when CUDA is absent
-  1. build the CUDA kernels (csrc/resample.cu, csrc/jpeg_decode.cu, one
-     nvcc each, started together) and the host JPEG entropy reader and
+  0. versions, card name and power limit (nvidia-smi), host codecs and
+     PIL's littlecms2 (required: the host ICC route); exits non-zero
+     when CUDA is absent
+  1. build the CUDA kernels (csrc/resample.cu, csrc/jpeg_decode.cu,
+     csrc/cmyk_lut.cu, one nvcc each, started together) and the host
+     JPEG entropy reader and
      encoder (csrc/jpeg_coeffs.cpp, csrc/jpeg_encode.cpp, the host C++
      compiler)
   2. the resample kernel against its plain torch version on the card at
@@ -79,16 +81,36 @@ Phases (each failure exits non-zero; nothing is caught):
      16-bit PNM/PNG/TIFF, float TIFF, 16-bit gray TIFF, OpenEXR), made
      from a seed into build/chip_smoke/, through Engine(dev): served
      with its format's mime type
+  7. the CMYK / ICC path, from two synthetic ICC profiles and sources
+     written from a seed into build/chip_smoke/: (a) K12a
+     jpeg_decode_cmyk and (b) K12b cmyk_lut (planar and pixel forms)
+     against their plain versions, 0 bytes differing, on CMYK and YCCK
+     4:4:4 (PIL streams and their Adobe flips), YCCK 4:2:0 grids, odd
+     dims (641x479, 7x5), B = 1, 8, a padded batch and 12 MP CMYK q95
+     B=2; (c) 2048x2048 CMYK 4:4:4 q95 print assets (plain, the YCCK
+     flip, one with an embedded profile) through Engine(dev, cmyk2rgb,
+     use_embedded_profile=True) with enable_device_icc(): each request
+     on the coefficient path with one K12a, one K12b and one resample,
+     its batch kind (cmyk444, cmyk444y, cmyk444@<key>); an EXIF-rotated
+     one on the pixel route with one K12b and one resample, no K12a;
+     each >= 40 dB against the host lcms2 route; and the stage times of
+     both routes in turns; (d) the server with profile_path and tpu.device_icc: a
+     print asset over HTTP, then 16 README-size CMYK requests from 16
+     threads in <= 4 batches with the serial Engine's bodies; (e) both
+     kernels' event ms, device ms, plain ms, bound and share at
+     README-like B=8 (lenna as CMYK) and 12 MP B=2
 Launch counts are set to 0 just before each main-path run (the pixel
 Engine, the coefficient Engine, the server, each phase-5 burst, the two
-jpegdct engines and the jpegdct server burst of phase 6) and read just
-after it; every kernel of the serving path (resample, resample_blur,
-jpeg_decode_rgb) must have been launched by the coefficient engine, the
-server and phase 5 (b).
+jpegdct engines and the jpegdct server burst of phase 6, the CMYK engine
+and the CMYK server burst of phase 7) and read just after it; every
+kernel of the serving path (resample, resample_blur, jpeg_decode_rgb)
+must have been launched by the coefficient engine, the server and phase
+5 (b), K12a and K12b by both CMYK runs and by no earlier run.
 
 The second-to-last line is {"kernels": [...]}: each kernel's main-path
 launches (K3/K4: 0, with phase 2b's as checked_launches), worst error,
-event and plain ms, bound and library ms; the last line is {"ok": true,
+event and plain ms, bound and library ms (K12a and K12b at README-like
+B=8); the last line is {"ok": true,
 "device": {...}}. The port
 imports torch, and nothing of jax or of fanlin_tpu.
 """
@@ -188,6 +210,12 @@ def phase0() -> str:
     print(smi)
     for mod in ("PIL", "aiohttp"):
         print(f"{mod} importable: {importlib.util.find_spec(mod) is not None}")
+    from PIL import features
+
+    lcms = features.version("littlecms2")
+    print(f"littlecms2 {lcms}", flush=True)
+    check(lcms is not None, "PIL has no littlecms2: the host ICC route "
+                            "cannot run")
     from fanlin_tpu_torch.engine import native_codecs
 
     print(f"native codec core available: {native_codecs.available()}",
@@ -549,27 +577,59 @@ def _time_turns(fns: dict, reps: int, launches: int) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
+def _traced(fn, calls: int) -> tuple:
+    """torch.profiler's records of `calls` calls of `fn`: (kernel
+    records, the number of kernel launches) of those calls, each kernel
+    matched to its launch by correlation id. The profiler loses the
+    kernel records of the first launches of a trace (on the H100 they
+    were missing there and nowhere else), so each trace opens with one
+    call, a synchronize and a 20 ms pause, none of them counted; a line
+    says how many of that call's records were lost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        # the profiler's clock counts ns since the epoch; the mark sits
+        # 10 ms from either side's launches
+        time.sleep(0.01)
+        mark = time.time_ns()
+        time.sleep(0.01)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    launches = [e for e in events if e.device_type() != cuda
+                and e.name().startswith(("cudaLaunchKernel",
+                                         "cuLaunchKernel"))]
+    seen = {e.correlation_id() for e in events if e.device_type() == cuda}
+    opening = {e.correlation_id() for e in launches if e.start_ns() < mark}
+    if opening - seen:
+        print(f"the profiler lost {len(opening - seen)} of {len(opening)} "
+              "kernel records of the trace's opening call (not measured)",
+              flush=True)
+    launched = {e.correlation_id() for e in launches} - opening
+    kernels = [e for e in events if e.device_type() == cuda
+               and e.correlation_id() in launched]
+    return kernels, len(launched)
+
+
 def _device_ms(fn, launches: int, kernels) -> float:
     """Device ms per call of `fn`, which launches one kernel whose name
     contains one of `kernels`: the mean duration of those kernels as
-    torch.profiler saw them over `launches` calls. A trace that misses
-    some launches (the profiler drops records now and then) is taken
+    torch.profiler saw them over `launches` calls (`_traced`). Every
+    launch must have its kernel record; a trace that misses one is taken
     again, up to three times."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(launches):
-                fn()
-            torch.cuda.synchronize()
-        us = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and any(k in e.name for k in kernels)]
-        if len(us) == launches:
-            return sum(us) / 1000.0 / launches
-        print(f"the profiler saw {len(us)} kernels of {kernels} for "
+        recs, n = _traced(fn, launches)
+        ns = [e.duration_ns() for e in recs
+              if any(k in e.name() for k in kernels)]
+        if n == len(ns) == launches:
+            return sum(ns) / 1e6 / launches
+        print(f"the profiler saw {len(ns)} kernels of {kernels} for {n} of "
               f"{launches} launches: tracing again", flush=True)
     check(False, f"the profiler missed launches of {kernels} three times")
 
@@ -744,18 +804,21 @@ def _golden_rgb(name: str) -> np.ndarray:
 
 
 def _counts() -> dict:
+    from fanlin_tpu_torch.ops import cmyk_lut_kernels as lk
     from fanlin_tpu_torch.ops import jpeg_decode_kernels as jk
     from fanlin_tpu_torch.ops import resample_kernels as rk
 
-    return {**rk.launch_counts(), **jk.launch_counts()}
+    return {**rk.launch_counts(), **jk.launch_counts(), **lk.launch_counts()}
 
 
 def _reset_counts() -> None:
+    from fanlin_tpu_torch.ops import cmyk_lut_kernels as lk
     from fanlin_tpu_torch.ops import jpeg_decode_kernels as jk
     from fanlin_tpu_torch.ops import resample_kernels as rk
 
     rk.reset_launch_counts()
     jk.reset_launch_counts()
+    lk.reset_launch_counts()
 
 
 def phase3_pre_encode(dev: torch.device) -> None:
@@ -1196,21 +1259,17 @@ def k9_bound(w: int, h: int, b: int) -> dict:
 
 
 def _device_ms_all(fn, calls: int) -> float:
-    """Device ms per call of `fn`: every CUDA activity torch.profiler saw
-    over `calls` calls (K9 is torch code: many small kernels), summed."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(us > 0, "the profiler saw no device time for the K9 tail")
-    return us / 1000.0 / calls
+    """Device ms per call of `fn`: every kernel torch.profiler saw over
+    `calls` calls (K9 is torch code: many small kernels), summed; every
+    launch must have its kernel record (`_traced`), or the trace is taken
+    again, up to three times."""
+    for _ in range(3):
+        recs, n = _traced(fn, calls)
+        if n > 0 and len(recs) == n:
+            return sum(e.duration_ns() for e in recs) / 1e6 / calls
+        print(f"the profiler saw {len(recs)} kernels for {n} launches of "
+              "the K9 tail: tracing again", flush=True)
+    check(False, "the profiler missed launches of the K9 tail three times")
 
 
 def phase6_tail(dev: torch.device) -> dict:
@@ -1476,6 +1535,473 @@ async def _phase6_server(dev: torch.device) -> dict:
     return window
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the CMYK / ICC path (P9), K12a jpeg_decode_cmyk and K12b cmyk_lut
+
+# K12b's f32 work per pixel (csrc/cmyk_lut.cu): per component the scale
+# multiply, the floor and two subtracts; per corner 4 weight products, 3
+# multiplies and 3 adds; per channel the rounding add and the floor
+LUT_OPS = 4 * 4 + 16 * (4 + 3 + 3) + 3 * 2
+# K12b's ops are single-rounded f32 instructions (__fmul_rn, __fadd_rn),
+# never fused: one per FP32 lane per clock, 128 lanes on each of 132 SMs
+# at 1.98 GHz. F32_FLOP_PER_S (67e12) counts a multiply-add as two ops,
+# so it is twice this ceiling for unfused work.
+F32_UNFUSED_OPS_PER_S = 128 * 132 * 1.98e9
+# K12a's int32 work per output pixel besides its blocks': plain CMYK
+# inverts 4 samples; YCCK adds jdcolor (and the upsample) and inverts K
+CMYK_PIXEL_OPS = {(444, False): 4, (444, True): PIXEL_OPS[444] + 1,
+                  (420, True): PIXEL_OPS[420] + 1}
+# The JAX package's floor for its device ICC LUT against host lcms2
+# (tests/test_cmyk_lut.py:57)
+ICC_FLOOR_DB = 40.0
+
+
+def cmyk_decode_bound(w: int, h: int, subsamp: int, ycck: bool, n: int,
+                      b: int, sh: int, sw: int) -> dict:
+    """decode_bound for K12a: the wire of the true MCU grid of four
+    planes (K at the luma grid) of the n real images read once with
+    their quant tables, the (b, 4, sh, sw) output written once, and the
+    integer operations of those blocks and of the true rect's pixels."""
+    dv, dh = DIVISORS[subsamp]
+    ch, cw = -(-h // dv), -(-w // dh)
+    blocks = 2 * -(-h // 8) * -(-w // 8) + 2 * -(-ch // 8) * -(-cw // 8)
+    return _bound(n * (blocks * 128 + 2 * 64 * 4) + b * 4 * sh * sw,
+                  n * (blocks * BLOCK_OPS
+                       + h * w * CMYK_PIXEL_OPS[(subsamp, ycck)]))
+
+
+def lut_bound(pixels: int, lut_entries: int) -> dict:
+    """The least work of K12b on `pixels` pixels: 4 bytes read and 3
+    written each, the LUT read once, LUT_OPS unfused f32 operations each
+    (F32_UNFUSED_OPS_PER_S)."""
+    nbytes = 7 * pixels + 12 * lut_entries
+    ops = LUT_OPS * pixels
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_UNFUSED_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "f32_ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _cmyk_profile(seed: int, grid: int = 5) -> bytes:
+    """A synthetic ICC v2 output profile (class prtr, CMYK -> Lab) with
+    one lut16 (mft2) A2B0 tag: a grid^4 CLUT of a seeded under-colour
+    formula, identity curves; plus wtpt and desc. lcms2 accepts it."""
+    import struct
+
+    rng = np.random.default_rng(seed)
+    gain = rng.uniform(0.85, 1.0, 3)
+    lv = np.linspace(0.0, 1.0, grid)
+    c, m, y, k = np.meshgrid(lv, lv, lv, lv, indexing="ij")
+    rgb = np.stack([(1 - c) * gain[0], (1 - m) * gain[1],
+                    (1 - y) * gain[2]], -1) * (1 - k)[..., None]
+    lum = 100.0 * (rgb @ np.array([0.3, 0.59, 0.11]))
+    a = np.clip(90.0 * (rgb[..., 0] - rgb[..., 1]), -127, 127)
+    b = np.clip(90.0 * (rgb[..., 1] - rgb[..., 2]), -127, 127)
+    # ICC v2 16-bit Lab: L 0..100 -> 0..0xFF00, a and b + 128, times 256
+    lab = np.stack([lum / 100.0 * 0xFF00, (a + 128.0) * 256.0,
+                    (b + 128.0) * 256.0], -1)
+    clut = np.clip(np.round(lab), 0, 0xFFFF).astype(">u2").tobytes()
+    ident = struct.pack(">2H", 0, 0xFFFF)
+    mft2 = (b"mft2" + bytes(4) + struct.pack(">4B", 4, 3, grid, 0)
+            + struct.pack(">9i", 65536, 0, 0, 0, 65536, 0, 0, 0, 65536)
+            + struct.pack(">2H", 2, 2) + ident * 4 + clut + ident * 3)
+    text = b"synthetic CMYK %d\0" % seed
+    desc = (b"desc" + bytes(4) + struct.pack(">I", len(text)) + text
+            + struct.pack(">II", 0, 0) + struct.pack(">HB", 0, 0) + bytes(67))
+    d50 = struct.pack(">3i", 63190, 65536, 54061)
+    tags = [(b"desc", desc), (b"wtpt", b"XYZ " + bytes(4) + d50),
+            (b"A2B0", mft2)]
+    at = 128 + 4 + 12 * len(tags)
+    table, body = b"", b""
+    for sig, data in tags:
+        data += bytes(-len(data) % 4)
+        table += sig + struct.pack(">II", at + len(body), len(data))
+        body += data
+    header = (struct.pack(">I", at + len(body)) + b"lcms"
+              + struct.pack(">I", 0x02100000) + b"prtrCMYKLab "
+              + struct.pack(">6H", 2026, 1, 1, 0, 0, 0) + b"acsp"
+              + bytes(24) + struct.pack(">I", 0) + d50 + bytes(48))
+    return header + struct.pack(">I", len(tags)) + table + body
+
+
+def _adobe_ycck(data: bytes) -> bytes:
+    """The stream with its Adobe APP14 transform byte set to 2: libjpeg
+    (and the port's reader) then read it as YCCK."""
+    i = data.find(b"\xff\xee")
+    check(i > 0 and data[i + 4:i + 9] == b"Adobe", "no Adobe APP14 marker")
+    out = bytearray(data)
+    out[i + 15] = 2
+    return bytes(out)
+
+
+def _cmyk_jpeg(rgb: np.ndarray, quality: int, icc: bytes = None,
+               orientation: int = 1) -> bytes:
+    """PIL's CMYK JPEG (4:4:4, Adobe transform 0) of an RGB image, with
+    an EXIF orientation when it is not 1."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    kw = {"icc_profile": icc} if icc else {}
+    if orientation != 1:
+        exif = Image.Exif()
+        exif[0x0112] = orientation
+        kw["exif"] = exif
+    Image.fromarray(rgb).convert("CMYK").save(buf, format="JPEG",
+                                              quality=quality, **kw)
+    return buf.getvalue()
+
+
+def _ycck420_meta(w: int, h: int, rng) -> dict:
+    """A read_jpeg_coeffs4 dict of a YCCK 4:2:0 source from seeded
+    grids (the card's machine has no libjpeg to write one)."""
+    cshape = (-(-h // 16), -(-w // 16))
+    lshape = (2 * cshape[0], 2 * cshape[1])
+    grids = []
+    for bh, bw in (lshape, cshape, cshape, lshape):
+        g = np.zeros((bh, bw, 64), np.int16)
+        g[..., 0] = rng.integers(-60, 60, (bh, bw))
+        g[..., 1:12] = rng.integers(-20, 20, (bh, bw, 11))
+        grids.append(g)
+    q = rng.integers(1, 30, 128).astype(np.uint16)
+    return {"y": grids[0], "cb": grids[1], "cr": grids[2], "k": grids[3],
+            "lq": q[:64], "cq": q[64:], "w": w, "h": h, "subsamp": 420,
+            "ycck": True, "cmyk": True}
+
+
+def _gen_cmyk_sources() -> str:
+    """Phase 7's files, made from a seed into build/chip_smoke/: the
+    default and the embedded profile, 2048x2048 CMYK 4:4:4 q95 print
+    assets (the golden lenna upscaled and converted): plain, its YCCK
+    flip, one carrying the embedded profile and one EXIF-rotated
+    (orientation 6); and the README source
+    as CMYK 4:4:4 q92 (lenna_cmyk.jpg). Returns the directory."""
+    from PIL import Image
+
+    with Image.open(os.path.join(GOLDEN, "lenna_src.jpg")) as im:
+        rgb = np.asarray(im.convert("RGB"))
+        big = np.asarray(im.convert("RGB").resize((2048, 2048),
+                                                  Image.LANCZOS))
+    embedded = _cmyk_profile(1)
+    files = {"default.icc": _cmyk_profile(0), "embedded.icc": embedded,
+             "print_cmyk.jpg": _cmyk_jpeg(big, 95),
+             "lenna_cmyk.jpg": _cmyk_jpeg(rgb, 92)}
+    files["print_ycck.jpg"] = _adobe_ycck(files["print_cmyk.jpg"])
+    files["print_embedded.jpg"] = _cmyk_jpeg(big, 95, icc=embedded)
+    files["print_rotated.jpg"] = _cmyk_jpeg(big, 95, orientation=6)
+    out = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out, exist_ok=True)
+    for name, data in files.items():
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(data)
+    return out
+
+
+# (name, source, images, timed): K12a's and K12b's shapes. Sources are
+# PIL CMYK JPEGs (lenna 512x512 q92, a seeded photo at odd dims, 12 MP
+# q95), their Adobe YCCK flips, or YCCK 4:2:0 grids from a seed. A batch
+# of 5 images runs as B=8, the last three padding.
+CMYK_SHAPES = [
+    ("lenna_cmyk444_b1", "lenna_cmyk", 1, False),
+    ("lenna_cmyk444_b8", "lenna_cmyk", 8, True),
+    ("lenna_ycck444_b8", "lenna_ycck", 8, False),
+    ("grid_ycck420_512_b8", "grid420_512", 8, False),
+    ("odd_cmyk444_641x479_b1", "odd_cmyk", 1, False),
+    ("odd_ycck420_641x479_5of8", "grid420_641", 5, False),
+    ("tiny_ycck444_7x5_b1", "tiny_ycck", 1, False),
+    ("tiny_ycck420_7x5_b1", "grid420_7", 1, False),
+    ("12mp_cmyk444_b2", "12mp_cmyk", 2, True),
+]
+
+
+def _cmyk_source(kind: str, rng) -> dict:
+    from fanlin_tpu_torch.engine.jpeg_coeffs import read_jpeg_coeffs4
+
+    if kind.startswith("grid420_"):
+        w = {"512": 512, "641": 641, "7": 7}[kind.split("_")[1]]
+        h = {512: 512, 641: 479, 7: 5}[w]
+        return _ycck420_meta(w, h, rng)
+    if kind.startswith("lenna"):
+        with open(os.path.join(GOLDEN, "lenna_src.jpg"), "rb") as f:
+            from PIL import Image
+
+            rgb = np.asarray(Image.open(io.BytesIO(f.read())).convert("RGB"))
+        data = _cmyk_jpeg(rgb, 92)
+    elif kind == "odd_cmyk":
+        data = _cmyk_jpeg(_photo(641, 479, rng), 90)
+    elif kind == "tiny_ycck":
+        data = _cmyk_jpeg(_photo(7, 5, rng), 90)
+    else:
+        data = _cmyk_jpeg(_photo(4000, 3000, rng), 95)
+    if kind.endswith("ycck"):
+        data = _adobe_ycck(data)
+    meta = read_jpeg_coeffs4(data)
+    check(meta is not None and meta["ycck"] == kind.endswith("ycck"),
+          f"{kind}: the reader refused the stream or read the wrong "
+          "transform")
+    return meta
+
+
+def phase7_kernels(dev: torch.device, lut: np.ndarray) -> dict:
+    """(a) K12a against its plain version, (b) K12b against its plain
+    version on K12a's output (and its pixel form on one image), 0 bytes
+    differing at every shape; (e) at the timed shapes event ms, device
+    ms, plain ms, bound and share of both."""
+    from fanlin_tpu_torch.spec.query import parse_query
+    from fanlin_tpu_torch.ops import cmyk_lut_kernels as lk
+    from fanlin_tpu_torch.ops import fused, plan as plan_mod
+    from fanlin_tpu_torch.ops import jpeg_decode_kernels as jk
+
+    rng = np.random.default_rng(20261019)
+    flat = np.ascontiguousarray(lut.reshape(-1, 3).astype(np.float32))
+    n = lut.shape[0]
+    lut_dev = torch.from_numpy(flat).to(dev)
+    results = {}
+    for name, kind, images, timed in CMYK_SHAPES:
+        meta = _cmyk_source(kind, rng)
+        meta.update(lut_flat=flat, lut_n=n, lut_key="")
+        plan = plan_mod.plan_image(meta["w"], meta["h"],
+                                   parse_query("w=300&h=200"), opaque=True)
+        asm = fused.CmykCoefBatchAssembly([plan] * images, [meta] * images,
+                                          dev)
+        wire = asm.device_wire()
+        args = (asm.subsamp, asm.ycck, asm.true_h, asm.true_w, asm.sh, asm.sw,
+                images)
+        cmyk = jk.jpeg_decode_cmyk(*wire, *args)
+        torch.cuda.synchronize()
+        a_diff = _bytes_differing(cmyk, jk.jpeg_decode_cmyk_ref(*wire, *args))
+        rgb = lk.cmyk_lut(cmyk, lut_dev, n)
+        torch.cuda.synchronize()
+        b_diff = _bytes_differing(rgb, lk.cmyk_lut_ref(cmyk, lut_dev, n))
+        px = cmyk[0].permute(1, 2, 0).contiguous()
+        pix = lk.cmyk_lut_pixels(px, lut_dev, n)
+        torch.cuda.synchronize()
+        p_diff = _bytes_differing(pix, rgb[0].permute(1, 2, 0).contiguous())
+        print(f"phase7a {name} {meta['w']}x{meta['h']} {asm.subsamp}"
+              f"{' ycck' if asm.ycck else ''} B={asm.b} n={images} "
+              f"jpeg_decode_cmyk bytes differing {a_diff[0]} (max "
+              f"{a_diff[1]}); phase7b cmyk_lut {b_diff[0]} (max {b_diff[1]}),"
+              f" pixel form against the planar one {p_diff[0]}; wire "
+              f"{asm.upload_bytes // asm.b} B/img", flush=True)
+        check(a_diff[0] == 0, f"{name}: jpeg_decode_cmyk differs from its "
+                              "plain version")
+        check(b_diff[0] == 0 and p_diff[0] == 0,
+              f"{name}: cmyk_lut differs from its plain version")
+        res = {"a_err": a_diff[1], "b_err": max(b_diff[1], p_diff[1])}
+        if timed:
+            big = kind == "12mp_cmyk"
+            ev = _time_turns({
+                "k12a": lambda: jk.jpeg_decode_cmyk(*wire, *args),
+                "k12b": lambda: lk.cmyk_lut(cmyk, lut_dev, n),
+            }, reps=5 if big else 10, launches=20 if big else 100)
+            plain = _time_turns({
+                "k12a": lambda: jk.jpeg_decode_cmyk_ref(*wire, *args),
+                "k12b": lambda: lk.cmyk_lut_ref(cmyk, lut_dev, n),
+            }, reps=3, launches=1)
+            dev_ms = {
+                "k12a": _device_ms(lambda: jk.jpeg_decode_cmyk(*wire, *args),
+                                   20, ("decode_cmyk_kernel",)),
+                "k12b": _device_ms(lambda: lk.cmyk_lut(cmyk, lut_dev, n), 20,
+                                   ("cmyk_lut_kernel",)),
+            }
+            bnd = {"k12a": cmyk_decode_bound(meta["w"], meta["h"],
+                                             asm.subsamp, asm.ycck, images,
+                                             asm.b, asm.sh, asm.sw),
+                   "k12b": lut_bound(asm.b * asm.sh * asm.sw, n ** 4)}
+            for k in ("k12a", "k12b"):
+                res[k] = {"ms": ev[k], "device_ms": dev_ms[k],
+                          "plain_ms": plain[k], **bnd[k]}
+                print(f"phase7e {name} {k}: event_ms={ev[k]:.4f} device_ms="
+                      f"{dev_ms[k]:.4f} plain_ms={plain[k]:.4f}; bound "
+                      f"{bnd[k]['bound_ms']:.4f} ms by {bnd[k]['bound_by']} "
+                      f"({bnd[k]['bytes']} B), "
+                      f"{bnd[k]['bound_ms'] / dev_ms[k] * 100:.1f} % of it on "
+                      f"device time, {bnd[k]['bound_ms'] / ev[k] * 100:.1f} "
+                      "% on event time", flush=True)
+        results[name] = res
+    return results
+
+
+def _decoded(body: bytes) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(io.BytesIO(body)) as im:
+        return np.asarray(im.convert("RGB"), dtype=np.uint8)
+
+
+def phase7_engine(dev: torch.device, folder: str):
+    """(c) The print assets through Engine(dev, cmyk2rgb, embedded
+    profiles) with enable_device_icc(): every request on the coefficient
+    path with one K12a, one K12b and one resample launch and the batch
+    kind of its colour transform and profile, but the EXIF-rotated one,
+    which takes the pixel route (one K12b on its pixels, one resample, no
+    K12a); each >= ICC_FLOOR_DB against the host lcms2 route (the same
+    Engine without the device LUT). Returns (engine, host route engine,
+    coefficient requests, pixel requests)."""
+    from fanlin_tpu_torch.engine import Engine
+    from fanlin_tpu_torch.engine.icc import CMYK2RGB
+    from fanlin_tpu_torch.spec.content import Format
+    from fanlin_tpu_torch.spec.query import parse_query
+
+    conv = CMYK2RGB.from_file(os.path.join(folder, "default.icc"))
+    check(conv is not None, "lcms2 refused the synthetic profile")
+    engine = Engine(dev, cmyk2rgb=conv, use_embedded_profile=True)
+    engine.enable_device_icc()
+    host = Engine(dev, cmyk2rgb=conv, use_embedded_profile=True)
+    q = parse_query("w=300&h=200")
+    n = {"coef": 0, "pixels": 0}
+    for name, kind in (("print_cmyk.jpg", "cmyk444"),
+                       ("print_ycck.jpg", "cmyk444y"),
+                       ("print_embedded.jpg", "cmyk444@"),
+                       ("print_rotated.jpg", None)):
+        with open(os.path.join(folder, name), "rb") as f:
+            data = f.read()
+        before = _counts()
+        with _BatchLog() as log:
+            mime, body = engine.process_image(data, q, Format())
+        added = {k: v - before[k] for k, v in _counts().items()}
+        pixels = kind is None
+        n["pixels" if pixels else "coef"] += 1
+        want = {k: 0 for k in added}
+        want.update(resample=1, jpeg_decode_cmyk=0 if pixels else 1,
+                    cmyk_lut=1)
+        check(added == want, f"phase7c {name}: launches {added}")
+        # the source kind, before the sink ("+jpeg420" with libjpeg)
+        k0 = log.kinds[0].split("+")[0] if log.kinds else ""
+        if pixels:  # the sink's kind: "rgb", or "jpeg420" with libjpeg
+            ok = k0 in ("rgb", "jpeg420")
+        else:
+            ok = k0.startswith(kind) if kind.endswith("@") else k0 == kind
+        check(len(log.kinds) == 1 and ok,
+              f"phase7c {name}: batch kinds {log.kinds}")
+        hmime, hbody = host.process_image(data, q, Format())
+        got, ref = _decoded(body), _decoded(hbody)
+        check(mime == hmime == "image/jpeg" and got.shape == ref.shape
+              == (200, 300, 3), f"phase7c {name}: {mime} {got.shape}")
+        db = psnr(got, ref)
+        print(f"phase7c {name}: kind {k0}, launches {added}, {db:.2f} dB "
+              "against host lcms2", flush=True)
+        check(db >= ICC_FLOOR_DB, f"phase7c {name}: {db:.2f} dB < "
+                                  f"{ICC_FLOOR_DB} against host lcms2")
+    check(engine.stats == {"pixel_src": n["pixels"], "coef_src": n["coef"]},
+          f"phase7c engine stats {engine.stats}")
+    check(host.stats == {"pixel_src": sum(n.values()), "coef_src": 0},
+          f"phase7c host route stats {host.stats}")
+    return engine, host, n["coef"], n["pixels"]
+
+
+def phase7_stage_times(engine, host, folder: str) -> None:
+    """(c) The stage times of the print asset on the device ICC route
+    and the host lcms2 route, in turns (outside the launch windows)."""
+    from fanlin_tpu_torch.spec.content import Format
+    from fanlin_tpu_torch.spec.query import parse_query
+
+    q = parse_query("w=300&h=200")
+    with open(os.path.join(folder, "print_cmyk.jpg"), "rb") as f:
+        data = f.read()
+    for label, e in (("device ICC", engine), ("host lcms2", host),
+                     ("host lcms2", host), ("device ICC", engine)):
+        for _ in range(2):
+            e.process_image(data, q, Format())
+        rows = []
+        for _ in range(10):
+            marks = []
+            t0 = time.perf_counter()
+            e.process_image(data, q, Format(), marks)
+            rows.append(dict(marks, total=(time.perf_counter() - t0) * 1e3))
+        med = {k: statistics.median(r[k] for r in rows)
+               for k in ("f_decode", "f_device", "f_encode", "total")}
+        print(f"phase7c 2048x2048 CMYK {label} route stage ms (median of "
+              "10): " + ", ".join(f"{k} {v:.4f}" for k, v in med.items()),
+              flush=True)
+
+
+async def _phase7_server(dev: torch.device, folder: str) -> dict:
+    """(d) The server with profile_path and tpu.device_icc: one print
+    asset request over HTTP, then 16 README-size CMYK requests
+    (lenna_cmyk.jpg) from 16 threads through its engine in <= 4 batches
+    with the serial Engine's bodies. Returns the burst's launch-count
+    window."""
+    import aiohttp
+    from aiohttp import web
+
+    from fanlin_tpu_torch.config import Config
+    from fanlin_tpu_torch.engine import Engine
+    from fanlin_tpu_torch.engine.icc import CMYK2RGB
+    from fanlin_tpu_torch.server.app import build_state, create_app
+
+    cfg = Config.from_obj({
+        "port": 0, "bind_addr": "127.0.0.1", "max_clients": 8,
+        "client": {"s3": {"aws_region": "x"},
+                   "web": {"user_agent": "chip-smoke", "timeout": 2}},
+        "providers": [{"path": "gen", "src": "file://localhost" + folder}],
+        "profile_path": os.path.join(folder, "default.icc"),
+        "tpu": {"device_icc": True},
+    })
+    state = await build_state(cfg)
+    check(state.engine.device_cmyk is not None,
+          "the server's engine has no device LUT")
+    batcher = state.engine.runner.batcher
+    runner = web.AppRunner(create_app(cfg, state), access_log=None)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+    with open(os.path.join(folder, "lenna_cmyk.jpg"), "rb") as f:
+        data = f.read()
+    serial = Engine(dev, cmyk2rgb=CMYK2RGB.from_file(cfg.profile_path))
+    serial.enable_device_icc()
+    want_print = _serial_body(serial, "/gen/print_cmyk.jpg?w=300&h=200",
+                              folder)
+    want = _serial_body(serial, "/gen/lenna_cmyk.jpg?w=300&h=200", folder)
+    try:
+        async with aiohttp.ClientSession() as s:
+            async with s.get(base + "/gen/print_cmyk.jpg?w=300&h=200") as r:
+                body = await r.read()
+                check(r.status == 200
+                      and r.headers["Content-Type"] == "image/jpeg",
+                      f"phase7d CMYK status {r.status}")
+                check(body == want_print, "phase7d: the HTTP body differs "
+                      "from the serial Engine's")
+        # warm-up, as phase 5's: a first burst grows the pinned host
+        # pool to the CMYK wire of a full batch
+        await asyncio.to_thread(_thread_burst, state.engine, data,
+                                "w=300&h=200", 16)
+        before = dict(batcher.stats)
+        with _BatchLog() as log:
+            _reset_counts()
+            bodies, wall = await asyncio.to_thread(
+                _thread_burst, state.engine, data, "w=300&h=200", 16)
+            window = _counts()
+        batches = batcher.stats["batches"] - before["batches"]
+        print(f"phase7d CMYK server: 16 README-size CMYK requests from 16 "
+              f"threads in "
+              f"{batches} batches {[r[0] for r in log.rows]}, kinds "
+              f"{sorted(set(log.kinds))}, launches {window}, wall "
+              f"{wall * 1000:.3f} ms", flush=True)
+        check(batches <= 4 and len(log.rows) == batches
+              and all(r[1] == r[2] == 1 and r[3] for r in log.rows)
+              and {k.split("+")[0] for k in log.kinds} == {"cmyk444"},
+              f"phase7d: {batches} batches, {log.rows}, {set(log.kinds)}")
+        check(window["resample"] == window["jpeg_decode_cmyk"]
+              == window["cmyk_lut"] == batches
+              and window["jpeg_decode_rgb"] == 0,
+              f"phase7d: launches {window} for {batches} batches")
+        check(all(b == want for b in bodies),
+              "phase7d: a batched body differs from the serial one")
+    finally:
+        await runner.cleanup()
+    return window
+
+
+def _phase7_lut(folder: str) -> np.ndarray:
+    from fanlin_tpu_torch.engine.icc import CMYK2RGB
+    from fanlin_tpu_torch.ops import cmyk_lut
+
+    conv = CMYK2RGB.from_file(os.path.join(folder, "default.icc"))
+    check(conv is not None, "lcms2 refused the synthetic profile")
+    return cmyk_lut.sample_lut(conv.convert, 17)
+
+
 def main() -> int:
     smi = phase0()
     from fanlin_tpu_torch import device as device_mod
@@ -1511,8 +2037,34 @@ def main() -> int:
     windows["pixel jpegdct engine"] = _counts()
     windows["jpegdct server"] = asyncio.run(_phase6_server(dev))
     phase6_formats(dev)
+    # phase 7: the CMYK / ICC path
+    cmyk_dir = _gen_cmyk_sources()
+    cmyk = phase7_kernels(dev, _phase7_lut(cmyk_dir))
+    earlier = list(windows)
+    _reset_counts()
+    cmyk_engine, host_icc_engine, n_cmyk, n_cmyk_px = phase7_engine(
+        dev, cmyk_dir)
+    windows["cmyk engine"] = _counts()
+    phase7_stage_times(cmyk_engine, host_icc_engine, cmyk_dir)
+    windows["cmyk server"] = asyncio.run(_phase7_server(dev, cmyk_dir))
     for name, c in windows.items():
         print(f"launch counts ({name}): {c}", flush=True)
+    for name in earlier:
+        check(windows[name]["jpeg_decode_cmyk"] == windows[name]["cmyk_lut"]
+              == 0, f"the {name} run launched a CMYK kernel")
+    # the window holds the device ICC route's requests (coefficients, and
+    # pixels for the EXIF-rotated one) and the host lcms2 route's (pixels:
+    # one resample each)
+    w = windows["cmyk engine"]
+    check(w["jpeg_decode_cmyk"] == n_cmyk
+          and w["cmyk_lut"] == n_cmyk + n_cmyk_px
+          and w["resample"] == 2 * (n_cmyk + n_cmyk_px),
+          f"cmyk engine launched {w} for {n_cmyk} coefficient and "
+          f"{n_cmyk_px} pixel requests on each route")
+    for name in ("jpeg_decode_cmyk", "cmyk_lut"):
+        for path in ("cmyk engine", "cmyk server"):
+            check(windows[path][name] > 0,
+                  f"kernel {name} was never launched by the {path} run")
     for path, n in (("coef engine", n_coef), ("coef jpegdct engine",
                                                n_dct_coef)):
         w = windows[path]
@@ -1541,6 +2093,10 @@ def main() -> int:
                           ("jpegdct coefficient", dct_coef_engine),
                           ("coefficient", coef_engine)):
         readme_stage_times(engine, label)
+    # the default README route beside phase 7 (c)'s CMYK stage times,
+    # and the README request through the CMYK engine (a YCbCr source)
+    readme_stage_times(coef_engine, "coefficient (beside phase 7)")
+    readme_stage_times(cmyk_engine, "coefficient, CMYK engine")
     print("phase6e K9 tail summary " + json.dumps(k9), flush=True)
     check("jax" not in sys.modules, "jax was imported")
     check("fanlin_tpu" not in sys.modules, "fanlin_tpu was imported")
@@ -1596,6 +2152,24 @@ def main() -> int:
          "bound_ms": k34["k4_bound"]["bound_ms"],
          "bound_by": k34["k4_bound"]["bound_by"], "library_ms": None},
     ]
+    # the CMYK kernels, timed at README-like B=8 (lenna as CMYK 4:4:4);
+    # no PyTorch call decodes islow or interpolates a 4-D LUT
+    # (grid_sample stops at 3-D volumes): library_ms is null
+    timed = cmyk["lenna_cmyk444_b8"]
+    for name, key, source, replaces in (
+            ("jpeg_decode_cmyk", "k12a", src,
+             "fanlin_tpu/ops/jpeg_decode.py:364"),
+            ("cmyk_lut", "k12b", "fanlin_tpu_torch/csrc/cmyk_lut.cu",
+             "fanlin_tpu/ops/cmyk_lut.py:63")):
+        t = timed[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["a_err" if key == "k12a" else "b_err"]
+                               for r in cmyk.values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,15 @@
 // sampling layouts outside 4:2:0/4:2:2/4:4:0/4:4:4, per-component
 // chroma quant tables and coefficient blobs over 512 MiB.
 //
+// fanlin_read_jpeg_coeffs4 is the 4-component twin (fc_read_jpeg_coeffs4,
+// native/fanlin_codec.cpp:678-770): the colour space of libjpeg's
+// default_decompress_parms for four components (no Adobe marker or
+// Adobe transform 0: CMYK; any other transform: YCCK), plain CMYK with
+// every component 1x1, YCCK with comp0 and comp3 at 1x1 or 2x2 and the
+// chroma 1x1, comp2 sharing comp1's quant table and comp3 comp0's, and
+// the allocation gate at 4.0 (4:4:4) or 2.5 (4:2:0) planes. It returns 2
+// for every other layout and for streams of 1 or 3 components.
+//
 // Speed: the bit reader keeps 57-64 bits buffered (jdhuff's layout),
 // Huffman codes up to 8 bits decode through a 256-entry lookup, and an
 // AC coefficient whose code and magnitude bits fit in 9 bits decodes
@@ -164,8 +173,9 @@ class Reader {
  public:
   Reader(const uint8_t* data, size_t len) : d_(data), n_(len) {}
 
-  // 0 on success; fills the outputs like fc_read_jpeg_coeffs.
-  int run(int16_t** out, int* info, uint16_t* qtables);
+  // 0 on success; fills the outputs like fc_read_jpeg_coeffs, or with
+  // four, like fc_read_jpeg_coeffs4.
+  int run(bool four, int16_t** out, int* info, uint16_t* qtables);
 
  private:
   const uint8_t* d_;
@@ -817,11 +827,14 @@ void Reader::decode_scan() {
   }
 }
 
-int Reader::run(int16_t** out, int* info, uint16_t* qtables) {
+int Reader::run(bool four, int16_t** out, int* info, uint16_t* qtables) {
   if (read_markers() != 0xDA) fail();  // JERR_NO_IMAGE
   // jdapimin.c default_decompress_parms: the colour space
-  bool is_gray = false;
-  if (ncomp_ == 1) {
+  bool is_gray = false, ycck = false;
+  if (four) {
+    if (ncomp_ != 4) return 2;
+    ycck = saw_adobe_ && adobe_transform_ != 0;
+  } else if (ncomp_ == 1) {
     is_gray = true;
   } else if (ncomp_ == 3) {
     bool ycc = true;
@@ -837,7 +850,17 @@ int Reader::run(int16_t** out, int* info, uint16_t* qtables) {
     return 2;
   }
   int subsamp = 400;
-  if (!is_gray) {
+  if (four) {
+    const Component* c = comp_;
+    const bool full = c[0].h == 1 && c[0].v == 1;
+    const bool half = c[0].h == 2 && c[0].v == 2;
+    const bool ok = (full || (ycck && half)) && c[1].h == 1 && c[1].v == 1 &&
+                    c[2].h == 1 && c[2].v == 1 && c[3].h == c[0].h &&
+                    c[3].v == c[0].v && c[2].tq == c[1].tq &&
+                    c[3].tq == c[0].tq;
+    if (!ok) return 2;
+    subsamp = full ? 444 : 420;
+  } else if (!is_gray) {
     const Component* c = comp_;
     const int h0 = c[0].h, v0 = c[0].v;
     const bool ok = ((h0 == 1 || h0 == 2) && (v0 == 1 || v0 == 2)) &&
@@ -848,7 +871,8 @@ int Reader::run(int16_t** out, int* info, uint16_t* qtables) {
   }
   {
     const double wp = width_ + 15.0, hp = height_ + 15.0;
-    const double scale = subsamp == 400 ? 1.0
+    const double scale = four ? (subsamp == 444 ? 4.0 : 2.5)
+                         : subsamp == 400 ? 1.0
                          : subsamp == 420 ? 1.5
                          : subsamp == 444 ? 3.0
                                           : 2.0;
@@ -874,12 +898,14 @@ int Reader::run(int16_t** out, int* info, uint16_t* qtables) {
   }
   const int ybw = comp_[0].wib, ybh = comp_[0].hib;
   const int cbw = is_gray ? 0 : comp_[1].wib, cbh = is_gray ? 0 : comp_[1].hib;
-  const size_t total =
-      (static_cast<size_t>(ybw) * ybh + 2 * static_cast<size_t>(cbw) * cbh) * 64;
+  // comp3 (K) is at comp0's rate: its grid is comp0's size
+  const size_t total = ((four ? 2 : 1) * static_cast<size_t>(ybw) * ybh +
+                        2 * static_cast<size_t>(cbw) * cbh) *
+                       64;
   int16_t* blob = static_cast<int16_t*>(malloc(total * sizeof(int16_t)));
   if (blob == nullptr) return 3;
   int16_t* dst = blob;
-  for (int ci = 0; ci < (is_gray ? 1 : 3); ++ci) {
+  for (int ci = 0; ci < (is_gray ? 1 : ncomp_); ++ci) {
     const Component& c = comp_[ci];
     for (int by = 0; by < c.hib; ++by) {
       memcpy(dst, &c.grid[static_cast<size_t>(by) * c.pw * 64],
@@ -898,6 +924,7 @@ int Reader::run(int16_t** out, int* info, uint16_t* qtables) {
   info[4] = cbw;
   info[5] = cbh;
   info[6] = subsamp;
+  if (four) info[7] = ycck ? 1 : 0;
   *out = blob;
   return 0;
 }
@@ -917,7 +944,26 @@ int fanlin_read_jpeg_coeffs(const uint8_t* data, size_t len, int16_t** out,
                             int* info, uint16_t* qtables) {
   try {
     Reader r(data, len);
-    return r.run(out, info, qtables);
+    return r.run(false, out, info, qtables);
+  } catch (const Fail& f) {
+    return f.rc;
+  } catch (...) {
+    return 3;
+  }
+}
+
+// The 4-component (CMYK / YCCK) reader: *out receives comp0 (y) blocks
+// (ybh * ybw * 64), comp1 (cb) and comp2 (cr) blocks (cbh * cbw * 64
+// each), then comp3 (k) blocks at comp0's grid (ybh * ybw * 64);
+// info[0..7] = width, height, ybw, ybh, cbw, cbh, subsamp (444 or 420),
+// ycck (0 or 1); qtables = comp0's then comp1's table. Returns 0, or
+// non-zero as fanlin_read_jpeg_coeffs (2: not 4 components, or a layout
+// or size that fc_read_jpeg_coeffs4 also refuses).
+int fanlin_read_jpeg_coeffs4(const uint8_t* data, size_t len, int16_t** out,
+                             int* info, uint16_t* qtables) {
+  try {
+    Reader r(data, len);
+    return r.run(true, out, info, qtables);
   } catch (const Fail& f) {
     return f.rc;
   } catch (...) {

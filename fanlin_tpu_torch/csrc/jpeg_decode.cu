@@ -75,6 +75,21 @@
 //   TILE_W.
 // - One launch per batch instead of two: the wrapper's host enqueue
 //   (ctypes argtypes set once at load) is paid once.
+//
+// jpeg_decode_cmyk (K12a) is the same tile body for 4-component sources.
+// It replaces jpeg_decode.py:364 decode_cmyk, the XLA prologue that
+// fused.py:908 get_cmyk_coef_program runs before the sampled ICC LUT:
+// four islow planes, K (comp3) at comp0's rate and on comp0's table, so
+// a tile decodes its K blocks as a second luma-rate plane (jobs after the
+// luma blocks, a second luma-sized shared buffer). It stores (B, 4,
+// out_h, out_w) u8 in PIL's CMYK convention: plain CMYK (4:4:4) is
+// 255 - sample on every plane; YCCK (4:4:4, or 4:2:0 with the same
+// halo and upsample as jpeg_decode_rgb) is jdcolor's R G B for C M Y and
+// 255 - k for K. Padded images store what zero coefficients decode to
+// (127, or 128 128 128 127). Bound: bytes, 4 planes of int16 read and 4
+// output bytes per pixel written, and int32 operations as for
+// jpeg_decode_rgb with a fourth plane of blocks (chip_smoke.py
+// cmyk_decode_bound); the 4-plane colour stage holds up to 128 registers.
 
 #include <cuda_runtime.h>
 
@@ -281,11 +296,12 @@ static_assert(2 * kChromaRows * kTileW / 16 <= 1024, "block size");
 // halo row is a job of one thread.
 enum JobKind { kFull = 0, kCol0, kCol7, kRow0, kRow7 };
 
-// A tile's job slots, in this order: its luma blocks; per chroma plane its
-// blocks and the halo columns left and right; then the halo rows above
-// and below of both planes (with the corners when the layout also halves
-// x), eight one-thread jobs to a slot.
-template <int DV, int DH>
+// A tile's job slots, in this order: its luma blocks (and, with NL = 2,
+// its K blocks, the fourth component at the luma rate); per chroma plane
+// its blocks and the halo columns left and right; then the halo rows
+// above and below of both planes (with the corners when the layout also
+// halves x), eight one-thread jobs to a slot.
+template <int DV, int DH, int NL = 1>
 struct Tiling {
   static constexpr int kTileH = kChromaRows * DV;  // output rows per CTA
   // one 16-pixel vector of the colour stage per thread
@@ -298,7 +314,7 @@ struct Tiling {
   static constexpr int kNRow = DV == 2 ? kCBW + (DH == 2 ? 2 : 0) : 0;
   static constexpr int kNCol = DH == 2 ? kCBH : 0;
   static constexpr int kNPlane = kCBH * kCBW + 2 * kNCol;  // per plane
-  static constexpr int kNGroupJobs = kNY + 2 * kNPlane;
+  static constexpr int kNGroupJobs = NL * kNY + 2 * kNPlane;
   static constexpr int kNRowJobs = 2 * 2 * kNRow;  // both planes
   static constexpr int kNJobs = kNGroupJobs + (kNRowJobs + 7) / 8;  // slots
   static constexpr int kNEntries = kNGroupJobs + kNRowJobs;  // job table
@@ -310,8 +326,8 @@ __host__ __device__ constexpr int dv_of(int subsamp) {
 __host__ __device__ constexpr int dh_of(int subsamp) {
   return (subsamp == 420 || subsamp == 422) ? 2 : 1;
 }
-template <int SUBSAMP>
-using TilingOf = Tiling<dv_of(SUBSAMP), dh_of(SUBSAMP)>;
+template <int SUBSAMP, int NL = 1>
+using TilingOf = Tiling<dv_of(SUBSAMP), dh_of(SUBSAMP), NL>;
 
 // Before its rounding shift an islow pass is linear in its inputs, and
 // int32 sums and products wrap (arithmetic modulo 2^32), so its out[0] =
@@ -386,9 +402,9 @@ __device__ __forceinline__ uint2 halo_row(const int16_t* blk, const int* q,
 }
 
 struct DecodeArgs {
-  const int16_t* coef[3];  // (B, bh, bw, 64): y, cb, cr
-  const int32_t* q;        // (B, 2, 64): luma, chroma
-  uint8_t* out;            // (B, 3, out_h, out_w)
+  const int16_t* coef[4];  // (B, bh, bw, 64): y, cb, cr; k (4 components)
+  const int32_t* q;        // (B, 2, 64): luma (and K), chroma
+  uint8_t* out;            // (B, 3 or 4, out_h, out_w)
   int n;                   // images i >= n are the bucket's padding
   int ybh, ybw, cbh, cbw;
   int true_h, true_w, ch, cw;  // ch, cw: true chroma dims
@@ -396,6 +412,7 @@ struct DecodeArgs {
 };
 
 // One job of a tile: its block, or null when there is nothing to do.
+// plane: 0 y, 1 cb, 2 cr, 3 k.
 struct __align__(16) Job {
   const int16_t* blk;  // the block's 64 coefficients
   int dst;             // shared offset of its (row 0, col 0); may be < 0
@@ -404,22 +421,25 @@ struct __align__(16) Job {
 
 // Entry e of a tile's job table: its group jobs in slot order, then its
 // one-thread halo rows.
-template <int DV, int DH>
+template <int DV, int DH, int NL>
 __device__ __forceinline__ Job make_job(int e, const DecodeArgs& a, int b,
                                         int y0, int x0) {
-  using T = Tiling<DV, DH>;
+  using T = Tiling<DV, DH, NL>;
   Job job{nullptr, 0, 0, kFull};
   const int cy0 = y0 / DV, cx0 = x0 / DH;
   int gby, gbx;
   bool on;
-  if (e < T::kNY) {
-    gby = y0 / 8 + e / T::kYBW;
-    gbx = x0 / 8 + e % T::kYBW;
+  if (e < NL * T::kNY) {  // a luma-rate block: y, then k
+    const bool k_plane = e >= T::kNY;
+    const int l = k_plane ? e - T::kNY : e;
+    job.plane = k_plane ? 3 : 0;
+    gby = y0 / 8 + l / T::kYBW;
+    gbx = x0 / 8 + l % T::kYBW;
     on = gby * 8 < a.true_h && gbx * 8 < a.true_w;
     job.dst = (gby * 8 - y0) * kTileW + gbx * 8 - x0;
   } else {
     if (e < T::kNGroupJobs) {
-      int k = e - T::kNY;
+      int k = e - NL * T::kNY;
       job.plane = k < T::kNPlane ? 1 : 2;
       k -= (job.plane - 1) * T::kNPlane;
       constexpr int kNC = T::kCBH * T::kCBW;
@@ -450,10 +470,13 @@ __device__ __forceinline__ Job make_job(int e, const DecodeArgs& a, int b,
     job.dst = (gby * 8 - cy0 + 1) * kCPitch + gbx * 8 - cx0 + kCPad;
   }
   if (on) {
-    const int bh = job.plane ? a.cbh : a.ybh;
-    const int bw = job.plane ? a.cbw : a.ybw;
-    const int16_t* base = job.plane == 0 ? a.coef[0]
-                          : (job.plane == 1 ? a.coef[1] : a.coef[2]);
+    const bool chroma = job.plane == 1 || job.plane == 2;
+    const int bh = chroma ? a.cbh : a.ybh;
+    const int bw = chroma ? a.cbw : a.ybw;
+    const int16_t* base = job.plane == 0   ? a.coef[0]
+                          : job.plane == 1 ? a.coef[1]
+                          : job.plane == 2 ? a.coef[2]
+                                           : a.coef[3];
     job.blk = base + ((static_cast<long long>(b) * bh + gby) * bw + gbx) * 64;
   }
   return job;
@@ -461,9 +484,9 @@ __device__ __forceinline__ Job make_job(int e, const DecodeArgs& a, int b,
 
 // The job of thread j of a group in slot `slot`: the slot's group job, or
 // the j-th halo row of a slot past them.
-template <int DV, int DH>
+template <int DV, int DH, int NL>
 __device__ __forceinline__ Job slot_job(const Job* table, int slot, int j) {
-  using T = Tiling<DV, DH>;
+  using T = Tiling<DV, DH, NL>;
   if (slot < T::kNGroupJobs) return table[slot];
   const int k = (slot - T::kNGroupJobs) * 8 + j;
   return k < T::kNRowJobs ? table[T::kNGroupJobs + k]
@@ -541,20 +564,34 @@ __device__ __forceinline__ void chroma16(const uint8_t* c, int cy0, int cx0,
   }
 }
 
-// At most 64 registers per thread: 65,536 per SM hold 1024 / kThreads
-// CTAs.
-template <int SUBSAMP>
-__global__ void __launch_bounds__(TilingOf<SUBSAMP>::kThreads,
-                                  1024 / TilingOf<SUBSAMP>::kThreads)
-    decode_rgb_kernel(DecodeArgs a) {
+// What a tile stores: RGB (jpeg_decode_rgb); plain CMYK, each plane
+// inverted (255 - sample, PIL's "CMYK;I"); YCCK, C M Y = jdcolor's R G B of
+// (y, cb, cr) and K = 255 - k (jpeg_decode_cmyk).
+enum OutKind { kRgb = 0, kCmyk = 1, kYcck = 2 };
+
+// What zero coefficients decode to, per stored plane: 128 samples give
+// r = g = b = 128; inverted, 127.
+__device__ __forceinline__ uint32_t pad_value(int out, int p) {
+  return out == kRgb ? 128u : (out == kCmyk || p == 3) ? 127u : 128u;
+}
+
+// The body of both decode kernels, one CTA per tile. At most 64 registers
+// per thread for RGB (65,536 per SM hold 1024 / kThreads CTAs), 128 for
+// the four-plane forms.
+template <int SUBSAMP, int OUT>
+__device__ __forceinline__ void decode_tile(const DecodeArgs& a) {
   constexpr int DV = dv_of(SUBSAMP), DH = dh_of(SUBSAMP);
-  using T = TilingOf<SUBSAMP>;
+  constexpr int NL = OUT == kRgb ? 1 : 2;  // luma-rate planes
+  constexpr int NP = OUT == kRgb ? 3 : 4;  // stored planes
+  using T = TilingOf<SUBSAMP, NL>;
   constexpr int kTileH = T::kTileH, kGroups = T::kGroups;
-  __shared__ __align__(16) uint8_t s_y[kTileH * kTileW];
+  __shared__ __align__(16) uint8_t s_l[NL][kTileH * kTileW];  // y (, k)
   __shared__ __align__(16) uint8_t s_c[2][kCRows * kCPitch];
   __shared__ __align__(16) int s_q[128];
   __shared__ int s_ws[kGroups][8 * kWsPitch];
   __shared__ Job s_jobs[T::kNEntries];
+  uint8_t* const s_y = s_l[0];
+  uint8_t* const s_k = s_l[NL - 1];
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z;
@@ -569,7 +606,7 @@ __global__ void __launch_bounds__(TilingOf<SUBSAMP>::kThreads,
           __ldg(reinterpret_cast<const int4*>(a.q + b * 128) + tid);
     // the tile's job table, one entry per thread
     for (int e = tid; e < T::kNEntries; e += T::kThreads)
-      s_jobs[e] = make_job<DV, DH>(e, a, b, y0, x0);
+      s_jobs[e] = make_job<DV, DH, NL>(e, a, b, y0, x0);
     __syncthreads();
     const int g = tid >> 3, j = tid & 7;
     int* ws = s_ws[g];
@@ -581,23 +618,24 @@ __global__ void __launch_bounds__(TilingOf<SUBSAMP>::kThreads,
     }
     constexpr int kRounds = (T::kNJobs + kGroups - 1) / kGroups;
     const int4 kZero = make_int4(0, 0, 0, 0);
-    Job job = slot_job<DV, DH>(s_jobs, g, j);
+    Job job = slot_job<DV, DH, NL>(s_jobs, g, j);
     int4 raw = job.blk && job.kind < kRow0
                    ? __ldg(reinterpret_cast<const int4*>(job.blk + j * 8))
                    : kZero;
     for (int r = 0; r < kRounds; ++r) {
       // the next round's row is in flight while this one computes
-      const Job next = slot_job<DV, DH>(s_jobs, g + (r + 1) * kGroups, j);
+      const Job next = slot_job<DV, DH, NL>(s_jobs, g + (r + 1) * kGroups, j);
       const int4 nraw =
           next.blk && next.kind < kRow0
               ? __ldg(reinterpret_cast<const int4*>(next.blk + j * 8))
               : kZero;
       const bool group = job.blk && job.kind < kRow0;
+      const bool chroma = job.plane == 1 || job.plane == 2;
       int s[8];
       if (group) {  // dequantize row j into the transpose
 #pragma unroll
         for (int v = 0; v < 8; ++v)
-          ws[j * kWsPitch + v] = coef_at(raw, v) * (job.plane ? qc[v] : ql[v]);
+          ws[j * kWsPitch + v] = coef_at(raw, v) * (chroma ? qc[v] : ql[v]);
       } else if (job.blk) {  // a halo row, by this thread alone
         const bool last = job.kind == kRow7;
         *reinterpret_cast<uint2*>(
@@ -614,8 +652,9 @@ __global__ void __launch_bounds__(TilingOf<SUBSAMP>::kThreads,
       }
       __syncwarp();
       if (group) {  // row pass on row j, into the tile's samples
-        uint8_t* const tile = job.plane == 0 ? s_y : s_c[job.plane - 1];
-        const int pitch = job.plane ? kCPitch : kTileW;
+        uint8_t* const tile =
+            chroma ? s_c[job.plane - 1] : (job.plane == 3 ? s_k : s_y);
+        const int pitch = chroma ? kCPitch : kTileW;
 #pragma unroll
         for (int v = 0; v < 8; ++v) s[v] = ws[j * kWsPitch + v];
         if (job.kind == kFull) {
@@ -642,16 +681,16 @@ __global__ void __launch_bounds__(TilingOf<SUBSAMP>::kThreads,
     const int ly = tid / kVecs, lx = (tid % kVecs) * 16;
     const int y = y0 + ly, x = x0 + lx;
     if (y >= a.out_h) return;
-    uint32_t w[3][4] = {};
+    uint32_t w[NP][4] = {};
     if (!decode || y >= a.true_h || x >= a.true_w) {
-      // zero coefficients decode to Y = Cb = Cr = 128 -> r = g = b = 128
-      const uint32_t v = (b >= a.n && y < a.true_h) ? 128u : 0u;
+      // the constant of zero coefficients in a padded image's true rect
+      const bool pad = b >= a.n && y < a.true_h;
 #pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const uint32_t byte = x + k < a.true_w ? v << (8 * (k & 3)) : 0u;
-        w[0][k >> 2] |= byte;
-        w[1][k >> 2] |= byte;
-        w[2][k >> 2] |= byte;
+      for (int p = 0; p < NP; ++p) {
+        const uint32_t v = pad ? pad_value(OUT, p) : 0u;
+#pragma unroll
+        for (int k = 0; k < 16; ++k)
+          w[p][k >> 2] |= x + k < a.true_w ? v << (8 * (k & 3)) : 0u;
       }
     } else {
       const uint4 yv =
@@ -667,33 +706,60 @@ __global__ void __launch_bounds__(TilingOf<SUBSAMP>::kThreads,
         for (int t = 0; t < 4; ++t) {
           const int k = 4 * i + t;
           const int yy = byte_at(yw, k);
-          const int cbz = cb[k] - 128, crz = cr[k] - 128;
-          r[t] = yy + ((91881 * crz + 32768) >> 16);
-          bl[t] = yy + ((116130 * cbz + 32768) >> 16);
-          g[t] = yy + ((-22554 * cbz + 32768 - 46802 * crz) >> 16);
+          if (OUT == kCmyk) {  // samples in [0, 255]: no saturation needed
+            r[t] = 255 - yy;
+            g[t] = 255 - cb[k];
+            bl[t] = 255 - cr[k];
+          } else {
+            const int cbz = cb[k] - 128, crz = cr[k] - 128;
+            r[t] = yy + ((91881 * crz + 32768) >> 16);
+            bl[t] = yy + ((116130 * cbz + 32768) >> 16);
+            g[t] = yy + ((-22554 * cbz + 32768 - 46802 * crz) >> 16);
+          }
         }
         w[0][i] = pack_sat4(r[0], r[1], r[2], r[3]);
         w[1][i] = pack_sat4(g[0], g[1], g[2], g[3]);
         w[2][i] = pack_sat4(bl[0], bl[1], bl[2], bl[3]);
+      }
+      if constexpr (NP == 4) {  // K = 255 - k, bytewise (no borrows)
+        const uint4 kv =
+            *reinterpret_cast<const uint4*>(s_k + ly * kTileW + lx);
+        w[NP - 1][0] = ~kv.x;
+        w[NP - 1][1] = ~kv.y;
+        w[NP - 1][2] = ~kv.z;
+        w[NP - 1][3] = ~kv.w;
       }
       if (x + 16 > a.true_w) {  // the vector that crosses true_w
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int keep = min(max(a.true_w - x - 4 * i, 0), 4);
           const uint32_t m = keep == 4 ? ~0u : (1u << (8 * keep)) - 1u;
-          w[0][i] &= m;
-          w[1][i] &= m;
-          w[2][i] &= m;
+#pragma unroll
+          for (int p = 0; p < NP; ++p) w[p][i] &= m;
         }
       }
     }
-    uint8_t* o = a.out + static_cast<long long>(b) * 3 * plane +
+    uint8_t* o = a.out + static_cast<long long>(b) * NP * plane +
                  static_cast<long long>(y) * a.out_w + x;
 #pragma unroll
-    for (int p = 0; p < 3; ++p)
+    for (int p = 0; p < NP; ++p)
       *reinterpret_cast<uint4*>(o + p * plane) =
           make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
   }
+}
+
+template <int SUBSAMP>
+__global__ void __launch_bounds__(TilingOf<SUBSAMP>::kThreads,
+                                  1024 / TilingOf<SUBSAMP>::kThreads)
+    decode_rgb_kernel(DecodeArgs a) {
+  decode_tile<SUBSAMP, kRgb>(a);
+}
+
+template <int SUBSAMP, int OUT>
+__global__ void __launch_bounds__(TilingOf<SUBSAMP, 2>::kThreads,
+                                  512 / TilingOf<SUBSAMP, 2>::kThreads)
+    decode_cmyk_kernel(DecodeArgs a) {
+  decode_tile<SUBSAMP, OUT>(a);
 }
 
 template <int SUBSAMP>
@@ -702,6 +768,14 @@ void launch_decode_rgb(const DecodeArgs& a, int batch, cudaStream_t s) {
   const dim3 grid(a.out_w / kTileW, (a.out_h + T::kTileH - 1) / T::kTileH,
                   batch);
   decode_rgb_kernel<SUBSAMP><<<grid, T::kThreads, 0, s>>>(a);
+}
+
+template <int SUBSAMP, int OUT>
+void launch_decode_cmyk(const DecodeArgs& a, int batch, cudaStream_t s) {
+  using T = TilingOf<SUBSAMP, 2>;
+  const dim3 grid(a.out_w / kTileW, (a.out_h + T::kTileH - 1) / T::kTileH,
+                  batch);
+  decode_cmyk_kernel<SUBSAMP, OUT><<<grid, T::kThreads, 0, s>>>(a);
 }
 
 }  // namespace
@@ -786,7 +860,8 @@ extern "C" int fanlin_jpeg_decode_rgb(const int16_t* coef_y,
                                       void* stream) {
   const int dv = dv_of(subsamp);
   const int dh = dh_of(subsamp);
-  DecodeArgs a{{coef_y, coef_cb, coef_cr}, q, out, n, ybh, ybw, cbh, cbw,
+  DecodeArgs a{{coef_y, coef_cb, coef_cr, nullptr}, q, out, n, ybh, ybw,
+               cbh, cbw,
                true_h, true_w, (true_h + dv - 1) / dv, (true_w + dh - 1) / dh,
                out_h, out_w};
   if (tile_h != kChromaRows * dv || tile_w != kTileW || batch <= 0 ||
@@ -802,6 +877,41 @@ extern "C" int fanlin_jpeg_decode_rgb(const int16_t* coef_y,
     case 440: launch_decode_rgb<440>(a, batch, s); break;
     case 444: launch_decode_rgb<444>(a, batch, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K12a, the 4-component decode: y, cb, cr, k (B, bh, bw, 64) int16, k at
+// y's grid, 16-byte aligned; q (B, 2, 64) int32 (comp0's and K's table,
+// then the chroma table), 16-byte aligned; out (B, 4, out_h, out_w) u8
+// in PIL's CMYK convention, 16-byte aligned, out_w a multiple of tile_w.
+// subsamp 444 (plain CMYK or YCCK) or 420 (YCCK only); ycck 0 or 1. As
+// fanlin_jpeg_decode_rgb otherwise. Returns a CUDA error code (0 on
+// success).
+extern "C" int fanlin_jpeg_decode_cmyk(
+    const int16_t* coef_y, const int16_t* coef_cb, const int16_t* coef_cr,
+    const int16_t* coef_k, const int32_t* q, uint8_t* out, int batch, int n,
+    int ybh, int ybw, int cbh, int cbw, int subsamp, int ycck, int true_h,
+    int true_w, int out_h, int out_w, int tile_h, int tile_w, void* stream) {
+  const int dv = dv_of(subsamp);
+  const int dh = dh_of(subsamp);
+  DecodeArgs a{{coef_y, coef_cb, coef_cr, coef_k}, q, out, n, ybh, ybw,
+               cbh, cbw, true_h, true_w, (true_h + dv - 1) / dv,
+               (true_w + dh - 1) / dh, out_h, out_w};
+  if (!(subsamp == 444 || (subsamp == 420 && ycck)) ||
+      tile_h != kChromaRows * dv || tile_w != kTileW || batch <= 0 ||
+      batch > 65535 || n < 0 || n > batch || true_h <= 0 || true_w <= 0 ||
+      true_h > out_h || true_w > out_w || out_w % kTileW ||
+      (out_h + tile_h - 1) / tile_h > 65535 || 8 * ybh < true_h ||
+      8 * ybw < true_w || 8 * cbh < a.ch || 8 * cbw < a.cw)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (subsamp == 420) {
+    launch_decode_cmyk<420, kYcck>(a, batch, s);
+  } else if (ycck) {
+    launch_decode_cmyk<444, kYcck>(a, batch, s);
+  } else {
+    launch_decode_cmyk<444, kCmyk>(a, batch, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

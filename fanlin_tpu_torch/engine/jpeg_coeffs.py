@@ -1,10 +1,11 @@
-"""`read_jpeg_coeffs`: a JPEG's quantized DCT coefficients, read on the
-host with the port's own entropy reader (`csrc/jpeg_coeffs.cpp`, no
-libjpeg), for the coefficient decode on the device.
+"""`read_jpeg_coeffs` and `read_jpeg_coeffs4`: a JPEG's quantized DCT
+coefficients, read on the host with the port's own entropy reader
+(`csrc/jpeg_coeffs.cpp`, no libjpeg), for the coefficient decode on the
+device.
 
-The port of fanlin_tpu/engine/native_codecs.py::read_jpeg_coeffs,
-returning the same dict: the port's assembly takes that function's
-dicts unchanged. The reader is built with the host compiler at first
+The port of fanlin_tpu/engine/native_codecs.py::read_jpeg_coeffs and
+::read_jpeg_coeffs4, returning the same dicts: the port's assemblies
+take those functions' dicts unchanged. The reader is built with the host compiler at first
 use (`ops._build.load_host`); a failed build raises.
 """
 
@@ -62,4 +63,44 @@ def read_jpeg_coeffs(data: bytes) -> Optional[dict]:
         "w": w, "h": h,
         "subsamp": 444 if gray else subsamp,
         "gray": gray,
+    }
+
+
+def read_jpeg_coeffs4(data: bytes) -> Optional[dict]:
+    """The 4-component (CMYK / YCCK) twin of read_jpeg_coeffs. Returns
+    None for streams of 1 or 3 components, for layouts other than plain
+    CMYK 4:4:4 and YCCK 4:4:4 or 4:2:0 (K at comp0's rate, comp2 on
+    comp1's quant table, comp3 on comp0's), for blobs over 512 MiB and
+    for bytes it cannot parse.
+
+    Returns {y, cb, cr: (bh, bw, 64) int16 natural-order blocks of comps
+    0-2; k: (ybh, ybw, 64) int16 of comp3; lq, cq: (64,) uint16, comp0's
+    and comp1's tables; w, h; subsamp: 444 or 420; ycck: bool (the Adobe
+    transform); cmyk: True}."""
+    lib = _build.load_host()
+    out = ctypes.POINTER(ctypes.c_int16)()
+    info = (ctypes.c_int * 8)()
+    qt = (ctypes.c_uint16 * 128)()
+    buf = bytes(data)
+    rc = lib.fanlin_read_jpeg_coeffs4(buf, len(buf), ctypes.byref(out), info,
+                                      qt)
+    if rc != 0:
+        return None
+    w, h, ybw, ybh, cbw, cbh, subsamp, ycck = info
+    try:
+        ny = ybh * ybw * 64
+        nc = cbh * cbw * 64
+        flat = np.ctypeslib.as_array(out, shape=(2 * ny + 2 * nc,))
+        y = flat[:ny].reshape(ybh, ybw, 64).copy()
+        cb = flat[ny:ny + nc].reshape(cbh, cbw, 64).copy()
+        cr = flat[ny + nc:ny + 2 * nc].reshape(cbh, cbw, 64).copy()
+        k = flat[ny + 2 * nc:].reshape(ybh, ybw, 64).copy()
+    finally:
+        lib.fanlin_free(out)
+    tables = np.ctypeslib.as_array(qt)
+    return {
+        "y": y, "cb": cb, "cr": cr, "k": k,
+        "lq": tables[:64].copy(), "cq": tables[64:].copy(),
+        "w": w, "h": h, "subsamp": subsamp,
+        "ycck": bool(ycck), "cmyk": True,
     }

@@ -8,6 +8,7 @@ chain (reference src/handler.rs:185-309):
  2. as_is -> raw passthrough with the sniffed mime
  3. GIF -> per-frame chain with Nearest filtering, re-encode GIF
  4. EXIF orientation (pre-read, applied post-decode)
+ 5. JPEG CMYK/YCCK -> RGB colour management (engine.icc)
  6-11. grayscale else-if invert -> resize (fit / fill+crop) ->
     centered fill-canvas overlay -> gaussian blur   [DEVICE]
  12. output format negotiation (webp/avif only when requested AND
@@ -30,9 +31,20 @@ decoded-then-rotated pixels by a few LSB at source size (within 1 LSB
 after a downscale in the tests). With `device_dct`, a JPEG output in
 RGB/RGBA mode takes the `jpegdct:Q` sink: the device also runs the 8x8
 DCT and quantisation (`ops.dct`) and the host only entropy-codes the
-coefficients with the port's own encoder (`jpeg_encode`). Not in the
-port yet: the CMYK/ICC hooks — a CMYK JPEG is converted by the decoder,
-as the reference does without an ICC profile configured.
+coefficients with the port's own encoder (`jpeg_encode`).
+
+A CMYK or YCCK JPEG takes the reference's colour management when a
+profile is configured (`cmyk2rgb`) or embedded profiles are used: host
+lcms2 on the decoded pixels (`icc.convert_jpeg_color_if_needed`). After
+`enable_device_icc()` the default profile is sampled into an ICC LUT
+that travels with the source: a 4-component JPEG the reader takes
+(`jpeg_coeffs.read_jpeg_coeffs4`, not EXIF-rotated) is entropy-decoded
+on the host and decoded and converted on the device
+(`fused.CmykCoefBatchAssembly`: the K12a and K12b kernels) as the
+prologue to the transform; an embedded profile rides its own sampled
+LUT (`icc.embedded_device_lut`, kind "...@<hash>"). Every other CMYK
+source converts its pixels through the same LUT
+(`ops.cmyk_lut.DeviceCmykTransform`).
 """
 
 from __future__ import annotations
@@ -44,10 +56,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops import filters, fused, jpeg_decode, plan as plan_mod
+from ..ops import cmyk_lut, filters, fused, jpeg_decode, plan as plan_mod
 from ..spec import content as content_mod
 from ..spec import query as query_mod
-from . import codecs, jpeg_coeffs, jpeg_encode, native_codecs, png_writer, svg
+from . import (codecs, icc, jpeg_coeffs, jpeg_encode, native_codecs,
+               png_writer, svg)
 
 # read_jpeg_coeffs' subsampling layout -> the coefficient batch kind
 _COEF_KIND = {420: "coef", 422: "coef422", 440: "coef440", 444: "coef444"}
@@ -75,19 +88,79 @@ class SyncDeviceRunner:
 
 class Engine:
     def __init__(self, device: torch.device, runner=None,
-                 device_decode: bool = True, device_dct: bool = False):
+                 device_decode: bool = True, device_dct: bool = False,
+                 cmyk2rgb=None, use_embedded_profile: bool = False):
         """device: where the transform runs (torch.device("cuda") to
         serve, torch.device("cpu") for the plain versions).
         runner: runs the device batches; SyncDeviceRunner(device) when
         None, the server passes a batcher.BatchingRunner.
         device_decode: JPEGs take the coefficient path.
         device_dct: JPEG outputs take the jpegdct sink (device DCT and
-        quantisation, host entropy coding only)."""
+        quantisation, host entropy coding only).
+        cmyk2rgb: the default profile's icc.CMYK2RGB, or None
+        (reference handler.rs:19-20); use_embedded_profile: prefer a
+        CMYK JPEG's own profile."""
+        self.device = device
         self.runner = runner if runner is not None else SyncDeviceRunner(device)
         self.device_decode = device_decode
         self.device_dct = device_dct
+        self.cmyk2rgb = cmyk2rgb
+        self.use_embedded_profile = use_embedded_profile
+        # the default profile sampled into a device LUT
+        # (enable_device_icc); None keeps CMYK on host lcms2
+        self.device_cmyk = None
         # observability: requests served by source kind (/stats)
         self.stats = {"pixel_src": 0, "coef_src": 0}
+
+    def enable_device_icc(self, n: int = 17) -> None:
+        """Sample the default lcms2 transform into an n^4 LUT on the
+        Engine's device (fanlin_tpu/engine/processor.py:82-106). CMYK
+        pixels then convert through it, and 4-component JPEGs take the
+        coefficient path with the LUT attached to their metas. A no-op
+        without a default profile. The upload raises on failure: there
+        is no host lcms2 fallback that would serve other bytes."""
+        if self.cmyk2rgb is None:
+            return
+        lut = cmyk_lut.sample_lut(self.cmyk2rgb.convert, n)
+        self.device_cmyk = cmyk_lut.DeviceCmykTransform(lut, self.device)
+
+    def _try_cmyk_coef(self, data: bytes, orientation: int):
+        """The coefficient meta of a 4-component (CMYK / YCCK) JPEG bound
+        for the device decode and LUT, with its LUT attached, else None
+        (the pixel path). EXIF-rotated CMYK stays on pixels (the grids'
+        rotation is for 3-component sources), as in the reference
+        (fanlin_tpu/engine/processor.py:108-153).
+
+        Profile precedence is the reference's (handler.rs:446-459): with
+        use_embedded_profile set, an embedded profile that lcms2 accepts
+        rides its own sampled LUT (kind "...@<key>"); a broken one falls
+        back to the default profile's LUT (key "")."""
+        if (not self.device_decode or self.device_cmyk is None
+                or orientation != 1):
+            return None
+        if icc.jpeg_num_components(data) != 4:
+            return None
+        meta = jpeg_coeffs.read_jpeg_coeffs4(data)
+        if meta is None:
+            return None
+        lut = None
+        if self.use_embedded_profile:
+            prof = icc.jpeg_embedded_profile_bytes(data)
+            if prof:
+                lut = icc.embedded_device_lut(prof)
+        if lut is None:
+            t = self.device_cmyk
+            lut = (t.lut_np, t.n, "")
+        meta["lut_flat"], meta["lut_n"], meta["lut_key"] = lut
+        return meta
+
+    def _convert_jpeg_color_if_needed(self, data: bytes) -> Optional[np.ndarray]:
+        """CMYK/YCCK JPEG -> (H, W, 3) u8 RGB through ICC (reference
+        handler.rs:398-466), or None when it does not apply."""
+        if not self.use_embedded_profile and self.cmyk2rgb is None:
+            return None
+        return icc.convert_jpeg_color_if_needed(
+            data, self.cmyk2rgb, self.use_embedded_profile, self.device_cmyk)
 
     def process_image(
         self, data: bytes, params: query_mod.Query, accepted: content_mod.Format,
@@ -108,8 +181,19 @@ class Engine:
 
         t0 = time.perf_counter()
         orientation = codecs.read_orientation(data)
-        meta = None
-        if self.device_decode and fmt == codecs.JPEG:
+        meta = converted = None
+        if fmt == codecs.JPEG:
+            # 4-component sources: the device decode and LUT, else the
+            # colour-managed pixels (handler.rs:398-466)
+            meta = self._try_cmyk_coef(data, orientation)
+            if meta is None:
+                try:
+                    converted = self._convert_jpeg_color_if_needed(data)
+                except codecs.CodecError as e:
+                    # the decode-alloc gate fires inside the ICC load
+                    raise ProcessError(str(e)) from e
+        if (meta is None and converted is None and self.device_decode
+                and fmt == codecs.JPEG):
             meta = jpeg_coeffs.read_jpeg_coeffs(data)
             if meta is not None and orientation != 1:
                 # rotate the coefficient grids; a flip that is not
@@ -118,12 +202,15 @@ class Engine:
         if meta is not None:
             # a gray JPEG decodes through zero chroma (r = g = b = y);
             # is_gray keeps the output pixel type of the host decode
-            has_alpha, is_gray = False, bool(meta["gray"])
+            has_alpha, is_gray = False, bool(meta.get("gray"))
             h, w = meta["h"], meta["w"]
             self.stats["coef_src"] += 1
         else:
             try:
-                img, has_alpha, is_gray = codecs.decode(data)
+                if converted is not None:
+                    img, has_alpha, is_gray = converted, False, False
+                else:
+                    img, has_alpha, is_gray = codecs.decode(data)
             except codecs.CodecError as e:
                 raise ProcessError(str(e)) from e
             img = np.ascontiguousarray(
@@ -146,7 +233,15 @@ class Engine:
             src = img
         else:
             src = meta
-            base = _COEF_KIND[meta["subsamp"]]
+            if meta.get("cmyk"):
+                # plain CMYK and YCCK never share a batch, nor do two
+                # profiles' LUTs
+                base = "cmyk%d%s" % (meta["subsamp"],
+                                     "y" if meta["ycck"] else "")
+                if meta["lut_key"]:
+                    base += "@" + meta["lut_key"]
+            else:
+                base = _COEF_KIND[meta["subsamp"]]
             kind = base if kind == "rgb" else f"{base}+{kind}"
 
         t1 = time.perf_counter()

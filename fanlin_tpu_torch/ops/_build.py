@@ -3,8 +3,9 @@
 Two libraries, each built into `build/kernels/` at the repository
 root, keyed by a hash of its sources and flags, and loaded with ctypes:
 
-* `load()`: the CUDA kernels, `fanlin_tpu_torch/csrc/*.cu`, compiled
-  with nvcc for sm_90a;
+* `load()`: the CUDA kernels, `fanlin_tpu_torch/csrc/*.cu` (the
+  resample, the coefficient decodes and the CMYK LUT), compiled with
+  nvcc for sm_90a;
 * `load_host()`: host code, `csrc/*.cpp` (the JPEG entropy reader and
   encoder), compiled with the host C++ compiler; it needs no CUDA and
   no libjpeg, so it builds wherever a `c++` does.
@@ -159,9 +160,11 @@ def load_host() -> ctypes.CDLL:
         if _HOST_LIB is None:
             lib = ctypes.CDLL(str(build_host()))
             p = ctypes.c_void_p
-            fn = lib.fanlin_read_jpeg_coeffs
-            fn.argtypes = [p, ctypes.c_size_t, p, p, p]
-            fn.restype = ctypes.c_int
+            for name in ("fanlin_read_jpeg_coeffs",
+                         "fanlin_read_jpeg_coeffs4"):
+                fn = getattr(lib, name)
+                fn.argtypes = [p, ctypes.c_size_t, p, p, p]
+                fn.restype = ctypes.c_int
             fn = lib.fanlin_encode_jpeg_coeffs
             fn.argtypes = [p, p, p] + [ctypes.c_int] * 3 + [p, p]
             fn.restype = ctypes.c_int
@@ -172,12 +175,15 @@ def load_host() -> ctypes.CDLL:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, argtypes in (
             ("fanlin_resample_uniform", [p] * 13 + [i] * 10 + [p]),
             ("fanlin_jpeg_islow", [p] * 7 + [i] * 5 + [p]),
             ("fanlin_jpeg_upsample_rgb", [p] * 4 + [i] * 10 + [p]),
-            ("fanlin_jpeg_decode_rgb", [p] * 5 + [i] * 13 + [p])):
+            ("fanlin_jpeg_decode_rgb", [p] * 5 + [i] * 13 + [p]),
+            ("fanlin_jpeg_decode_cmyk", [p] * 6 + [i] * 14 + [p]),
+            ("fanlin_cmyk_lut", [p] * 3 + [i] + [ll] * 7 + [i]
+             + [ctypes.c_float, p])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -3,9 +3,10 @@
 Port of fanlin_tpu/ops/fused.py: the encode front-ends
 (`_ycbcr420_tail`, `_png_tail`, `_webp420_tail`, fused.py:431-596, and
 the jpegdct tail of `_make_tail`, :521-547, with the DCT in `ops.dct`),
-`BatchAssembly` for pixel sources (fused.py:1112-1525) and
+`BatchAssembly` for pixel sources (fused.py:1112-1525),
 `CoefBatchAssembly` for JPEG coefficient sources (fused.py:1695-1829,
-2065-2166). The chain itself (fused.py:307-430) is in `ops.chain`. The
+2065-2166) and `CmykCoefBatchAssembly` for 4-component ones
+(fused.py:2169-2366). The chain itself (fused.py:307-430) is in `ops.chain`. The
 reference runs each batch as one jitted XLA program; here the same
 steps run eagerly on the assembly's device.
 
@@ -19,7 +20,9 @@ runs on plain host arrays with no event.
 
 Routing: a coefficient batch is decoded on the device by the decode
 kernel (`jpeg_decode_kernels.jpeg_decode_rgb`), which writes the same
-(B, 3, SH, SW) u8 batch a pixel upload would give. Every uniform batch
+(B, 3, SH, SW) u8 batch a pixel upload would give; a CMYK one by
+`jpeg_decode_cmyk` and the LUT kernel `cmyk_lut_kernels.cmyk_lut`,
+which write the same batch. Every uniform batch
 of opaque (3-channel) sources then goes through the hand-written CUDA
 resample kernel (`resample_kernels.resample_uniform`), whatever its
 encode tail; the kernel writes 3 channels and a constant 255 alpha
@@ -29,11 +32,14 @@ frames and non-uniform batches run the torch chain of `ops.chain`.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
 from ..utils.bytelru import ByteLRU
-from . import dct, filters, jpeg_decode, jpeg_decode_kernels, resample_kernels
+from . import (cmyk_lut_kernels, dct, filters, jpeg_decode,
+               jpeg_decode_kernels, resample_kernels)
 from .chain import _transform_kernel, _transform_kernel_uniform
 from .plan import (_pack_params, _uniform_bands, _uniform_padded, bucket_b,
                    bucket_h, bucket_h16, bucket_w, plan_image)
@@ -408,6 +414,8 @@ class CoefBatchAssembly(BatchAssembly):
     buffer, and the quant tables as (B, 2, 64) int32. The kernel reads
     only the blocks of the true rect of the batch's real images."""
 
+    PLANES = ("y", "cb", "cr")  # the meta's block grids, in wire order
+
     def __init__(self, plans, metas, device: torch.device, jpeg420=False):
         """metas: read_jpeg_coeffs dicts (either package's), all of one
         (w, h) and subsamp. jpeg420: as for BatchAssembly."""
@@ -441,9 +449,10 @@ class CoefBatchAssembly(BatchAssembly):
 
         dv, dh = jpeg_decode.chroma_divisors(self.subsamp)
         gh = bucket_h16(self.true_h)  # whole 4:2:0 MCU rows
-        shapes = ((gh // 8, self.sw // 8),
-                  (gh // (8 * dv), self.sw // (8 * dh)),
-                  (gh // (8 * dv), self.sw // (8 * dh)))
+        luma = (gh // 8, self.sw // 8)
+        chroma = (gh // (8 * dv), self.sw // (8 * dh))
+        shapes = [chroma if key in ("cb", "cr") else luma
+                  for key in self.PLANES]
         self.coef = self._io.zeros(
             self.b * sum(h * w for h, w in shapes) * 64, np.int16)
         self._spans = []
@@ -456,7 +465,7 @@ class CoefBatchAssembly(BatchAssembly):
             at += n
         self.q = self._io.zeros((self.b, 2, 64), np.int32)
         for i, m in enumerate(metas):
-            for grid, key in zip(grids, ("y", "cb", "cr")):
+            for grid, key in zip(grids, self.PLANES):
                 g = m[key]
                 grid[i, : g.shape[0], : g.shape[1]] = g
             self.q[i, 0] = m["lq"]
@@ -473,12 +482,11 @@ class CoefBatchAssembly(BatchAssembly):
         return self.coef.nbytes + self.q.nbytes
 
     def device_wire(self):
-        """Upload the wire: (y, cb, cr, q) on the device, the block
-        grids as views of one uploaded buffer."""
+        """Upload the wire: the block grids of PLANES, then q, on the
+        device, the grids as views of one uploaded buffer."""
         flat = self._io.upload(self.coef)
         q = self._io.upload(self.q)
-        y, cb, cr = (flat[a:b].view(shape) for a, b, shape in self._spans)
-        return y, cb, cr, q
+        return (*(flat[a:b].view(shape) for a, b, shape in self._spans), q)
 
     def _device_x(self):
         """Upload the block grids and decode them on the device in one
@@ -488,7 +496,58 @@ class CoefBatchAssembly(BatchAssembly):
             self.sh, self.sw, len(self.plans))
 
 
+class CmykCoefBatchAssembly(CoefBatchAssembly):
+    """Host staging for one device batch of 4-component (CMYK / YCCK)
+    JPEG coefficient sources: the host half of fanlin_tpu/ops/fused.py
+    CmykCoefBatchAssembly (:2169-2366). The wire adds comp3's (K) block
+    grid at the luma grid; on the device the 4-component decode
+    (`jpeg_decode_cmyk`, K12a) and the sampled ICC LUT (`cmyk_lut`,
+    K12b) make the (B, 3, sh, sw) u8 batch that every sink of
+    CoefBatchAssembly then takes.
+
+    The LUT travels with the metas (`lut_flat` (n^4, 3) f32, `lut_n`,
+    `lut_key`: "" for the Engine's default profile, the profile's hash
+    for an embedded one), so the port keeps no process-wide LUT; a batch
+    holds one LUT, and its device copy is cached by the array's identity.
+    As in the reference there is no folded variant (the LUT is not
+    linear)."""
+
+    PLANES = ("y", "cb", "cr", "k")
+
+    def __init__(self, plans, metas, device: torch.device, jpeg420=False):
+        """metas: read_jpeg_coeffs4 dicts (either package's) with a LUT
+        attached, all of one geometry, layout and colour transform."""
+        if not metas or not all(isinstance(m, dict) and m.get("cmyk")
+                                for m in metas):
+            raise ValueError("a CMYK batch takes read_jpeg_coeffs4 dicts")
+        m0 = metas[0]
+        if m0.get("lut_flat") is None:
+            raise ValueError("a CMYK batch needs a sampled LUT on its metas "
+                             "(Engine.enable_device_icc)")
+        self.lut_flat, self.lut_n = m0["lut_flat"], int(m0["lut_n"])
+        self.lut_key = m0.get("lut_key", "")
+        if any(m.get("lut_key", "") != self.lut_key for m in metas):
+            raise ValueError("mixed-profile CMYK batch")
+        self.ycck = bool(m0["ycck"])
+        if any(bool(m["ycck"]) != self.ycck for m in metas):
+            raise ValueError("a CMYK batch holds one colour transform")
+        super().__init__(plans, metas, device, jpeg420)
+
+    def _device_x(self):
+        """Upload the block grids, decode them to CMYK and convert them
+        through the LUT on the device: (B, 3, sh, sw) u8."""
+        y, cb, cr, k, q = self.device_wire()
+        cmyk = jpeg_decode_kernels.jpeg_decode_cmyk(
+            y, cb, cr, k, q, self.subsamp, self.ycck, self.true_h,
+            self.true_w, self.sh, self.sw, len(self.plans))
+        return cmyk_lut_kernels.cmyk_lut(
+            cmyk, _device_cached(self.lut_flat, self.device), self.lut_n)
+
+
 _COEF_KINDS = ("coef", "coef444", "coef422", "coef440")
+# "cmyk444" / "cmyk420", "y" for YCCK, "@<profile hash>" for an embedded
+# profile's LUT (the JAX Engine's kind strings)
+_CMYK_KIND = re.compile(r"cmyk(444|420)(y?)(?:@[0-9a-f]+)?")
 
 
 def _sink_arg(sink: str):
@@ -518,9 +577,21 @@ def make_assembly(plans, payloads, kinds, device: torch.device):
     (payloads are (H, W, C) u8 arrays); "coef", "coef444", "coef422",
     "coef440", each optionally with "+jpeg420", "+webp420", "+png:N" or
     "+jpegdct:Q", for coefficient sources (payloads are read_jpeg_coeffs
-    dicts). The CMYK kinds are not in the port yet."""
+    dicts); "cmyk444", "cmyk420" (+ "y" for YCCK, + "@<key>" for an
+    embedded profile's LUT), with the same sinks, for 4-component sources
+    (read_jpeg_coeffs4 dicts carrying their LUT)."""
     k0 = kinds[0] if kinds else "rgb"
     base, _, sink = k0.partition("+")
+    cmyk = _CMYK_KIND.fullmatch(base)
+    if cmyk:
+        subsamp, ycck = int(cmyk.group(1)), bool(cmyk.group(2))
+        if not all(isinstance(m, dict) and m.get("cmyk")
+                   and (m["subsamp"], bool(m["ycck"])) == (subsamp, ycck)
+                   for m in payloads):
+            raise ValueError(f"batch kind {k0!r} takes read_jpeg_coeffs4 "
+                             f"dicts of subsamp {subsamp}, ycck {ycck}")
+        return CmykCoefBatchAssembly(plans, payloads, device,
+                                     _sink_arg(sink or "rgb"))
     if base in _COEF_KINDS:
         return CoefBatchAssembly(plans, payloads, device,
                                  _sink_arg(sink or "rgb"))

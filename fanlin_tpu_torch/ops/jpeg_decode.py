@@ -3,12 +3,12 @@ bit-exact libjpeg islow iDCT, the fancy chroma upsample and the
 jdcolor YCbCr->RGB conversion; and `orient_meta`, EXIF orientation
 applied to the coefficient grids on the host.
 
-Port of fanlin_tpu/ops/jpeg_decode.py:88-361, :645 and :925-1025 with
+Port of fanlin_tpu/ops/jpeg_decode.py:88-414, :645 and :925-1025 with
 the same names and the same int32 arithmetic (arithmetic right shifts,
 wrapping products, saturation after the iDCT), on the device of the
 given tensors. These are the plain versions of the CUDA decode kernels
-in `ops.jpeg_decode_kernels` (`jpeg_decode_rgb`, and K3/K4 before it),
-and the tests hold each against its JAX twin array for array.
+in `ops.jpeg_decode_kernels` (`jpeg_decode_rgb`, and K3/K4 before it;
+`decode_cmyk` for `jpeg_decode_cmyk`), and the tests hold each against its JAX twin array for array.
 """
 
 from __future__ import annotations
@@ -241,6 +241,43 @@ def decode444_rgb(ydc, yac, cbdc, cbac, crdc, crac, lq, cq,
     """4:4:4: chroma at full resolution, no upsample."""
     return _decode_rgb(444, ydc, yac, cbdc, cbac, crdc, crac, lq, cq,
                        true_h, true_w, pad_h, pad_w)
+
+
+def decode_cmyk(ydc, yac, cbdc, cbac, crdc, crac, kdc, kac, lq, cq,
+                true_h: int, true_w: int, pad_h: int, pad_w: int,
+                subsamp: int, ycck: bool):
+    """The decode back half of a 4-component (CMYK / YCCK) batch: the
+    plain version of the K12a kernel (fanlin_tpu/ops/jpeg_decode.py:364).
+    Returns (c, m, y, k) int32 planes (B, pad_h, pad_w) in PIL's CMYK
+    convention, zero outside the true rect:
+
+    * plain CMYK (4:4:4): 255 - islow on each plane (PIL reads every
+      CMYK JPEG as "CMYK;I", Adobe's inverted samples);
+    * YCCK (4:4:4 or 4:2:0): libjpeg's ycck_cmyk_convert gives C = 255 -
+      R'(y, cb, cr) and so on, which PIL's ;I inverts back, so C, M, Y
+      are jdcolor's R', G', B'; K = 255 - k.
+
+    K (comp3) is at comp0's rate and on comp0's table (lq)."""
+    shape = (pad_h, pad_w)
+    if ycck:
+        yp = islow_decode_plane(ydc, yac, lq, shape)[:, :true_h, :true_w]
+        csub = 2 if subsamp == 420 else 1
+        cshape = (pad_h // csub, pad_w // csub)
+        cb = islow_decode_plane(cbdc, cbac, cq, cshape)
+        cr = islow_decode_plane(crdc, crac, cq, cshape)
+        c_p, m_p, y_p = ycbcr_to_rgb_int(
+            yp, upsample_chroma(cb, subsamp, true_h, true_w),
+            upsample_chroma(cr, subsamp, true_h, true_w))
+        k_p = 255 - islow_decode_plane(kdc, kac, lq,
+                                       shape)[:, :true_h, :true_w]
+    else:
+        c_p, m_p, y_p, k_p = (
+            255 - islow_decode_plane(dc, ac, q, shape)[:, :true_h, :true_w]
+            for dc, ac, q in ((ydc, yac, lq), (cbdc, cbac, cq),
+                              (crdc, crac, cq), (kdc, kac, lq)))
+    pad = (0, pad_w - true_w, 0, pad_h - true_h)
+    return tuple(torch.nn.functional.pad(p, pad)
+                 for p in (c_p, m_p, y_p, k_p))
 
 
 def blocks_to_planar(blocks: torch.Tensor):

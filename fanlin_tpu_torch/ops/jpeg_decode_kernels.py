@@ -12,6 +12,13 @@ at the true chroma dims and jdcolor's conversion inside the true
 bucket padding: they decode as zero coefficients do, 128 inside the true
 rect, and their wire is never read.
 
+`jpeg_decode_cmyk` (K12a, the same source) is its 4-component form: y,
+cb, cr and k (B, bh, bw, 64) int16 blocks, k at y's grid, -> (B, 4,
+out_h, out_w) u8 CMYK in PIL's convention (plain CMYK inverted; YCCK as
+jdcolor's RGB and an inverted K), for `cmyk_lut_kernels.cmyk_lut`
+(K12b) to convert; it replaces the XLA prologue decode_cmyk of
+fanlin_tpu/ops/fused.py:908 get_cmyk_coef_program.
+
 K3 `jpeg_islow` (blocks -> the three u8 sample planes (B, 8*bh, 8*bw))
 and K4 `jpeg_upsample_rgb` (the planes -> RGB) are its first form, two
 launches with the planes in device memory. Nothing on the serving path
@@ -42,7 +49,7 @@ _I32 = torch.int32
 # launched; the CPU path and the plain versions never count.
 _COUNT_LOCK = threading.Lock()
 _LAUNCHES = {"jpeg_decode_rgb": 0, "jpeg_islow": 0,
-             "jpeg_upsample_rgb": 0}
+             "jpeg_upsample_rgb": 0, "jpeg_decode_cmyk": 0}
 
 
 def decode_tile(subsamp: int) -> tuple:
@@ -242,3 +249,70 @@ def jpeg_decode_rgb_ref(y, cb, cr, q, subsamp: int, true_h: int, true_w: int,
         rgb[n:] = 0
         rgb[n:, :, :true_h, :true_w] = 128
     return rgb
+
+
+# What zero coefficients decode to in a padded image's true rect, per
+# stored plane: 128 samples, inverted for plain CMYK and for YCCK's K
+_CMYK_PAD = {False: (127, 127, 127, 127), True: (128, 128, 128, 127)}
+
+
+def _decode_cmyk_args(y, cb, cr, k, q, subsamp, ycck, true_h, true_w, out_h,
+                      out_w, n):
+    if not (subsamp == 444 or (subsamp == 420 and ycck)):
+        raise ValueError(f"subsamp {subsamp}, ycck {ycck}: expected plain "
+                         "CMYK 444 or YCCK 444/420")
+    _decode_rgb_args(y, cb, cr, q, subsamp, true_h, true_w, out_h, out_w, n)
+    _check(k, "k", _I16, 4, y.device, 16)
+    if k.shape != y.shape:
+        raise ValueError("k: expected y's shape (B, ybh, ybw, 64)")
+
+
+def jpeg_decode_cmyk(y, cb, cr, k, q, subsamp: int, ycck: bool, true_h: int,
+                     true_w: int, out_h: int, out_w: int, n: int):
+    """K12a: the 4-component decode of a batch, block grids -> (B, 4,
+    out_h, out_w) u8 CMYK, zero outside the true rect; images i >= n
+    decode as zero coefficients. One launch on CUDA."""
+    _decode_cmyk_args(y, cb, cr, k, q, subsamp, ycck, true_h, true_w, out_h,
+                      out_w, n)
+    dev = y.device
+    if dev.type == "cpu":
+        return jpeg_decode_cmyk_ref(y, cb, cr, k, q, subsamp, ycck, true_h,
+                                    true_w, out_h, out_w, n)
+    if dev.type != "cuda":
+        raise ValueError(f"jpeg_decode_cmyk: unsupported device {dev}")
+    lib = _build.load()
+    b, ybh, ybw, _ = y.shape
+    _, cbh, cbw, _ = cb.shape
+    out = torch.empty((b, 4, out_h, out_w), dtype=_U8, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fanlin_jpeg_decode_cmyk(
+            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), k.data_ptr(),
+            q.data_ptr(), out.data_ptr(), b, n, ybh, ybw, cbh, cbw, subsamp,
+            int(bool(ycck)), true_h, true_w, out_h, out_w,
+            *decode_tile(subsamp), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"jpeg_decode_cmyk launch failed: CUDA error {rc}")
+    _count("jpeg_decode_cmyk")
+    return out
+
+
+def jpeg_decode_cmyk_ref(y, cb, cr, k, q, subsamp: int, ycck: bool,
+                         true_h: int, true_w: int, out_h: int, out_w: int,
+                         n: int):
+    """Plain torch version of jpeg_decode_cmyk, on any device:
+    `jpeg_decode.decode_cmyk` on the grids' planar form, cut or padded to
+    (out_h, out_w), then images i >= n set to what zero coefficients
+    decode to inside the true rect."""
+    dcs = [jd.blocks_to_planar(g) for g in (y, cb, cr, k)]
+    pad_h, pad_w = 8 * y.shape[1], 8 * y.shape[2]
+    planes = jd.decode_cmyk(*dcs[0], *dcs[1], *dcs[2], *dcs[3], q[:, 0],
+                            q[:, 1], true_h, true_w, pad_h, pad_w, subsamp,
+                            ycck)
+    out = torch.stack(planes, dim=1).to(_U8)[:, :, :out_h, :out_w]
+    out = torch.nn.functional.pad(
+        out, (0, out_w - out.shape[3], 0, out_h - out.shape[2]))
+    if n < out.shape[0]:
+        out[n:] = 0
+        for p, v in enumerate(_CMYK_PAD[bool(ycck)]):
+            out[n:, p, :true_h, :true_w] = v
+    return out

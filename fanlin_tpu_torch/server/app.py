@@ -47,7 +47,7 @@ from ..engine.batcher import (REQUEST_CANCEL, REQUEST_DEADLINE,
                               BatcherOverload, BatchingRunner, MicroBatcher,
                               RequestExpired)
 from ..infra import Client
-from ..ops import jpeg_decode_kernels, resample_kernels
+from ..ops import cmyk_lut_kernels, jpeg_decode_kernels, resample_kernels
 from ..spec import content as content_mod
 from ..spec import query as query_mod
 from ..utils.bytelru import ByteLRU
@@ -67,14 +67,11 @@ REQUEST_TIMEOUT_SECS = 10.0  # tower TimeoutLayer (main.rs:105-107)
 # silently serve something else, so startup refuses them.
 _UNPORTED = (
     ("tpu.fast_decode", lambda c: c.tpu.fast_decode),
-    ("tpu.device_icc", lambda c: c.tpu.device_icc),
     ("tpu.fast", lambda c: c.tpu.fast),
     ("tpu.workers > 0", lambda c: c.tpu.workers > 0),
     ("tpu.data_parallel", lambda c: c.tpu.data_parallel),
     ("tpu.source_cache_mb > 0", lambda c: c.tpu.source_cache_mb > 0),
     ("tpu.profile_dir", lambda c: bool(c.tpu.profile_dir)),
-    ("profile_path", lambda c: bool(c.profile_path)),
-    ("use_embedded_profile", lambda c: bool(c.use_embedded_profile)),
 )
 
 
@@ -209,7 +206,8 @@ async def stats_handler(request: web.Request) -> web.Response:
         "engine": dict(state.engine.stats),
         "batcher": dict(batcher.stats) if batcher is not None else None,
         "kernel_launches": {**resample_kernels.launch_counts(),
-                            **jpeg_decode_kernels.launch_counts()},
+                            **jpeg_decode_kernels.launch_counts(),
+                            **cmyk_lut_kernels.launch_counts()},
         "caches": {
             "responses": (state.response_cache.stats()
                           if state.response_cache is not None else None),
@@ -301,7 +299,9 @@ async def build_state(cfg: config_mod.Config,
                       device: Optional[torch.device] = None) -> State:
     """Startup sequence, mirroring reference main() (main.rs:63-81):
     option check -> device -> micro-batcher -> infra client -> state
-    -> fallback preload (failure only warns). The engine serves through
+    -> fallback preload (failure only warns) -> the ICC profile, its
+    device LUT (`tpu.device_icc`) and embedded profiles. The engine
+    serves through
     the micro-batcher (fanlin_tpu/server/app.py:488-495); the batcher's
     failover knobs (`host_fallback`, `device_stall_s`, `spill_wait_ms`)
     and `dct_pack_floor` are not ported and do nothing.
@@ -335,4 +335,15 @@ async def build_state(cfg: config_mod.Config,
         await state.with_fallback(cfg.fallback_path, cfg.providers)
     except Exception as err:
         log.warning("failed to initialize fallback images; %r", err)
+    # colour management (fanlin_tpu/server/app.py:548-572): a profile that
+    # does not load only warns, and CMYK then serves as without one. The
+    # JAX gateway bounds the LUT upload and falls back to host lcms2 on a
+    # wedged link; here a failed upload raises and the server does not
+    # start (the fallback would serve other bytes).
+    if cfg.profile_path:
+        state.create_cmyk_to_rgb_converter(cfg.profile_path)
+        if cfg.tpu.device_icc:
+            state.engine.enable_device_icc()
+    if cfg.use_embedded_profile:
+        state.enable_embedded_profile_utilization()
     return state

@@ -16,16 +16,20 @@ copies of the JAX package's host modules (`server.router`, `infra`,
 from __future__ import annotations
 
 import asyncio
+import logging
 from typing import Dict, List, Optional, Tuple
 from urllib.parse import urlsplit
 
 from .. import config as config_mod
 from ..engine import Engine
+from ..engine.icc import CMYK2RGB
 from ..infra import Client
 from ..spec import content as content_mod
 from ..spec import query as query_mod
 from ..utils import paths
 from .router import Router
+
+log = logging.getLogger("fanlin.server")
 
 
 class State:
@@ -42,6 +46,18 @@ class State:
         self._inflight: Dict[str, asyncio.Future] = {}
         # optional full-response cache (tpu.response_cache_mb)
         self.response_cache = None
+
+    # -- color management wiring (reference handler.rs:85-101) ------------
+
+    def create_cmyk_to_rgb_converter(self, path) -> None:
+        conv = CMYK2RGB.from_file(path)
+        if conv is None:
+            log.warning("failed to load an icc profile or create a transform; %s", path)
+        else:
+            self.engine.cmyk2rgb = conv
+
+    def enable_embedded_profile_utilization(self) -> None:
+        self.engine.use_embedded_profile = True
 
     # -- fallback preload (reference handler.rs:103-146) -------------------
 

@@ -183,9 +183,11 @@ def test_transform_single_matches():
 
 
 def test_coefficient_kinds_not_ported():
+    """The CMYK kinds take read_jpeg_coeffs4 dicts: on pixel payloads
+    they raise (tests/test_torch_cmyk.py runs them on their metas)."""
     tp, _, imgs = _batch(UNIFORM)
     for kind in ("cmyk420", "cmyk444+jpeg420"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="read_jpeg_coeffs4"):
             tfused.make_assembly(tp, imgs, [kind], CPU)
 
 

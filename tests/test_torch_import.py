@@ -45,7 +45,10 @@ def test_port_modules_listed():
                      "fanlin_tpu_torch.engine.png16",
                      "fanlin_tpu_torch.engine.tiff16",
                      "fanlin_tpu_torch.engine.extra_codecs",
-                     "fanlin_tpu_torch.engine.exr_codec"):
+                     "fanlin_tpu_torch.engine.exr_codec",
+                     "fanlin_tpu_torch.engine.icc",
+                     "fanlin_tpu_torch.ops.cmyk_lut",
+                     "fanlin_tpu_torch.ops.cmyk_lut_kernels"):
         assert expected in names
 
 

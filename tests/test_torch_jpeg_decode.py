@@ -209,4 +209,5 @@ def test_cpu_path_never_counts_launches():
     planes = jk.jpeg_islow(*map(_t, (y, cb, cr, q)))
     jk.jpeg_upsample_rgb(*planes, 420, 37, 23, 40, 128)
     assert jk.launch_counts() == {"jpeg_decode_rgb": 0, "jpeg_islow": 0,
-                                  "jpeg_upsample_rgb": 0}
+                                  "jpeg_upsample_rgb": 0,
+                                  "jpeg_decode_cmyk": 0}

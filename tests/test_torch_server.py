@@ -101,7 +101,8 @@ def test_gateway_requests():
             # the CPU runs the plain versions: no kernel launches
             assert stats["kernel_launches"] == {
                 "resample": 0, "resample_blur": 0, "jpeg_decode_rgb": 0,
-                "jpeg_islow": 0, "jpeg_upsample_rgb": 0}
+                "jpeg_islow": 0, "jpeg_upsample_rgb": 0,
+                "jpeg_decode_cmyk": 0, "cmyk_lut": 0}
         finally:
             await client.close()
 
@@ -110,11 +111,9 @@ def test_gateway_requests():
 
 @pytest.mark.parametrize("tpu,extra", [
     ('{"fast_decode": true}', ""),
-    ('{"device_icc": true}', ""),
     ('{"workers": 2}', ""),
     ('{"data_parallel": true}', ""),
     ('{"source_cache_mb": 8}', ""),
-    ("{}", ', "profile_path": "/nonexistent.icc"'),
 ])
 def test_unported_options_refused_at_startup(tpu, extra):
     cfg = _config(tpu, extra)
@@ -123,6 +122,22 @@ def test_unported_options_refused_at_startup(tpu, extra):
     with pytest.raises(ConfigError):
         asyncio.run(build_state(cfg, device=CPU))
     assert cli.main(["-j", json.dumps(_raw(tpu, extra))]) == 1
+
+
+@pytest.mark.parametrize("tpu,extra", [
+    ('{"device_icc": true}', ""),
+    ("{}", ', "profile_path": "/nonexistent.icc"'),
+    ("{}", ', "use_embedded_profile": true'),
+])
+def test_icc_options_accepted_at_startup(tpu, extra):
+    """tpu.device_icc, profile_path and use_embedded_profile are ported
+    (tests/test_torch_cmyk.py serves CMYK with each): they start the
+    server. A profile_path that does not load only warns."""
+    cfg = _config(tpu, extra)
+    check_ported(cfg)
+    state = asyncio.run(build_state(cfg, device=CPU))
+    assert state.engine.cmyk2rgb is None and state.engine.device_cmyk is None
+    assert state.engine.use_embedded_profile == ("use_embedded" in extra)
 
 
 def test_default_config_accepted():
