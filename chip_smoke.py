@@ -20,26 +20,24 @@ Phases (each failure exits non-zero; nothing is caught):
      weights need and the TFLOP/s they give, the bound (bytes, or the
      split-TF32 products at the TF32 rate), and at README and blur B=16
      one full-f32 torch.einsum of the same products (library ms)
-  2b. the fused decode kernel jpeg_decode_rgb, and K3 jpeg_islow + K4
-     jpeg_upsample_rgb (its first form, kept as the yardstick), against
-     their plain versions, 0 differing bytes, on lenna (4:4:4) at B = 1,
-     2, 4, 8, synth (4:2:0) at B = 8, 16 and 5 real of B=8, a 12 MP 4:2:0
-     q90 JPEG B=2, a 4:2:2 JPEG B=4, 4:4:0 and gray batches from seeded
+  2b. the fused decode kernel jpeg_decode_rgb against its plain
+     version, 0 differing bytes, on lenna (4:4:4) at B = 1, 2, 4, 8,
+     synth (4:2:0) at B = 8, 16 and 5 real of B=8, a 12 MP 4:2:0 q90
+     JPEG B=2, a 4:2:2 JPEG B=4, 4:4:0 and gray batches from seeded
      coefficient grids, the crafted out-of-range grid, and odd true dims
      (641x479, 7x5) in 4:2:0, 4:2:2 and 4:4:0; at lenna B=1 and B=8,
-     synth B=16 and 12 MP B=2 the fused kernel against the pair in turns
-     (CUDA event ms over many launches, device ms from torch.profiler,
-     host enqueue ms over 50 calls without a synchronize), the bytes and
-     int32 operations each shape needs, its bound and the share reached;
-     the reader's host ms per image and the wire's bytes per image
+     synth B=16 and 12 MP B=2 its CUDA event ms over many launches,
+     device ms from torch.profiler, host enqueue ms over 50 calls without
+     a synchronize and plain ms, the bytes and int32 operations each
+     shape needs, its bound and the share reached; the reader's host ms
+     per image and the wire's bytes per image
   3. the golden floors of tests/test_golden_parity.py on tests/golden
      through both source paths: the pre-encode floor through the pixel
      and the coefficient assemblies, then the encoded floor through
      Engine(dev, device_decode=False), each request of which launches
      one resample kernel, and through Engine(dev), each request of
      which must take the coefficient path and launch one resample and one
-     jpeg_decode_rgb (no K3, no K4); the README request's stage times on
-     both paths
+     jpeg_decode_rgb; the README request's stage times on both paths
   4. the port's HTTP server in-process on 127.0.0.1 over a file origin,
      default config (device_decode on, served through the micro-batcher):
      /stats must count coef_src
@@ -82,22 +80,27 @@ Phases (each failure exits non-zero; nothing is caught):
      from a seed into build/chip_smoke/, through Engine(dev): served
      with its format's mime type
   7. the CMYK / ICC path, from two synthetic ICC profiles and sources
-     written from a seed into build/chip_smoke/: (a) K12a
-     jpeg_decode_cmyk and (b) K12b cmyk_lut (planar and pixel forms)
-     against their plain versions, 0 bytes differing, on CMYK and YCCK
-     4:4:4 (PIL streams and their Adobe flips), YCCK 4:2:0 grids, odd
-     dims (641x479, 7x5), B = 1, 8, a padded batch and 12 MP CMYK q95
-     B=2; (c) 2048x2048 CMYK 4:4:4 q95 print assets (plain, the YCCK
-     flip, one with an embedded profile) through Engine(dev, cmyk2rgb,
-     use_embedded_profile=True) with enable_device_icc(): each request
-     on the coefficient path with one K12a, one K12b and one resample,
-     its batch kind (cmyk444, cmyk444y, cmyk444@<key>); an EXIF-rotated
-     one on the pixel route with one K12b and one resample, no K12a;
-     each >= 40 dB against the host lcms2 route; and the stage times of
-     both routes in turns; (d) the server with profile_path and tpu.device_icc: a
-     print asset over HTTP, then 16 README-size CMYK requests from 16
-     threads in <= 4 batches with the serial Engine's bodies; (e) both
-     kernels' event ms, device ms, plain ms, bound and share at
+     written from a seed into build/chip_smoke/: (a) the fused kernel
+     jpeg_decode_cmyk_rgb (the 4-component decode converting through the
+     packed ICC LUT in its colour stage) against its plain version (K12b's
+     plain version of K12a's) over the whole output, and K12a
+     jpeg_decode_cmyk (its yardstick) against its own, and (b) K12b
+     cmyk_lut (planar and pixel forms) against its plain version, 0 bytes
+     differing, on CMYK and YCCK 4:4:4 (PIL streams and their Adobe
+     flips), YCCK 4:2:0 grids, odd dims (641x479, 7x5), B = 1, 8, a
+     padded batch and 12 MP CMYK q95 B=2; (c) 2048x2048 CMYK 4:4:4 q95
+     print assets (plain, the YCCK flip, one with an embedded profile)
+     through Engine(dev, cmyk2rgb, use_embedded_profile=True) with
+     enable_device_icc(): each request on the coefficient path with one
+     jpeg_decode_cmyk_rgb and one resample, its batch kind (cmyk444,
+     cmyk444y, cmyk444@<key>); an EXIF-rotated one on the pixel route
+     with one K12b and one resample; each >= 40 dB against the host lcms2
+     route; and the stage times of both routes in turns; (d) the server
+     with profile_path and tpu.device_icc: a print asset over HTTP, then
+     16 README-size CMYK requests from 16 threads in <= 4 batches with
+     the serial Engine's bodies, one jpeg_decode_cmyk_rgb per batch; (e)
+     in turns, event ms of the fused kernel, the pair (K12a then K12b)
+     and each alone, their device ms, plain ms, bound and share at
      README-like B=8 (lenna as CMYK) and 12 MP B=2
 Launch counts are set to 0 just before each main-path run (the pixel
 Engine, the coefficient Engine, the server, each phase-5 burst, the two
@@ -105,12 +108,14 @@ jpegdct engines and the jpegdct server burst of phase 6, the CMYK engine
 and the CMYK server burst of phase 7) and read just after it; every
 kernel of the serving path (resample, resample_blur, jpeg_decode_rgb)
 must have been launched by the coefficient engine, the server and phase
-5 (b), K12a and K12b by both CMYK runs and by no earlier run.
+5 (b), jpeg_decode_cmyk_rgb by both CMYK runs and K12b by the CMYK
+engine (its EXIF-rotated request), and neither by an earlier run; K12a
+by no run.
 
 The second-to-last line is {"kernels": [...]}: each kernel's main-path
-launches (K3/K4: 0, with phase 2b's as checked_launches), worst error,
-event and plain ms, bound and library ms (K12a and K12b at README-like
-B=8); the last line is {"ok": true,
+launches (K12a: 0, with phase 7's as checked_launches), worst error,
+event and plain ms, bound and library ms (the CMYK kernels at
+README-like B=8); the last line is {"ok": true,
 "device": {...}}. The port
 imports torch, and nothing of jax or of fanlin_tpu.
 """
@@ -415,7 +420,7 @@ DECODE_SHAPES = [
     ("tiny440_7x5_n3_b4", "tiny440", 3, False),
 ]
 COEF_KIND = {420: "coef", 422: "coef422", 440: "coef440", 444: "coef444"}
-# The kernels the serving path launches (K3/K4 are phase 2b's yardstick)
+# The kernels the serving path launches for YCbCr and pixel sources
 MAIN_PATH_KERNELS = ("resample", "resample_blur", "jpeg_decode_rgb")
 
 # The decode kernel's integer work (csrc/jpeg_decode.cu) in int32
@@ -437,16 +442,27 @@ PIXEL_OPS = {444: 22, 422: 30, 440: 30, 420: 34}
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12
 INT32_OPS_PER_S = 64 * 2 * 132 * 1.98e9
+# Single-rounded f32 instructions (the LUT's __fmul_rn, __fadd_rn; an
+# FMA that stands for one rounded multiply counts one): one per FP32
+# lane per clock, 128 lanes on each of 132 SMs at 1.98 GHz, which is
+# also the rate at which the four schedulers of an SM issue
+# thread-instructions (INT32_OPS_PER_S is the same 33.45 T/s). The 67
+# TFLOP/s f32 peak counts a multiply-add as two, twice this ceiling for
+# unfused work.
+F32_UNFUSED_OPS_PER_S = 128 * 132 * 1.98e9
 # (vertical, horizontal) chroma divisors of each layout
 DIVISORS = {420: (2, 2), 422: (1, 2), 440: (2, 1), 444: (1, 1)}
 
 
-def _bound(nbytes: int, ops: int) -> dict:
-    """The least time for `nbytes` moved and `ops` int32 operations: the
-    larger of the two times, and which it is."""
+def _bound(nbytes: int, int32_ops: int, f32_ops: int = 0) -> dict:
+    """The least time for `nbytes` moved and the operations issued, the
+    larger of the two times, and which it is. int32 and unfused f32
+    operations share the schedulers' dispatch, so their times add."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return {"bytes": nbytes, "int32_ops": ops, "bound_ms": max(t_bytes, t_ops),
+    t_ops = (int32_ops / INT32_OPS_PER_S
+             + f32_ops / F32_UNFUSED_OPS_PER_S) * 1e3
+    return {"bytes": nbytes, "int32_ops": int32_ops, "f32_ops": f32_ops,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -647,26 +663,10 @@ def _enqueue_ms(fn, calls: int = 50) -> float:
     return ms
 
 
-def pair_bounds(w: int, h: int, subsamp: int, n: int, b: int, sh: int,
-                sw: int, grid_blocks: int) -> tuple:
-    """decode_bound's terms for the superseded pair: K3 reads and decodes
-    every block of the bucket's grids (grid_blocks per image) and writes
-    their u8 planes; K4 reads the true rect's planes and writes the
-    output."""
-    dv, dh = DIVISORS[subsamp]
-    ch, cw = -(-h // dv), -(-w // dh)
-    k3 = _bound(b * (grid_blocks * (128 + 64) + 2 * 64 * 4),
-                b * grid_blocks * BLOCK_OPS)
-    k4 = _bound(n * (h * w + 2 * ch * cw) + b * 3 * sh * sw,
-                n * h * w * PIXEL_OPS[subsamp])
-    return k3, k4
-
-
 def phase2b(dev: torch.device) -> dict:
-    """The fused decode kernel jpeg_decode_rgb, and K3 + K4 (its first
-    form, kept as the yardstick), against their plain versions on the
-    same inputs; at the timed shapes, the fused kernel against the pair
-    in turns: event ms, device ms, host enqueue, bound and share."""
+    """The fused decode kernel jpeg_decode_rgb against its plain version
+    on the same inputs; at the timed shapes, event ms, device ms, host
+    enqueue, plain ms, bound and share."""
     from fanlin_tpu_torch.spec.query import parse_query
     from fanlin_tpu_torch.engine.jpeg_coeffs import read_jpeg_coeffs
     from fanlin_tpu_torch.ops import fused, plan as plan_mod
@@ -680,94 +680,42 @@ def phase2b(dev: torch.device) -> dict:
                                    parse_query("w=300&h=200"), opaque=True)
         asm = fused.CoefBatchAssembly([plan] * images, [meta] * images, dev)
         wire = asm.device_wire()
-        up = (asm.subsamp, asm.true_h, asm.true_w, asm.sh, asm.sw)
-        dec = up + (images,)
+        dec = (asm.subsamp, asm.true_h, asm.true_w, asm.sh, asm.sw, images)
         rgb = jk.jpeg_decode_rgb(*wire, *dec)
         torch.cuda.synchronize()
         fused_diff = _bytes_differing(rgb, jk.jpeg_decode_rgb_ref(*wire, *dec))
-        planes = jk.jpeg_islow(*wire)
-        torch.cuda.synchronize()
-        want = jk.jpeg_islow_ref(*wire)
-        k3 = [_bytes_differing(g, w) for g, w in zip(planes, want)]
-        pair = jk.jpeg_upsample_rgb(*planes, *up)
-        torch.cuda.synchronize()
-        k4 = _bytes_differing(pair, jk.jpeg_upsample_rgb_ref(*planes, *up))
-        # the staged wire of padded images is zero, so the pair decodes
-        # them to the fused kernel's constant
-        vs_pair = _bytes_differing(rgb, pair)
-        n3 = sum(d for d, _ in k3)
         print(f"phase2b {name} {meta['w']}x{meta['h']} {asm.subsamp} "
               f"B={asm.b} n={images} jpeg_decode_rgb bytes differing "
-              f"{fused_diff[0]} (max {fused_diff[1]}), from K3+K4 "
-              f"{vs_pair[0]}; K3 bytes differing {n3} (max "
-              f"{max(m for _, m in k3)}), K4 {k4[0]} (max {k4[1]}); wire "
+              f"{fused_diff[0]} (max {fused_diff[1]}); wire "
               f"{asm.upload_bytes // asm.b} B/img, pixel upload "
               f"{3 * asm.sh * asm.sw} B/img", flush=True)
-        check(fused_diff[0] == 0 and vs_pair[0] == 0,
-              f"{name}: jpeg_decode_rgb differs from its plain version or "
-              "from K3+K4")
-        check(n3 == 0 and k4[0] == 0, f"{name}: K3/K4 differ from their "
-                                      "plain versions")
-        res = {"err": fused_diff[1], "k3_err": max(m for _, m in k3),
-               "k4_err": k4[1]}
+        check(fused_diff[0] == 0,
+              f"{name}: jpeg_decode_rgb differs from its plain version")
+        res = {"err": fused_diff[1]}
         if timed:
             big = kind == "12mp"
             ev = _time_turns({
                 "fused": lambda: jk.jpeg_decode_rgb(*wire, *dec),
-                "pair": lambda: jk.jpeg_upsample_rgb(*jk.jpeg_islow(*wire),
-                                                     *up),
-                "k3": lambda: jk.jpeg_islow(*wire),
-                "k4": lambda: jk.jpeg_upsample_rgb(*planes, *up),
             }, reps=5 if big else 10, launches=20 if big else 100)
             plain = _time_turns({
                 "plain": lambda: jk.jpeg_decode_rgb_ref(*wire, *dec),
-                "k3": lambda: jk.jpeg_islow_ref(*wire),
-                "k4": lambda: jk.jpeg_upsample_rgb_ref(*planes, *up),
             }, reps=3, launches=1)
-            dev_ms = {
-                "fused": _device_ms(lambda: jk.jpeg_decode_rgb(*wire, *dec),
-                                    20, ("decode_rgb_kernel",)),
-                "k3": _device_ms(lambda: jk.jpeg_islow(*wire), 20,
-                                 ("islow_kernel",)),
-                "k4": _device_ms(lambda: jk.jpeg_upsample_rgb(*planes, *up),
-                                 20, ("upsample_rgb_kernel",)),
-            }
-            enq = {"fused": _enqueue_ms(lambda: jk.jpeg_decode_rgb(*wire,
-                                                                    *dec)),
-                   "pair": _enqueue_ms(lambda: jk.jpeg_upsample_rgb(
-                       *jk.jpeg_islow(*wire), *up))}
+            dev_ms = _device_ms(lambda: jk.jpeg_decode_rgb(*wire, *dec), 20,
+                                ("decode_rgb_kernel",))
+            enq = _enqueue_ms(lambda: jk.jpeg_decode_rgb(*wire, *dec))
             bnd = decode_bound(meta["w"], meta["h"], asm.subsamp, images,
                                asm.b, asm.sh, asm.sw)
-            grid_blocks = sum(t.shape[1] * t.shape[2] for t in wire[:3])
-            b3, b4 = pair_bounds(meta["w"], meta["h"], asm.subsamp, images,
-                                 asm.b, asm.sh, asm.sw, grid_blocks)
             res.update(ms=ev["fused"], plain_ms=plain["plain"],
-                       device_ms=dev_ms["fused"], enqueue_ms=enq["fused"],
-                       pair_ms=ev["pair"],
-                       pair_device_ms=dev_ms["k3"] + dev_ms["k4"],
-                       pair_enqueue_ms=enq["pair"], k3_ms=ev["k3"],
-                       k4_ms=ev["k4"], k3_plain_ms=plain["k3"],
-                       k4_plain_ms=plain["k4"], k3_device_ms=dev_ms["k3"],
-                       k4_device_ms=dev_ms["k4"], bound=bnd, k3_bound=b3,
-                       k4_bound=b4)
+                       device_ms=dev_ms, enqueue_ms=enq, bound=bnd)
             print(f"phase2b {name} jpeg_decode_rgb event_ms={ev['fused']:.4f}"
-                  f" device_ms={dev_ms['fused']:.4f} enqueue_ms="
-                  f"{enq['fused']:.4f} plain_ms={plain['plain']:.4f}; K3+K4 "
-                  f"event_ms={ev['pair']:.4f} device_ms="
-                  f"{dev_ms['k3'] + dev_ms['k4']:.4f} (K3 {dev_ms['k3']:.4f}"
-                  f" + K4 {dev_ms['k4']:.4f}) enqueue_ms={enq['pair']:.4f}; "
-                  f"K3 event_ms={ev['k3']:.4f} plain_ms={plain['k3']:.4f}, "
-                  f"K4 event_ms={ev['k4']:.4f} plain_ms={plain['k4']:.4f}",
-                  flush=True)
+                  f" device_ms={dev_ms:.4f} enqueue_ms={enq:.4f} plain_ms="
+                  f"{plain['plain']:.4f}", flush=True)
             print(f"phase2b {name} jpeg_decode_rgb needs {bnd['bytes']} B "
                   f"and {bnd['int32_ops']} int32 ops: bound "
                   f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}, "
-                  f"{bnd['bound_ms'] / dev_ms['fused'] * 100:.1f} % of it "
-                  f"on device time, "
-                  f"{bnd['bound_ms'] / ev['fused'] * 100:.1f} % on event "
-                  f"time; K3 bound {b3['bound_ms']:.4f} ms by "
-                  f"{b3['bound_by']}, K4 {b4['bound_ms']:.4f} ms by "
-                  f"{b4['bound_by']}", flush=True)
+                  f"{bnd['bound_ms'] / dev_ms * 100:.1f} % of it on device "
+                  f"time, {bnd['bound_ms'] / ev['fused'] * 100:.1f} % on "
+                  "event time", flush=True)
         if name in ("lenna444_b1", "12mp420_b2"):
             reps = 20 if kind == "lenna" else 5
             host = []
@@ -860,8 +808,8 @@ def phase3_engine(dev: torch.device, device_decode: bool,
     """The port's Engine on the golden corpus: the encoded floor (with
     device_dct, DCT_GOLDEN_FLOOR_DB, and every request on a jpegdct
     batch), and per request one resample launch, plus one
-    jpeg_decode_rgb launch (and none of K3/K4) and a coef_src count on
-    the coefficient path. Returns (engine, requests)."""
+    jpeg_decode_rgb launch and a coef_src count on the coefficient path.
+    Returns (engine, requests)."""
     from PIL import Image
 
     from fanlin_tpu_torch.spec.content import Format
@@ -885,10 +833,8 @@ def phase3_engine(dev: torch.device, device_decode: bool,
               f"{path} {src}/{cfg}: batch kinds {log.kinds}")
         n += 1
         resample = added["resample"] + added["resample_blur"]
-        decode = (added["jpeg_decode_rgb"], added["jpeg_islow"],
-                  added["jpeg_upsample_rgb"])
-        check(resample == 1
-              and decode == ((1, 0, 0) if device_decode else (0, 0, 0)),
+        check(resample == 1 and added["jpeg_decode_rgb"]
+              == (1 if device_decode else 0),
               f"{path} {src}/{cfg}: launches {added}")
         check(mime == "image/jpeg", f"{src}/{cfg}: mime {mime}")
         with Image.open(io.BytesIO(payload)) as im:
@@ -1165,8 +1111,7 @@ async def _phase5(dev: torch.device) -> dict:
                       f"{name}: a batch mixed groups or skipped the kernel: "
                       f"{log.rows}")
                 check(w["resample"] + w["resample_blur"] == batches
-                      and w["jpeg_decode_rgb"] == batches
-                      and w["jpeg_islow"] == w["jpeg_upsample_rgb"] == 0,
+                      and w["jpeg_decode_rgb"] == batches,
                       f"{name}: launches {w} for {batches} batches")
                 check(all(b == want[u] for u, b in zip(urls, bodies)),
                       f"{name}: a batched body differs from the serial one")
@@ -1536,17 +1481,15 @@ async def _phase6_server(dev: torch.device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the CMYK / ICC path (P9), K12a jpeg_decode_cmyk and K12b cmyk_lut
+# Phase 7: the CMYK / ICC path (P9): jpeg_decode_cmyk_rgb (K12a and K12b
+# in one launch), K12b cmyk_lut, and K12a jpeg_decode_cmyk as yardstick
 
-# K12b's f32 work per pixel (csrc/cmyk_lut.cu): per component the scale
-# multiply, the floor and two subtracts; per corner 4 weight products, 3
-# multiplies and 3 adds; per channel the rounding add and the floor
-LUT_OPS = 4 * 4 + 16 * (4 + 3 + 3) + 3 * 2
-# K12b's ops are single-rounded f32 instructions (__fmul_rn, __fadd_rn),
-# never fused: one per FP32 lane per clock, 128 lanes on each of 132 SMs
-# at 1.98 GHz. F32_FLOP_PER_S (67e12) counts a multiply-add as two ops,
-# so it is twice this ceiling for unfused work.
-F32_UNFUSED_OPS_PER_S = 128 * 132 * 1.98e9
+# The LUT's f32 work per pixel (csrc/cmyk_lut.cuh), the fewest operations
+# that give the plain version's bits: per component the scale multiply,
+# the floor and two subtracts; 28 weight products (shared prefixes);
+# per corner 3 multiplies and 3 adds; per channel the rounding add and
+# the floor
+LUT_OPS = 4 * 4 + 28 + 16 * (3 + 3) + 3 * 2
 # K12a's int32 work per output pixel besides its blocks': plain CMYK
 # inverts 4 samples; YCCK adds jdcolor (and the upsample) and inverts K
 CMYK_PIXEL_OPS = {(444, False): 4, (444, True): PIXEL_OPS[444] + 1,
@@ -1554,32 +1497,48 @@ CMYK_PIXEL_OPS = {(444, False): 4, (444, True): PIXEL_OPS[444] + 1,
 # The JAX package's floor for its device ICC LUT against host lcms2
 # (tests/test_cmyk_lut.py:57)
 ICC_FLOOR_DB = 40.0
+# One row of the packed LUT (cmyk_lut.pack_lut): four u8 RGB words
+PACKED_ROW_BYTES = 16
+
+
+def _cmyk_work(w: int, h: int, subsamp: int, ycck: bool, n: int) -> tuple:
+    """(bytes, int32 operations) of K12a's decode of n real images: the
+    wire of the true MCU grid of four planes (K at the luma grid) and the
+    quant tables read once; the operations of those blocks and of the
+    true rect's pixels."""
+    dv, dh = DIVISORS[subsamp]
+    ch, cw = -(-h // dv), -(-w // dh)
+    blocks = 2 * -(-h // 8) * -(-w // 8) + 2 * -(-ch // 8) * -(-cw // 8)
+    return (n * (blocks * 128 + 2 * 64 * 4),
+            n * (blocks * BLOCK_OPS + h * w * CMYK_PIXEL_OPS[(subsamp, ycck)]))
 
 
 def cmyk_decode_bound(w: int, h: int, subsamp: int, ycck: bool, n: int,
                       b: int, sh: int, sw: int) -> dict:
-    """decode_bound for K12a: the wire of the true MCU grid of four
-    planes (K at the luma grid) of the n real images read once with
-    their quant tables, the (b, 4, sh, sw) output written once, and the
-    integer operations of those blocks and of the true rect's pixels."""
-    dv, dh = DIVISORS[subsamp]
-    ch, cw = -(-h // dv), -(-w // dh)
-    blocks = 2 * -(-h // 8) * -(-w // 8) + 2 * -(-ch // 8) * -(-cw // 8)
-    return _bound(n * (blocks * 128 + 2 * 64 * 4) + b * 4 * sh * sw,
-                  n * (blocks * BLOCK_OPS
-                       + h * w * CMYK_PIXEL_OPS[(subsamp, ycck)]))
+    """decode_bound for K12a: _cmyk_work and the (b, 4, sh, sw) output
+    written once."""
+    nbytes, ops = _cmyk_work(w, h, subsamp, ycck, n)
+    return _bound(nbytes + b * 4 * sh * sw, ops)
 
 
 def lut_bound(pixels: int, lut_entries: int) -> dict:
     """The least work of K12b on `pixels` pixels: 4 bytes read and 3
-    written each, the LUT read once, LUT_OPS unfused f32 operations each
-    (F32_UNFUSED_OPS_PER_S)."""
-    nbytes = 7 * pixels + 12 * lut_entries
-    ops = LUT_OPS * pixels
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_UNFUSED_OPS_PER_S * 1e3
-    return {"bytes": nbytes, "f32_ops": ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    written each, the packed LUT read once, LUT_OPS unfused f32
+    operations each."""
+    return _bound(7 * pixels + PACKED_ROW_BYTES * lut_entries, 0,
+                        LUT_OPS * pixels)
+
+
+def cmyk_rgb_bound(w: int, h: int, subsamp: int, ycck: bool, n: int, b: int,
+                   sh: int, sw: int, lut_entries: int) -> dict:
+    """The least work of jpeg_decode_cmyk_rgb (and of K12a then K12b,
+    the same function): K12a's wire and operations, the packed LUT read
+    once, 3 output bytes per pixel written once, and LUT_OPS for each
+    pixel of the real images' true rects (the rest is one constant per
+    image)."""
+    nbytes, ops = _cmyk_work(w, h, subsamp, ycck, n)
+    return _bound(nbytes + PACKED_ROW_BYTES * lut_entries
+                        + b * 3 * sh * sw, ops, LUT_OPS * n * h * w)
 
 
 def _cmyk_profile(seed: int, grid: int = 5) -> bytes:
@@ -1742,11 +1701,15 @@ def _cmyk_source(kind: str, rng) -> dict:
 
 
 def phase7_kernels(dev: torch.device, lut: np.ndarray) -> dict:
-    """(a) K12a against its plain version, (b) K12b against its plain
-    version on K12a's output (and its pixel form on one image), 0 bytes
-    differing at every shape; (e) at the timed shapes event ms, device
-    ms, plain ms, bound and share of both."""
+    """(a) The fused kernel jpeg_decode_cmyk_rgb against its plain version
+    (K12b's plain version of K12a's) over the whole output, and K12a
+    against its own; (b) K12b, planar on K12a's output and in pixel form
+    on its first image, against its plain version: 0 bytes differing at
+    every shape. (e) At the timed shapes, in turns: event ms of the fused
+    kernel, the pair (K12a then K12b) and each alone; device ms and plain
+    ms; bounds and shares."""
     from fanlin_tpu_torch.spec.query import parse_query
+    from fanlin_tpu_torch.ops import cmyk_lut
     from fanlin_tpu_torch.ops import cmyk_lut_kernels as lk
     from fanlin_tpu_torch.ops import fused, plan as plan_mod
     from fanlin_tpu_torch.ops import jpeg_decode_kernels as jk
@@ -1755,6 +1718,7 @@ def phase7_kernels(dev: torch.device, lut: np.ndarray) -> dict:
     flat = np.ascontiguousarray(lut.reshape(-1, 3).astype(np.float32))
     n = lut.shape[0]
     lut_dev = torch.from_numpy(flat).to(dev)
+    packed = cmyk_lut.pack_lut(flat, n).to(dev)
     results = {}
     for name, kind, images, timed in CMYK_SHAPES:
         meta = _cmyk_source(kind, rng)
@@ -1766,54 +1730,80 @@ def phase7_kernels(dev: torch.device, lut: np.ndarray) -> dict:
         wire = asm.device_wire()
         args = (asm.subsamp, asm.ycck, asm.true_h, asm.true_w, asm.sh, asm.sw,
                 images)
+        rgb = jk.jpeg_decode_cmyk_rgb(*wire, packed, n, *args)
+        torch.cuda.synchronize()
+        f_diff = _bytes_differing(
+            rgb, jk.jpeg_decode_cmyk_rgb_ref(*wire, lut_dev, n, *args))
         cmyk = jk.jpeg_decode_cmyk(*wire, *args)
         torch.cuda.synchronize()
         a_diff = _bytes_differing(cmyk, jk.jpeg_decode_cmyk_ref(*wire, *args))
-        rgb = lk.cmyk_lut(cmyk, lut_dev, n)
+        pair = lk.cmyk_lut(cmyk, packed, n)
         torch.cuda.synchronize()
-        b_diff = _bytes_differing(rgb, lk.cmyk_lut_ref(cmyk, lut_dev, n))
+        b_diff = _bytes_differing(pair, lk.cmyk_lut_ref(cmyk, lut_dev, n))
         px = cmyk[0].permute(1, 2, 0).contiguous()
-        pix = lk.cmyk_lut_pixels(px, lut_dev, n)
+        pix = lk.cmyk_lut_pixels(px, packed, n)
         torch.cuda.synchronize()
-        p_diff = _bytes_differing(pix, rgb[0].permute(1, 2, 0).contiguous())
+        p_diff = _bytes_differing(
+            pix, lk.cmyk_lut_ref(cmyk[:1], lut_dev, n)[0].permute(1, 2, 0))
+        vs_pair = _bytes_differing(rgb, pair)
         print(f"phase7a {name} {meta['w']}x{meta['h']} {asm.subsamp}"
               f"{' ycck' if asm.ycck else ''} B={asm.b} n={images} "
-              f"jpeg_decode_cmyk bytes differing {a_diff[0]} (max "
+              f"jpeg_decode_cmyk_rgb bytes differing {f_diff[0]} of "
+              f"{rgb.numel()} (max {f_diff[1]}), from K12a+K12b "
+              f"{vs_pair[0]}; jpeg_decode_cmyk {a_diff[0]} (max "
               f"{a_diff[1]}); phase7b cmyk_lut {b_diff[0]} (max {b_diff[1]}),"
-              f" pixel form against the planar one {p_diff[0]}; wire "
+              f" pixel form {p_diff[0]} (max {p_diff[1]}); wire "
               f"{asm.upload_bytes // asm.b} B/img", flush=True)
+        check(f_diff[0] == 0 and vs_pair[0] == 0,
+              f"{name}: jpeg_decode_cmyk_rgb differs from its plain version "
+              "or from K12a + K12b")
         check(a_diff[0] == 0, f"{name}: jpeg_decode_cmyk differs from its "
                               "plain version")
         check(b_diff[0] == 0 and p_diff[0] == 0,
               f"{name}: cmyk_lut differs from its plain version")
-        res = {"a_err": a_diff[1], "b_err": max(b_diff[1], p_diff[1])}
+        res = {"err": f_diff[1], "a_err": a_diff[1],
+               "b_err": max(b_diff[1], p_diff[1])}
         if timed:
             big = kind == "12mp_cmyk"
-            ev = _time_turns({
+            fns = {
+                "fused": lambda: jk.jpeg_decode_cmyk_rgb(*wire, packed, n,
+                                                         *args),
+                "pair": lambda: lk.cmyk_lut(jk.jpeg_decode_cmyk(*wire, *args),
+                                            packed, n),
                 "k12a": lambda: jk.jpeg_decode_cmyk(*wire, *args),
-                "k12b": lambda: lk.cmyk_lut(cmyk, lut_dev, n),
-            }, reps=5 if big else 10, launches=20 if big else 100)
+                "k12b": lambda: lk.cmyk_lut(cmyk, packed, n),
+            }
+            ev = _time_turns(fns, reps=5 if big else 10,
+                             launches=20 if big else 100)
             plain = _time_turns({
+                "fused": lambda: jk.jpeg_decode_cmyk_rgb_ref(
+                    *wire, lut_dev, n, *args),
                 "k12a": lambda: jk.jpeg_decode_cmyk_ref(*wire, *args),
                 "k12b": lambda: lk.cmyk_lut_ref(cmyk, lut_dev, n),
             }, reps=3, launches=1)
+            plain["pair"] = plain["fused"]  # one plain version of both
             dev_ms = {
-                "k12a": _device_ms(lambda: jk.jpeg_decode_cmyk(*wire, *args),
-                                   20, ("decode_cmyk_kernel",)),
-                "k12b": _device_ms(lambda: lk.cmyk_lut(cmyk, lut_dev, n), 20,
-                                   ("cmyk_lut_kernel",)),
+                "fused": _device_ms(fns["fused"], 20,
+                                    ("decode_cmyk_rgb_kernel",)),
+                "k12a": _device_ms(fns["k12a"], 20,
+                                   ("decode_cmyk_kernel",)),
+                "k12b": _device_ms(fns["k12b"], 20, ("cmyk_lut_kernel",)),
             }
-            bnd = {"k12a": cmyk_decode_bound(meta["w"], meta["h"],
-                                             asm.subsamp, asm.ycck, images,
-                                             asm.b, asm.sh, asm.sw),
+            dev_ms["pair"] = dev_ms["k12a"] + dev_ms["k12b"]
+            geo = (meta["w"], meta["h"], asm.subsamp, asm.ycck, images, asm.b,
+                   asm.sh, asm.sw)
+            fused_bound = cmyk_rgb_bound(*geo, n ** 4)
+            bnd = {"fused": fused_bound, "pair": fused_bound,
+                   "k12a": cmyk_decode_bound(*geo),
                    "k12b": lut_bound(asm.b * asm.sh * asm.sw, n ** 4)}
-            for k in ("k12a", "k12b"):
+            for k in ("fused", "pair", "k12a", "k12b"):
                 res[k] = {"ms": ev[k], "device_ms": dev_ms[k],
                           "plain_ms": plain[k], **bnd[k]}
                 print(f"phase7e {name} {k}: event_ms={ev[k]:.4f} device_ms="
                       f"{dev_ms[k]:.4f} plain_ms={plain[k]:.4f}; bound "
                       f"{bnd[k]['bound_ms']:.4f} ms by {bnd[k]['bound_by']} "
-                      f"({bnd[k]['bytes']} B), "
+                      f"({bnd[k]['bytes']} B, {bnd[k]['int32_ops']} int32 + "
+                      f"{bnd[k]['f32_ops']} f32 ops), "
                       f"{bnd[k]['bound_ms'] / dev_ms[k] * 100:.1f} % of it on "
                       f"device time, {bnd[k]['bound_ms'] / ev[k] * 100:.1f} "
                       "% on event time", flush=True)
@@ -1831,12 +1821,12 @@ def _decoded(body: bytes) -> np.ndarray:
 def phase7_engine(dev: torch.device, folder: str):
     """(c) The print assets through Engine(dev, cmyk2rgb, embedded
     profiles) with enable_device_icc(): every request on the coefficient
-    path with one K12a, one K12b and one resample launch and the batch
-    kind of its colour transform and profile, but the EXIF-rotated one,
-    which takes the pixel route (one K12b on its pixels, one resample, no
-    K12a); each >= ICC_FLOOR_DB against the host lcms2 route (the same
-    Engine without the device LUT). Returns (engine, host route engine,
-    coefficient requests, pixel requests)."""
+    path with one jpeg_decode_cmyk_rgb and one resample launch and the
+    batch kind of its colour transform and profile, but the EXIF-rotated
+    one, which takes the pixel route (one K12b on its pixels, one
+    resample); none launches K12a. Each >= ICC_FLOOR_DB against the host
+    lcms2 route (the same Engine without the device LUT). Returns
+    (engine, host route engine, coefficient requests, pixel requests)."""
     from fanlin_tpu_torch.engine import Engine
     from fanlin_tpu_torch.engine.icc import CMYK2RGB
     from fanlin_tpu_torch.spec.content import Format
@@ -1862,8 +1852,8 @@ def phase7_engine(dev: torch.device, folder: str):
         pixels = kind is None
         n["pixels" if pixels else "coef"] += 1
         want = {k: 0 for k in added}
-        want.update(resample=1, jpeg_decode_cmyk=0 if pixels else 1,
-                    cmyk_lut=1)
+        want.update(resample=1, jpeg_decode_cmyk_rgb=0 if pixels else 1,
+                    cmyk_lut=1 if pixels else 0)
         check(added == want, f"phase7c {name}: launches {added}")
         # the source kind, before the sink ("+jpeg420" with libjpeg)
         k0 = log.kinds[0].split("+")[0] if log.kinds else ""
@@ -1982,9 +1972,9 @@ async def _phase7_server(dev: torch.device, folder: str) -> dict:
               and all(r[1] == r[2] == 1 and r[3] for r in log.rows)
               and {k.split("+")[0] for k in log.kinds} == {"cmyk444"},
               f"phase7d: {batches} batches, {log.rows}, {set(log.kinds)}")
-        check(window["resample"] == window["jpeg_decode_cmyk"]
-              == window["cmyk_lut"] == batches
-              and window["jpeg_decode_rgb"] == 0,
+        check(window["resample"] == window["jpeg_decode_cmyk_rgb"]
+              == batches and window["jpeg_decode_cmyk"]
+              == window["cmyk_lut"] == window["jpeg_decode_rgb"] == 0,
               f"phase7d: launches {window} for {batches} batches")
         check(all(b == want for b in bodies),
               "phase7d: a batched body differs from the serial one")
@@ -2010,9 +2000,7 @@ def main() -> int:
     dev = device_mod.cuda_device()
     phase1()
     bench = phase2(dev)
-    _reset_counts()
     decode = phase2b(dev)
-    checked = _counts()  # phase 2b's launches: checks and timing only
     phase3_pre_encode(dev)
 
     # the main path's launch-count windows: each run is driven with the
@@ -2039,7 +2027,9 @@ def main() -> int:
     phase6_formats(dev)
     # phase 7: the CMYK / ICC path
     cmyk_dir = _gen_cmyk_sources()
+    _reset_counts()
     cmyk = phase7_kernels(dev, _phase7_lut(cmyk_dir))
+    checked = _counts()  # phase 7 (a, b, e): checks and timing only
     earlier = list(windows)
     _reset_counts()
     cmyk_engine, host_icc_engine, n_cmyk, n_cmyk_px = phase7_engine(
@@ -2050,34 +2040,37 @@ def main() -> int:
     for name, c in windows.items():
         print(f"launch counts ({name}): {c}", flush=True)
     for name in earlier:
-        check(windows[name]["jpeg_decode_cmyk"] == windows[name]["cmyk_lut"]
-              == 0, f"the {name} run launched a CMYK kernel")
+        check(windows[name]["jpeg_decode_cmyk_rgb"]
+              == windows[name]["cmyk_lut"] == 0,
+              f"the {name} run launched a CMYK kernel")
+    for name in windows:
+        check(windows[name]["jpeg_decode_cmyk"] == 0,
+              f"the {name} run launched K12a, the yardstick")
     # the window holds the device ICC route's requests (coefficients, and
     # pixels for the EXIF-rotated one) and the host lcms2 route's (pixels:
     # one resample each)
     w = windows["cmyk engine"]
-    check(w["jpeg_decode_cmyk"] == n_cmyk
-          and w["cmyk_lut"] == n_cmyk + n_cmyk_px
+    check(w["jpeg_decode_cmyk_rgb"] == n_cmyk and w["cmyk_lut"] == n_cmyk_px
           and w["resample"] == 2 * (n_cmyk + n_cmyk_px),
           f"cmyk engine launched {w} for {n_cmyk} coefficient and "
           f"{n_cmyk_px} pixel requests on each route")
-    for name in ("jpeg_decode_cmyk", "cmyk_lut"):
-        for path in ("cmyk engine", "cmyk server"):
+    for name, paths in (("jpeg_decode_cmyk_rgb", ("cmyk engine",
+                                                  "cmyk server")),
+                        ("cmyk_lut", ("cmyk engine",))):
+        for path in paths:
             check(windows[path][name] > 0,
                   f"kernel {name} was never launched by the {path} run")
     for path, n in (("coef engine", n_coef), ("coef jpegdct engine",
                                                n_dct_coef)):
         w = windows[path]
         check(w["resample"] + w["resample_blur"] == n
-              and w["jpeg_decode_rgb"] == n
-              and w["jpeg_islow"] == w["jpeg_upsample_rgb"] == 0,
+              and w["jpeg_decode_rgb"] == n,
               f"{path} launched {w} for {n} requests")
     for path, n in (("pixel engine", n_pixel), ("pixel jpegdct engine",
                                                  n_dct_pixel)):
         w = windows[path]
         check(w["resample"] + w["resample_blur"] == n
-              and w["jpeg_decode_rgb"] == w["jpeg_islow"]
-              == w["jpeg_upsample_rgb"] == 0,
+              and w["jpeg_decode_rgb"] == 0,
               f"{path} launched {w} for {n} requests")
     for name in MAIN_PATH_KERNELS:
         for path in ("coef engine", "server", "phase5b"):
@@ -2133,43 +2126,32 @@ def main() -> int:
          "ms": k34["ms"], "plain_ms": k34["plain_ms"],
          "bound_ms": k34["bound"]["bound_ms"],
          "bound_by": k34["bound"]["bound_by"], "library_ms": None},
-        # superseded by jpeg_decode_rgb, off the main path (0 launches
-        # there), kept as its yardstick: checked_launches are phase 2b's
-        {"name": "jpeg_islow", "route": "cuda", "source": src,
-         "replaces": "fanlin_tpu/ops/jpeg_decode.py:158",
-         "launches": launches["jpeg_islow"],
-         "checked_launches": checked["jpeg_islow"],
-         "max_abs_err": max(r["k3_err"] for r in decode.values()),
-         "ms": k34["k3_ms"], "plain_ms": k34["k3_plain_ms"],
-         "bound_ms": k34["k3_bound"]["bound_ms"],
-         "bound_by": k34["k3_bound"]["bound_by"], "library_ms": None},
-        {"name": "jpeg_upsample_rgb", "route": "cuda", "source": src,
-         "replaces": "fanlin_tpu/ops/jpeg_decode.py:243",
-         "launches": launches["jpeg_upsample_rgb"],
-         "checked_launches": checked["jpeg_upsample_rgb"],
-         "max_abs_err": max(r["k4_err"] for r in decode.values()),
-         "ms": k34["k4_ms"], "plain_ms": k34["k4_plain_ms"],
-         "bound_ms": k34["k4_bound"]["bound_ms"],
-         "bound_by": k34["k4_bound"]["bound_by"], "library_ms": None},
     ]
     # the CMYK kernels, timed at README-like B=8 (lenna as CMYK 4:4:4);
     # no PyTorch call decodes islow or interpolates a 4-D LUT
-    # (grid_sample stops at 3-D volumes): library_ms is null
+    # (grid_sample stops at 3-D volumes): library_ms is null. K12a is off
+    # the main path (0 launches there), kept as the fused kernel's
+    # yardstick: its checked_launches are phase 7's checks and timing.
     timed = cmyk["lenna_cmyk444_b8"]
-    for name, key, source, replaces in (
-            ("jpeg_decode_cmyk", "k12a", src,
-             "fanlin_tpu/ops/jpeg_decode.py:364"),
-            ("cmyk_lut", "k12b", "fanlin_tpu_torch/csrc/cmyk_lut.cu",
-             "fanlin_tpu/ops/cmyk_lut.py:63")):
+    for name, key, err, source, replaces in (
+            ("jpeg_decode_cmyk_rgb", "fused", "err", src,
+             "fanlin_tpu/ops/jpeg_decode.py:364, "
+             "fanlin_tpu/ops/cmyk_lut.py:63"),
+            ("cmyk_lut", "k12b", "b_err", "fanlin_tpu_torch/csrc/cmyk_lut.cu",
+             "fanlin_tpu/ops/cmyk_lut.py:63, fanlin_tpu/ops/cmyk_lut.py:41"),
+            ("jpeg_decode_cmyk", "k12a", "a_err", src,
+             "fanlin_tpu/ops/jpeg_decode.py:364")):
         t = timed[key]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(r["a_err" if key == "k12a" else "b_err"]
-                               for r in cmyk.values()),
+            "max_abs_err": max(r[err] for r in cmyk.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+            "library_ms": None}
+        if key == "k12a":
+            entry["checked_launches"] = checked[name]
+        kernels.append(entry)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

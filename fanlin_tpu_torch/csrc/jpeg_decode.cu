@@ -17,9 +17,7 @@
 // (B, 3, out_h, out_w) u8 out, the resample kernel's input layout, zero
 // outside the true rect; images i >= n (the batch's bucket padding) are
 // the constant that zero coefficients decode to (128 inside the true
-// rect). K3 jpeg_islow and K4 jpeg_upsample_rgb, its simple first form
-// (one thread per block, then one thread per pixel with byte stores and
-// the u8 planes through device memory), remain as a yardstick.
+// rect).
 //
 // What bounds it (chip_smoke.py decode_bound). Bytes: each coefficient
 // of the true MCU grid of a real image read once (2 B), each output byte
@@ -86,16 +84,39 @@
 // 255 - sample on every plane; YCCK (4:4:4, or 4:2:0 with the same
 // halo and upsample as jpeg_decode_rgb) is jdcolor's R G B for C M Y and
 // 255 - k for K. Padded images store what zero coefficients decode to
-// (127, or 128 128 128 127). Bound: bytes, 4 planes of int16 read and 4
-// output bytes per pixel written, and int32 operations as for
-// jpeg_decode_rgb with a fourth plane of blocks (chip_smoke.py
-// cmyk_decode_bound); the 4-plane colour stage holds up to 128 registers.
+// (127, or 128 128 128 127). Bound: chip_smoke.py cmyk_decode_bound.
+// The serving path no longer launches it: it stays as the yardstick of
+// the fused form below.
+//
+// jpeg_decode_cmyk_rgb, the CMYK coefficient route's kernel, is K12a and
+// K12b (cmyk_lut.cu, cmyk_lut.py:63 lut_planes) in one launch: the
+// colour stage makes each pixel's four CMYK bytes as K12a does (masked
+// past true_w, the pad constants in a padded image's true rect) and
+// evaluates the packed ICC LUT on them (cmyk_lut.cuh), so the (B, 4, H,
+// W) CMYK planes never reach device memory; it stores (B, 3, out_h,
+// out_w) RGB, bit-equal to K12b's plain version of K12a's plain version
+// over the whole tensor, padding included. The LUT stage is staged: the
+// tile's CMYK pixels go to shared memory, and after a barrier the whole
+// CTA converts them, 4 consecutive pixels a thread, each pixel's four
+// 16 B gathers in flight while the previous pixel accumulates. A tile
+// that decodes nothing (past the true rect, padded images) holds
+// constants: each vector of 16 evaluates the LUT twice, not 16 times.
+// Bound (chip_smoke.py cmyk_rgb_bound): bytes, the 4-plane wire of the
+// true MCU grid and 3 output bytes per pixel, against issue, K12a's int32
+// operations plus the LUT's 146 f32 operations a pixel at 33.45 T
+// thread-instructions/s (the two share the schedulers' dispatch); issue
+// bounds it. The 4-component forms hold up to 128 registers (launch
+// bounds).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "cmyk_lut.cuh"
+
 namespace {
+
+using fanlin::pack_sat4;
 
 constexpr int kPass1Shift = 11;  // CONST_BITS - PASS1_BITS
 constexpr int kPass2Shift = 18;  // CONST_BITS + PASS1_BITS + 3
@@ -140,135 +161,6 @@ __device__ __forceinline__ void islow_pass(int* s, int st) {
   s[5 * st] = (e2 - o1 + rnd) >> SHIFT;
   s[6 * st] = (e1 - o2 + rnd) >> SHIFT;
   s[7 * st] = (e0 - o3 + rnd) >> SHIFT;
-}
-
-struct IslowArgs {
-  const int16_t* coef[3];  // (B, bh, bw, 64) per plane
-  uint8_t* out[3];         // (B, 8 bh, 8 bw) per plane
-  int bh[3], bw[3];
-  const int32_t* q;        // (B, 2, 64): luma, chroma
-  long long n0, n1;        // blocks in plane 0, planes 0-1
-  long long total;         // blocks in all three planes
-};
-
-__global__ void __launch_bounds__(128) islow_kernel(IslowArgs a) {
-  const long long g = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (g >= a.total) return;
-  // selects, not a dynamic index into the parameter arrays (which
-  // would copy them to the stack)
-  const int plane = g < a.n0 ? 0 : (g < a.n1 ? 1 : 2);
-  const long long i = g - (plane == 0 ? 0 : (plane == 1 ? a.n0 : a.n1));
-  const int bh = plane ? a.bh[1] : a.bh[0];
-  const int bw = plane ? a.bw[1] : a.bw[0];
-  const int16_t* coef =
-      plane == 0 ? a.coef[0] : (plane == 1 ? a.coef[1] : a.coef[2]);
-  uint8_t* out = plane == 0 ? a.out[0] : (plane == 1 ? a.out[1] : a.out[2]);
-  const long long per_image = static_cast<long long>(bh) * bw;
-  const int b = static_cast<int>(i / per_image);
-  const int rem = static_cast<int>(i - b * per_image);
-  const int by = rem / bw, bx = rem - by * bw;
-
-  int ws[64];
-  const int4* src = reinterpret_cast<const int4*>(coef + i * 64);
-  const int32_t* q = a.q + (b * 2 + (plane ? 1 : 0)) * 64;
-#pragma unroll
-  for (int v = 0; v < 8; ++v) {
-    const int4 raw = src[v];
-    const int words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      // little-endian: coefficient 2k is the low half of word k
-      const int c = (j & 1) ? (words[j >> 1] >> 16)
-                            : static_cast<int16_t>(words[j >> 1] & 0xFFFF);
-      ws[v * 8 + j] = c * __ldg(q + v * 8 + j);
-    }
-  }
-#pragma unroll
-  for (int x = 0; x < 8; ++x) islow_pass<kPass1Shift>(ws + x, 8);  // columns
-#pragma unroll
-  for (int y = 0; y < 8; ++y) islow_pass<kPass2Shift>(ws + 8 * y, 1);  // rows
-
-  const long long pitch = 8LL * bw;
-  uint8_t* dst =
-      out + (static_cast<long long>(b) * bh * 8 + by * 8) * pitch + bx * 8;
-#pragma unroll
-  for (int y = 0; y < 8; ++y) {
-    uint32_t lo = 0, hi = 0;
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int s0 = min(max(ws[8 * y + x] + 128, 0), 255);
-      const int s1 = min(max(ws[8 * y + 4 + x] + 128, 0), 255);
-      lo |= static_cast<uint32_t>(s0) << (8 * x);
-      hi |= static_cast<uint32_t>(s1) << (8 * x);
-    }
-    *reinterpret_cast<uint2*>(dst + y * pitch) = make_uint2(lo, hi);
-  }
-}
-
-struct UpsampleArgs {
-  const uint8_t* y;   // (B, yh, yw)
-  const uint8_t* cb;  // (B, ch_pad, cw_pad)
-  const uint8_t* cr;
-  uint8_t* out;       // (B, 3, out_h, out_w)
-  int yh, yw, ch_pad, cw_pad;
-  int true_h, true_w, ch, cw;  // ch, cw: true chroma dims
-  int out_h, out_w;
-};
-
-template <int SUBSAMP>
-__device__ __forceinline__ int chroma_at(const uint8_t* c, int pitch, int ch,
-                                         int cw, int y, int x) {
-  if (SUBSAMP == 444) return c[y * pitch + x];
-  if (SUBSAMP == 422) {  // h2v1
-    const int cx = x >> 1;
-    const uint8_t* row = c + y * pitch;
-    if (x & 1) return (3 * row[cx] + row[min(cx + 1, cw - 1)] + 2) >> 2;
-    return (3 * row[cx] + row[max(cx - 1, 0)] + 1) >> 2;
-  }
-  if (SUBSAMP == 440) {  // v2h1
-    const int cy = y >> 1;
-    const int ny = (y & 1) ? min(cy + 1, ch - 1) : max(cy - 1, 0);
-    const int bias = (y & 1) ? 2 : 1;
-    return (3 * c[cy * pitch + x] + c[ny * pitch + x] + bias) >> 2;
-  }
-  // h2v2: column sums with the nearer row (x3) and the farther row
-  const int cy = y >> 1, cx = x >> 1;
-  const int ny = (y & 1) ? min(cy + 1, ch - 1) : max(cy - 1, 0);
-  const int nx = (x & 1) ? min(cx + 1, cw - 1) : max(cx - 1, 0);
-  const uint8_t* near = c + cy * pitch;
-  const uint8_t* far = c + ny * pitch;
-  const int col = 3 * near[cx] + far[cx];
-  const int side = 3 * near[nx] + far[nx];
-  return (3 * col + side + ((x & 1) ? 7 : 8)) >> 4;
-}
-
-template <int SUBSAMP>
-__global__ void __launch_bounds__(256) upsample_rgb_kernel(UpsampleArgs a) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
-  if (x >= a.out_w) return;
-  const long long plane = static_cast<long long>(a.out_h) * a.out_w;
-  uint8_t* o = a.out + b * 3 * plane + static_cast<long long>(y) * a.out_w + x;
-  if (y >= a.true_h || x >= a.true_w) {
-    o[0] = 0;
-    o[plane] = 0;
-    o[2 * plane] = 0;
-    return;
-  }
-  const long long cplane = static_cast<long long>(a.ch_pad) * a.cw_pad;
-  const int yy = a.y[(static_cast<long long>(b) * a.yh + y) * a.yw + x];
-  const int cbz = chroma_at<SUBSAMP>(a.cb + b * cplane, a.cw_pad, a.ch, a.cw,
-                                     y, x) - 128;
-  const int crz = chroma_at<SUBSAMP>(a.cr + b * cplane, a.cw_pad, a.ch, a.cw,
-                                     y, x) - 128;
-  const int r = yy + ((91881 * crz + 32768) >> 16);
-  const int bl = yy + ((116130 * cbz + 32768) >> 16);
-  const int g = yy + ((-22554 * cbz + 32768 - 46802 * crz) >> 16);
-  o[0] = static_cast<uint8_t>(min(max(r, 0), 255));
-  o[plane] = static_cast<uint8_t>(min(max(g, 0), 255));
-  o[2 * plane] = static_cast<uint8_t>(min(max(bl, 0), 255));
 }
 
 // ---------------------------------------------------------------------
@@ -353,19 +245,6 @@ __device__ __forceinline__ uint32_t sample(int v) {
   return static_cast<uint32_t>(min(max(v + 128, 0), 255));
 }
 
-// Four int32 values saturated to [0, 255] and packed, v0 in the low
-// byte: two cvt.pack.sat (I2IP), each placing sat(a) in bits 8-15, sat(b)
-// in bits 0-7 and c's low half in bits 16-31.
-__device__ __forceinline__ uint32_t pack_sat4(int v0, int v1, int v2,
-                                              int v3) {
-  uint32_t hi, d;
-  asm("cvt.pack.sat.u8.s32.b32 %0, %1, %2, 0;" : "=r"(hi) : "r"(v3), "r"(v2));
-  asm("cvt.pack.sat.u8.s32.b32 %0, %1, %2, %3;"
-      : "=r"(d)
-      : "r"(v1), "r"(v0), "r"(hi));
-  return d;
-}
-
 // Eight row-pass outputs as eight u8 samples (+128, saturated).
 __device__ __forceinline__ uint2 pack8(const int* s) {
   return make_uint2(pack_sat4(s[0] + 128, s[1] + 128, s[2] + 128, s[3] + 128),
@@ -409,6 +288,7 @@ struct DecodeArgs {
   int ybh, ybw, cbh, cbw;
   int true_h, true_w, ch, cw;  // ch, cw: true chroma dims
   int out_h, out_w;
+  fanlin::PackedLut lut;  // jpeg_decode_cmyk_rgb's
 };
 
 // One job of a tile: its block, or null when there is nothing to do.
@@ -566,23 +446,59 @@ __device__ __forceinline__ void chroma16(const uint8_t* c, int cy0, int cx0,
 
 // What a tile stores: RGB (jpeg_decode_rgb); plain CMYK, each plane
 // inverted (255 - sample, PIL's "CMYK;I"); YCCK, C M Y = jdcolor's R G B of
-// (y, cb, cr) and K = 255 - k (jpeg_decode_cmyk).
-enum OutKind { kRgb = 0, kCmyk = 1, kYcck = 2 };
+// (y, cb, cr) and K = 255 - k (jpeg_decode_cmyk); or either CMYK form
+// converted through the packed ICC LUT to RGB (jpeg_decode_cmyk_rgb).
+enum OutKind { kRgb = 0, kCmyk = 1, kYcck = 2, kCmykRgb = 3, kYcckRgb = 4 };
 
-// What zero coefficients decode to, per stored plane: 128 samples give
-// r = g = b = 128; inverted, 127.
-__device__ __forceinline__ uint32_t pad_value(int out, int p) {
-  return out == kRgb ? 128u : (out == kCmyk || p == 3) ? 127u : 128u;
+__host__ __device__ constexpr bool through_lut(int out) {
+  return out == kCmykRgb || out == kYcckRgb;
+}
+// The CMYK form a kind makes before its LUT (the kind itself without one).
+__host__ __device__ constexpr int cmyk_form(int out) {
+  return through_lut(out) ? out - 2 : out;
 }
 
-// The body of both decode kernels, one CTA per tile. At most 64 registers
+// What zero coefficients decode to, per stored plane of a form (kRgb,
+// kCmyk, kYcck): 128 samples give r = g = b = 128; inverted, 127.
+__device__ __forceinline__ uint32_t pad_value(int form, int p) {
+  return form == kRgb ? 128u : (form == kCmyk || p == 3) ? 127u : 128u;
+}
+
+// The R, G, B words of 16 pixels (x .. x + 15) whose CMYK is a constant:
+// `inside` up to true_w, 0 past it. Two evaluations of the LUT.
+__device__ __forceinline__ void lut_constant(uint32_t inside, int x,
+                                             int true_w,
+                                             const fanlin::PackedLut& lut,
+                                             uint32_t (&w)[4][4]) {
+  const uint32_t px[2] = {inside, 0u};
+  int v[2][3];
+  fanlin::lut_pixels(px, lut, [&](int j, int r, int g, int bl) {
+    v[j][0] = min(max(r, 0), 255);
+    v[j][1] = min(max(g, 0), 255);
+    v[j][2] = min(max(bl, 0), 255);
+  });
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[c][i] = 0;
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      w[c][k >> 2] |= static_cast<uint32_t>(v[x + k < true_w ? 0 : 1][c])
+                      << (8 * (k & 3));
+  }
+}
+
+// The body of the decode kernels, one CTA per tile. At most 64 registers
 // per thread for RGB (65,536 per SM hold 1024 / kThreads CTAs), 128 for
-// the four-plane forms.
+// the four-component forms.
 template <int SUBSAMP, int OUT>
 __device__ __forceinline__ void decode_tile(const DecodeArgs& a) {
   constexpr int DV = dv_of(SUBSAMP), DH = dh_of(SUBSAMP);
+  constexpr int FORM = cmyk_form(OUT);
+  constexpr bool kLut = through_lut(OUT);
   constexpr int NL = OUT == kRgb ? 1 : 2;  // luma-rate planes
-  constexpr int NP = OUT == kRgb ? 3 : 4;  // stored planes
+  constexpr int NP = OUT == kRgb ? 3 : 4;  // planes of the colour stage
+  constexpr int NS = kLut ? 3 : NP;        // stored planes
   using T = TilingOf<SUBSAMP, NL>;
   constexpr int kTileH = T::kTileH, kGroups = T::kGroups;
   __shared__ __align__(16) uint8_t s_l[NL][kTileH * kTileW];  // y (, k)
@@ -590,6 +506,8 @@ __device__ __forceinline__ void decode_tile(const DecodeArgs& a) {
   __shared__ __align__(16) int s_q[128];
   __shared__ int s_ws[kGroups][8 * kWsPitch];
   __shared__ Job s_jobs[T::kNEntries];
+  // the tile's CMYK pixels, for the LUT stage
+  __shared__ __align__(16) uint32_t s_px[kLut ? kTileH * kTileW : 1];
   uint8_t* const s_y = s_l[0];
   uint8_t* const s_k = s_l[NL - 1];
 
@@ -674,78 +592,128 @@ __device__ __forceinline__ void decode_tile(const DecodeArgs& a) {
   }
 
   // colour: 16 consecutive pixels of one output row, one 16 B store per
-  // plane
+  // stored plane
   constexpr int kVecs = kTileW / 16;
   const long long plane = static_cast<long long>(a.out_h) * a.out_w;
-  {
-    const int ly = tid / kVecs, lx = (tid % kVecs) * 16;
-    const int y = y0 + ly, x = x0 + lx;
-    if (y >= a.out_h) return;
-    uint32_t w[NP][4] = {};
-    if (!decode || y >= a.true_h || x >= a.true_w) {
-      // the constant of zero coefficients in a padded image's true rect
-      const bool pad = b >= a.n && y < a.true_h;
+  const int ly = tid / kVecs, lx = (tid % kVecs) * 16;
+  const int y = y0 + ly, x = x0 + lx;
+  uint8_t* const o = a.out + static_cast<long long>(b) * NS * plane +
+                     static_cast<long long>(y) * a.out_w + x;
+  // the LUT stage needs every thread of a decoding tile at its barrier
+  const bool barrier = kLut && decode;
+  const bool live = y < a.out_h;
+  if (!live && !barrier) return;
+  uint32_t w[NP][4] = {};
+  if (live && (!decode || y >= a.true_h || x >= a.true_w)) {
+    // the constant of zero coefficients in a padded image's true rect
+    const bool pad = b >= a.n && y < a.true_h;
+    if constexpr (kLut) {
+      uint32_t inside = 0;
 #pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        const uint32_t v = pad ? pad_value(OUT, p) : 0u;
+      for (int p = 0; p < NP; ++p)
+        inside |= (pad ? pad_value(FORM, p) : 0u) << (8 * p);
+      if (!barrier) {
+        uint32_t rgb[4][4];
+        lut_constant(inside, x, a.true_w, a.lut, rgb);
 #pragma unroll
-        for (int k = 0; k < 16; ++k)
-          w[p][k >> 2] |= x + k < a.true_w ? v << (8 * (k & 3)) : 0u;
-      }
-    } else {
-      const uint4 yv =
-          *reinterpret_cast<const uint4*>(s_y + ly * kTileW + lx);
-      const uint32_t yw[4] = {yv.x, yv.y, yv.z, yv.w};
-      int cb[16], cr[16];
-      chroma16<SUBSAMP>(s_c[0], cy0, cx0, a.ch, a.cw, y, x, cb);
-      chroma16<SUBSAMP>(s_c[1], cy0, cx0, a.ch, a.cw, y, x, cr);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {  // four pixels, then one pack per plane
-        int r[4], g[4], bl[4];
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int k = 4 * i + t;
-          const int yy = byte_at(yw, k);
-          if (OUT == kCmyk) {  // samples in [0, 255]: no saturation needed
-            r[t] = 255 - yy;
-            g[t] = 255 - cb[k];
-            bl[t] = 255 - cr[k];
-          } else {
-            const int cbz = cb[k] - 128, crz = cr[k] - 128;
-            r[t] = yy + ((91881 * crz + 32768) >> 16);
-            bl[t] = yy + ((116130 * cbz + 32768) >> 16);
-            g[t] = yy + ((-22554 * cbz + 32768 - 46802 * crz) >> 16);
-          }
-        }
-        w[0][i] = pack_sat4(r[0], r[1], r[2], r[3]);
-        w[1][i] = pack_sat4(g[0], g[1], g[2], g[3]);
-        w[2][i] = pack_sat4(bl[0], bl[1], bl[2], bl[3]);
-      }
-      if constexpr (NP == 4) {  // K = 255 - k, bytewise (no borrows)
-        const uint4 kv =
-            *reinterpret_cast<const uint4*>(s_k + ly * kTileW + lx);
-        w[NP - 1][0] = ~kv.x;
-        w[NP - 1][1] = ~kv.y;
-        w[NP - 1][2] = ~kv.z;
-        w[NP - 1][3] = ~kv.w;
-      }
-      if (x + 16 > a.true_w) {  // the vector that crosses true_w
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int keep = min(max(a.true_w - x - 4 * i, 0), 4);
-          const uint32_t m = keep == 4 ? ~0u : (1u << (8 * keep)) - 1u;
-#pragma unroll
-          for (int p = 0; p < NP; ++p) w[p][i] &= m;
-        }
+        for (int p = 0; p < NS; ++p)
+          *reinterpret_cast<uint4*>(o + p * plane) =
+              make_uint4(rgb[p][0], rgb[p][1], rgb[p][2], rgb[p][3]);
+        return;
       }
     }
-    uint8_t* o = a.out + static_cast<long long>(b) * NP * plane +
-                 static_cast<long long>(y) * a.out_w + x;
 #pragma unroll
-    for (int p = 0; p < NP; ++p)
-      *reinterpret_cast<uint4*>(o + p * plane) =
-          make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
+    for (int p = 0; p < NP; ++p) {
+      const uint32_t v = pad ? pad_value(FORM, p) : 0u;
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        w[p][k >> 2] |= x + k < a.true_w ? v << (8 * (k & 3)) : 0u;
+    }
+  } else if (live) {
+    const uint4 yv = *reinterpret_cast<const uint4*>(s_y + ly * kTileW + lx);
+    const uint32_t yw[4] = {yv.x, yv.y, yv.z, yv.w};
+    int cb[16], cr[16];
+    chroma16<SUBSAMP>(s_c[0], cy0, cx0, a.ch, a.cw, y, x, cb);
+    chroma16<SUBSAMP>(s_c[1], cy0, cx0, a.ch, a.cw, y, x, cr);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // four pixels, then one pack per plane
+      int r[4], g[4], bl[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int k = 4 * i + t;
+        const int yy = byte_at(yw, k);
+        if (FORM == kCmyk) {  // samples in [0, 255]: no saturation needed
+          r[t] = 255 - yy;
+          g[t] = 255 - cb[k];
+          bl[t] = 255 - cr[k];
+        } else {
+          const int cbz = cb[k] - 128, crz = cr[k] - 128;
+          r[t] = yy + ((91881 * crz + 32768) >> 16);
+          bl[t] = yy + ((116130 * cbz + 32768) >> 16);
+          g[t] = yy + ((-22554 * cbz + 32768 - 46802 * crz) >> 16);
+        }
+      }
+      w[0][i] = pack_sat4(r[0], r[1], r[2], r[3]);
+      w[1][i] = pack_sat4(g[0], g[1], g[2], g[3]);
+      w[2][i] = pack_sat4(bl[0], bl[1], bl[2], bl[3]);
+    }
+    if constexpr (NP == 4) {  // K = 255 - k, bytewise (no borrows)
+      const uint4 kv = *reinterpret_cast<const uint4*>(s_k + ly * kTileW + lx);
+      w[NP - 1][0] = ~kv.x;
+      w[NP - 1][1] = ~kv.y;
+      w[NP - 1][2] = ~kv.z;
+      w[NP - 1][3] = ~kv.w;
+    }
+    if (x + 16 > a.true_w) {  // the vector that crosses true_w
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int keep = min(max(a.true_w - x - 4 * i, 0), 4);
+        const uint32_t m = keep == 4 ? ~0u : (1u << (8 * keep)) - 1u;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) w[p][i] &= m;
+      }
+    }
   }
+  if constexpr (kLut) {
+    // stage the CMYK pixels, then 4 rounds of 4 consecutive pixels a
+    // thread over the tile (kThreads * 16 pixels): a warp converts 128
+    // pixels of one row and stores 128 B per plane
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t t[4] = {w[0][i], w[1][i], w[2][i], w[3][i]};
+        fanlin::transpose4(t);
+        *reinterpret_cast<uint4*>(s_px + ly * kTileW + lx + 4 * i) =
+            make_uint4(t[0], t[1], t[2], t[3]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int r = 0; r < 4; ++r) {
+      const int q = (r * T::kThreads + tid) * 4;
+      const int qy = y0 + q / kTileW, qx = x0 + q % kTileW;
+      if (qy >= a.out_h) break;
+      const uint4 v = *reinterpret_cast<const uint4*>(s_px + q);
+      const uint32_t px[4] = {v.x, v.y, v.z, v.w};
+      int rgb[3][4];
+      fanlin::lut_pixels(px, a.lut, [&](int j, int vr, int vg, int vb) {
+        rgb[0][j] = vr;
+        rgb[1][j] = vg;
+        rgb[2][j] = vb;
+      });
+      uint8_t* const d = a.out + static_cast<long long>(b) * NS * plane +
+                         static_cast<long long>(qy) * a.out_w + qx;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        *reinterpret_cast<uint32_t*>(d + c * plane) =
+            pack_sat4(rgb[c][0], rgb[c][1], rgb[c][2], rgb[c][3]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int p = 0; p < NS; ++p)
+    *reinterpret_cast<uint4*>(o + p * plane) =
+        make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
 }
 
 template <int SUBSAMP>
@@ -771,79 +739,24 @@ void launch_decode_rgb(const DecodeArgs& a, int batch, cudaStream_t s) {
 }
 
 template <int SUBSAMP, int OUT>
+__global__ void __launch_bounds__(TilingOf<SUBSAMP, 2>::kThreads,
+                                  512 / TilingOf<SUBSAMP, 2>::kThreads)
+    decode_cmyk_rgb_kernel(DecodeArgs a) {
+  decode_tile<SUBSAMP, OUT>(a);
+}
+
+template <int SUBSAMP, int OUT>
 void launch_decode_cmyk(const DecodeArgs& a, int batch, cudaStream_t s) {
   using T = TilingOf<SUBSAMP, 2>;
   const dim3 grid(a.out_w / kTileW, (a.out_h + T::kTileH - 1) / T::kTileH,
                   batch);
-  decode_cmyk_kernel<SUBSAMP, OUT><<<grid, T::kThreads, 0, s>>>(a);
+  if constexpr (through_lut(OUT))
+    decode_cmyk_rgb_kernel<SUBSAMP, OUT><<<grid, T::kThreads, 0, s>>>(a);
+  else
+    decode_cmyk_kernel<SUBSAMP, OUT><<<grid, T::kThreads, 0, s>>>(a);
 }
 
 }  // namespace
-
-// K3. coef_*: (B, bh, bw, 64) int16, 16-byte aligned; q: (B, 2, 64)
-// int32; out_*: (B, 8 bh, 8 bw) u8, 8-byte aligned. Returns a CUDA error
-// code (0 on success).
-extern "C" int fanlin_jpeg_islow(const int16_t* coef_y, const int16_t* coef_cb,
-                                 const int16_t* coef_cr, const int32_t* q,
-                                 uint8_t* out_y, uint8_t* out_cb,
-                                 uint8_t* out_cr, int batch, int ybh, int ybw,
-                                 int cbh, int cbw, void* stream) {
-  if (batch <= 0 || ybh <= 0 || ybw <= 0 || cbh <= 0 || cbw <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  IslowArgs a;
-  a.coef[0] = coef_y;
-  a.coef[1] = coef_cb;
-  a.coef[2] = coef_cr;
-  a.out[0] = out_y;
-  a.out[1] = out_cb;
-  a.out[2] = out_cr;
-  a.bh[0] = ybh;
-  a.bw[0] = ybw;
-  a.bh[1] = a.bh[2] = cbh;
-  a.bw[1] = a.bw[2] = cbw;
-  a.q = q;
-  const long long ny = static_cast<long long>(batch) * ybh * ybw;
-  const long long nc = static_cast<long long>(batch) * cbh * cbw;
-  a.n0 = ny;
-  a.n1 = ny + nc;
-  a.total = ny + 2 * nc;
-  const int threads = 128;
-  const long long blocks = (a.total + threads - 1) / threads;
-  islow_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K4. y: (B, yh, yw) u8; cb, cr: (B, ch_pad, cw_pad) u8; out: (B, 3,
-// out_h, out_w) u8. subsamp: 420, 422, 440 or 444. Returns a CUDA error
-// code (0 on success).
-extern "C" int fanlin_jpeg_upsample_rgb(const uint8_t* y, const uint8_t* cb,
-                                        const uint8_t* cr, uint8_t* out,
-                                        int batch, int yh, int yw, int ch_pad,
-                                        int cw_pad, int subsamp, int true_h,
-                                        int true_w, int out_h, int out_w,
-                                        void* stream) {
-  const int dv = dv_of(subsamp);
-  const int dh = dh_of(subsamp);
-  UpsampleArgs a{y, cb, cr, out, yh, yw, ch_pad, cw_pad, true_h, true_w,
-                 (true_h + dv - 1) / dv, (true_w + dh - 1) / dh, out_h, out_w};
-  if (batch <= 0 || batch > 65535 || out_h <= 0 || out_h > 65535 ||
-      out_w <= 0 || true_h <= 0 || true_w <= 0 || true_h > out_h ||
-      true_w > out_w || true_h > yh || true_w > yw || a.ch > ch_pad ||
-      a.cw > cw_pad)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256;
-  const dim3 grid((out_w + threads - 1) / threads, out_h, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (subsamp) {
-    case 420: upsample_rgb_kernel<420><<<grid, threads, 0, s>>>(a); break;
-    case 422: upsample_rgb_kernel<422><<<grid, threads, 0, s>>>(a); break;
-    case 440: upsample_rgb_kernel<440><<<grid, threads, 0, s>>>(a); break;
-    case 444: upsample_rgb_kernel<444><<<grid, threads, 0, s>>>(a); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The whole decode of a batch: y, cb, cr (B, bh, bw, 64) int16, 16-byte
 // aligned; q (B, 2, 64) int32, 16-byte aligned; out (B, 3, out_h, out_w)
@@ -881,6 +794,47 @@ extern "C" int fanlin_jpeg_decode_rgb(const int16_t* coef_y,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+int decode_cmyk_entry(const DecodeArgs& a, int batch, int subsamp, int ycck,
+                      bool to_rgb, int tile_h, int tile_w, void* stream) {
+  const int dv = dv_of(subsamp);
+  if (!(subsamp == 444 || (subsamp == 420 && ycck)) ||
+      tile_h != kChromaRows * dv || tile_w != kTileW || batch <= 0 ||
+      batch > 65535 || a.n < 0 || a.n > batch || a.true_h <= 0 ||
+      a.true_w <= 0 || a.true_h > a.out_h || a.true_w > a.out_w ||
+      a.out_w % kTileW || (a.out_h + tile_h - 1) / tile_h > 65535 ||
+      8 * a.ybh < a.true_h || 8 * a.ybw < a.true_w || 8 * a.cbh < a.ch ||
+      8 * a.cbw < a.cw)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (subsamp == 420) {
+    if (to_rgb) launch_decode_cmyk<420, kYcckRgb>(a, batch, s);
+    else launch_decode_cmyk<420, kYcck>(a, batch, s);
+  } else if (ycck) {
+    if (to_rgb) launch_decode_cmyk<444, kYcckRgb>(a, batch, s);
+    else launch_decode_cmyk<444, kYcck>(a, batch, s);
+  } else {
+    if (to_rgb) launch_decode_cmyk<444, kCmykRgb>(a, batch, s);
+    else launch_decode_cmyk<444, kCmyk>(a, batch, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+DecodeArgs cmyk_args(const int16_t* coef_y, const int16_t* coef_cb,
+                     const int16_t* coef_cr, const int16_t* coef_k,
+                     const int32_t* q, uint8_t* out, int n, int ybh, int ybw,
+                     int cbh, int cbw, int subsamp, int true_h, int true_w,
+                     int out_h, int out_w) {
+  const int dv = dv_of(subsamp);
+  const int dh = dh_of(subsamp);
+  return DecodeArgs{{coef_y, coef_cb, coef_cr, coef_k}, q, out, n, ybh, ybw,
+                    cbh, cbw, true_h, true_w, (true_h + dv - 1) / dv,
+                    (true_w + dh - 1) / dh, out_h, out_w};
+}
+
+}  // namespace
+
 // K12a, the 4-component decode: y, cb, cr, k (B, bh, bw, 64) int16, k at
 // y's grid, 16-byte aligned; q (B, 2, 64) int32 (comp0's and K's table,
 // then the chroma table), 16-byte aligned; out (B, 4, out_h, out_w) u8
@@ -893,25 +847,29 @@ extern "C" int fanlin_jpeg_decode_cmyk(
     const int16_t* coef_k, const int32_t* q, uint8_t* out, int batch, int n,
     int ybh, int ybw, int cbh, int cbw, int subsamp, int ycck, int true_h,
     int true_w, int out_h, int out_w, int tile_h, int tile_w, void* stream) {
-  const int dv = dv_of(subsamp);
-  const int dh = dh_of(subsamp);
-  DecodeArgs a{{coef_y, coef_cb, coef_cr, coef_k}, q, out, n, ybh, ybw,
-               cbh, cbw, true_h, true_w, (true_h + dv - 1) / dv,
-               (true_w + dh - 1) / dh, out_h, out_w};
-  if (!(subsamp == 444 || (subsamp == 420 && ycck)) ||
-      tile_h != kChromaRows * dv || tile_w != kTileW || batch <= 0 ||
-      batch > 65535 || n < 0 || n > batch || true_h <= 0 || true_w <= 0 ||
-      true_h > out_h || true_w > out_w || out_w % kTileW ||
-      (out_h + tile_h - 1) / tile_h > 65535 || 8 * ybh < true_h ||
-      8 * ybw < true_w || 8 * cbh < a.ch || 8 * cbw < a.cw)
+  return decode_cmyk_entry(
+      cmyk_args(coef_y, coef_cb, coef_cr, coef_k, q, out, n, ybh, ybw, cbh,
+                cbw, subsamp, true_h, true_w, out_h, out_w),
+      batch, subsamp, ycck, false, tile_h, tile_w, stream);
+}
+
+// K12a and K12b in one launch: as fanlin_jpeg_decode_cmyk, but each
+// pixel's CMYK goes through the LUT in the colour stage and out is (B, 3,
+// out_h, out_w) u8 RGB. lut: pack_lut's (lut_n^4, 4) int32, 16-byte
+// aligned; scale f32((lut_n - 1) / 255). Returns a CUDA error code (0 on
+// success).
+extern "C" int fanlin_jpeg_decode_cmyk_rgb(
+    const int16_t* coef_y, const int16_t* coef_cb, const int16_t* coef_cr,
+    const int16_t* coef_k, const int32_t* q, uint8_t* out, int batch, int n,
+    int ybh, int ybw, int cbh, int cbw, int subsamp, int ycck, int true_h,
+    int true_w, int out_h, int out_w, int tile_h, int tile_w,
+    const int32_t* lut, int lut_n, float scale, void* stream) {
+  if (lut_n < 2 || lut_n > 64 || reinterpret_cast<uintptr_t>(lut) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (subsamp == 420) {
-    launch_decode_cmyk<420, kYcck>(a, batch, s);
-  } else if (ycck) {
-    launch_decode_cmyk<444, kYcck>(a, batch, s);
-  } else {
-    launch_decode_cmyk<444, kCmyk>(a, batch, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  DecodeArgs a = cmyk_args(coef_y, coef_cb, coef_cr, coef_k, q, out, n, ybh,
+                           ybw, cbh, cbw, subsamp, true_h, true_w, out_h,
+                           out_w);
+  a.lut = fanlin::packed_lut(lut, lut_n, scale);
+  return decode_cmyk_entry(a, batch, subsamp, ycck, true, tile_h, tile_w,
+                           stream);
 }

@@ -11,6 +11,11 @@ at a time; the batcher
 * flushes a group when it reaches ``max_batch`` or when its oldest
   entry has waited ``window_ms`` (one scheduler thread, woken on
   demand), so an idle server adds at most one window of latency;
+* lets a request join a flushed batch of its group that the device
+  thread has not picked up yet, up to ``max_batch``: while the device
+  is busy, a burst fills the batches that wait for it instead of
+  queueing one small batch per window (the reference flushes each
+  window's group as a batch of its own);
 * runs each batch in two halves: the device thread stages it and
   submits it on its own CUDA stream (pinned uploads, kernels, pinned
   downloads, an event), and a collect thread waits on the event and
@@ -161,6 +166,9 @@ class MicroBatcher:
         # key -> entries admitted but not yet picked up by the device
         # thread (the backlog max_queue bounds)
         self._backlog: Dict[Tuple, int] = {}
+        # key -> a flushed batch, not full, that the device thread has
+        # not picked up yet: new entries of the group join it
+        self._queued: Dict[Tuple, list] = {}
         self._stream = None
         self._device = ThreadPoolExecutor(
             1, thread_name_prefix="fanlin-device",
@@ -172,7 +180,8 @@ class MicroBatcher:
         self._closed = False
         # observability counters (the gateway's /stats)
         self.stats = {"batches": 0, "images": 0, "full_flushes": 0,
-                      "timer_flushes": 0, "shed_expired": 0,
+                      "timer_flushes": 0, "queued_joins": 0,
+                      "shed_expired": 0,
                       "shed_cancelled": 0, "rejected_overload": 0,
                       "pipeline_depth": self.pipeline_depth,
                       # host->device bytes of the batches' wires
@@ -218,15 +227,23 @@ class MicroBatcher:
                 self.stats["rejected_overload"] += 1
                 raise BatcherOverload(
                     f"group backlog over {self.max_queue} pending entries")
+            self._backlog[key] = self._backlog.get(key, 0) + 1
+            self.stats["backlog"] += 1
+            item = (plan, image, fut, kind, req_deadline, cancel_ev,
+                    time.monotonic())
+            queued = self._queued.get(key)
+            if queued is not None:
+                queued.append(item)
+                self.stats["queued_joins"] += 1
+                if len(queued) >= self.max_batch:
+                    del self._queued[key]
+                return fut
             entry = self._groups.get(key)
             if entry is None:
                 entry = (time.monotonic() + self.window_s, [])
                 self._groups[key] = entry
                 self._wake.notify()  # a new deadline for the scheduler
-            self._backlog[key] = self._backlog.get(key, 0) + 1
-            self.stats["backlog"] += 1
-            entry[1].append((plan, image, fut, kind, req_deadline,
-                             cancel_ev, time.monotonic()))
+            entry[1].append(item)
             if len(entry[1]) >= self.max_batch:
                 flush_now = self._groups.pop(key)[1]
                 self.stats["full_flushes"] += 1
@@ -240,8 +257,17 @@ class MicroBatcher:
         try:
             self._device.submit(self._run_batch, group)
         except RuntimeError as e:
+            with self._lock:
+                self._claim(group)
             for entry in group:
                 _safe_fail(entry[2], e)
+
+    def _claim(self, group) -> None:
+        """Close `group` to new entries (the device thread takes it, or
+        it failed). Called with the lock held."""
+        key = _group_key(group[0][0], group[0][3])
+        if self._queued.get(key) is group:
+            del self._queued[key]
 
     def _flush_loop(self) -> None:
         """Single scheduler: sleep until the earliest group deadline,
@@ -256,7 +282,10 @@ class MicroBatcher:
                 for key in list(self._groups):
                     deadline, _ = self._groups[key]
                     if deadline <= now:
-                        due.append(self._groups.pop(key)[1])
+                        group = self._groups.pop(key)[1]
+                        due.append(group)
+                        if len(group) < self.max_batch:
+                            self._queued[key] = group
                     elif next_deadline is None or deadline < next_deadline:
                         next_deadline = deadline
                 self.stats["timer_flushes"] += len(due)
@@ -300,6 +329,7 @@ class MicroBatcher:
         it on the thread's stream and hand it to the collect thread."""
         key0 = _group_key(group[0][0], group[0][3])
         with self._lock:
+            self._claim(group)  # no entry joins it from here on
             left = self._backlog.get(key0, 0) - len(group)
             if left > 0:
                 self._backlog[key0] = left

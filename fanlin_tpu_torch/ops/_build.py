@@ -4,8 +4,8 @@ Two libraries, each built into `build/kernels/` at the repository
 root, keyed by a hash of its sources and flags, and loaded with ctypes:
 
 * `load()`: the CUDA kernels, `fanlin_tpu_torch/csrc/*.cu` (the
-  resample, the coefficient decodes and the CMYK LUT), compiled with
-  nvcc for sm_90a;
+  resample, the coefficient decodes and the CMYK LUT, with the header
+  `cmyk_lut.cuh` they share), compiled with nvcc for sm_90a;
 * `load_host()`: host code, `csrc/*.cpp` (the JPEG entropy reader and
   encoder), compiled with the host C++ compiler; it needs no CUDA and
   no libjpeg, so it builds wherever a `c++` does.
@@ -45,8 +45,9 @@ DEC_TILE_H, DEC_TILE_W = 16, 128
 
 def nvcc_flags(dec_tile_h: int = DEC_TILE_H) -> tuple:
     """nvcc's arguments, with the decode kernel's tile height given.
-    No --use_fast_math: the split-TF32 residual x - tf32(x) and the
-    rounding epilogue need IEEE f32 (no flush to zero)."""
+    No --use_fast_math: the split-TF32 residual x - tf32(x), the
+    rounding epilogue and the LUT's f32 work need IEEE f32 (no flush to
+    zero)."""
     return ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-Xcompiler", "-fPIC",
             f"-DFANLIN_TILE_M={TILE_M}", f"-DFANLIN_TILE_N={TILE_N}",
@@ -88,12 +89,13 @@ def _start(argv):
                                   stderr=subprocess.STDOUT, text=True)
 
 
-def _target(name: str, pattern: str, flags) -> tuple:
+def _target(name: str, pattern: str, flags, headers: str = "") -> tuple:
     """(sources, library path): the library's name carries a hash of
-    the sources matching `pattern` and of the flags."""
+    the sources matching `pattern`, the headers matching `headers` and
+    the flags."""
     sources = sorted(CSRC.glob(pattern))
     h = hashlib.sha256(" ".join(flags).encode())
-    for src in sources:
+    for src in sources + (sorted(CSRC.glob(headers)) if headers else []):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return sources, BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
@@ -103,7 +105,7 @@ def build(flags: tuple = NVCC_FLAGS) -> Path:
     """Compile the kernel library if this exact source is not built
     yet with these flags; returns its path. Each source compiles in its
     own nvcc process, all started together; one more links them."""
-    sources, lib = _target("fanlin_kernels", "*.cu", flags)
+    sources, lib = _target("fanlin_kernels", "*.cu", flags, "*.cuh")
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -178,10 +180,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, argtypes in (
             ("fanlin_resample_uniform", [p] * 13 + [i] * 10 + [p]),
-            ("fanlin_jpeg_islow", [p] * 7 + [i] * 5 + [p]),
-            ("fanlin_jpeg_upsample_rgb", [p] * 4 + [i] * 10 + [p]),
             ("fanlin_jpeg_decode_rgb", [p] * 5 + [i] * 13 + [p]),
             ("fanlin_jpeg_decode_cmyk", [p] * 6 + [i] * 14 + [p]),
+            ("fanlin_jpeg_decode_cmyk_rgb", [p] * 6 + [i] * 14
+             + [p, i, ctypes.c_float, p]),
             ("fanlin_cmyk_lut", [p] * 3 + [i] + [ll] * 7 + [i]
              + [ctypes.c_float, p])):
         fn = getattr(lib, name)

@@ -3,9 +3,12 @@
 Port of fanlin_tpu/ops/cmyk_lut.py. A CMYK ICC profile is CLUT-based,
 so the lcms2 transform is sampled once onto an n^4 grid (n = 17: 83,521
 entries, 1.0 MB as f32) and pixels are evaluated by quadrilinear
-interpolation, 16 corners each. `lut_planes` is the plain torch version
-of the K12b kernel (`ops.cmyk_lut_kernels`, `csrc/cmyk_lut.cu`), with the
-JAX function's f32 operations in its order; `DeviceCmykTransform` holds
+interpolation, 16 corners each. `lut_planes` is the plain torch version,
+the JAX function's f32 operations in its order. The kernels
+(`ops.cmyk_lut_kernels`, `csrc/cmyk_lut.cu`, and the CMYK decode that
+converts in its colour stage) read the LUT packed by `pack_lut`, u8
+samples four entries to a 16 B row; `lut_planes_packed` is their order
+of work in torch, bit-equal to `lut_planes`. `DeviceCmykTransform` holds
 one sampled LUT for a device and converts pixels through the kernel.
 """
 
@@ -70,6 +73,60 @@ def lut_planes(c, m, y, k, lut_flat: torch.Tensor, n: int):
     return tuple(torch.clamp(torch.floor(a + 0.5), 0, 255) for a in acc)
 
 
+def pack_lut(lut_flat, n: int) -> torch.Tensor:
+    """The (n^4, 3) LUT as the kernels read it: a contiguous (n^4, 4)
+    int32 tensor, row e holding the words of entries e, e + 1, e + n and
+    e + n + 1 (the corners the K and Y bits select), each word R | G << 8
+    | B << 16. Rows whose Y or K level is n - 1 are never a base (lo
+    clamps to n - 2) and hold zeros. lut_flat: a float32 array or tensor
+    of integers in [0, 255], as `sample_lut` gives; anything else raises
+    ValueError (the kernels have no f32 form to fall back on)."""
+    t = torch.as_tensor(lut_flat)
+    if t.dtype != _F32 or tuple(t.shape) != (n ** 4, 3) or n < 2:
+        raise ValueError(f"lut: expected an ({n ** 4}, 3) float32 LUT with "
+                         f"n >= 2, got {tuple(t.shape)} {t.dtype}, n={n}")
+    t = t.cpu()
+    if not (torch.equal(t, torch.floor(t)) and bool((t >= 0).all())
+            and bool((t <= 255).all())):
+        raise ValueError("lut: samples must be integers in [0, 255]")
+    v = t.to(torch.int32)
+    words = v[:, 0] | (v[:, 1] << 8) | (v[:, 2] << 16)
+    grid = torch.nn.functional.pad(words.reshape(n, n, n, n), (0, 1, 0, 1))
+    rows = torch.stack([grid[:, :, :n, :n], grid[:, :, :n, 1:],
+                        grid[:, :, 1:, :n], grid[:, :, 1:, 1:]], dim=-1)
+    rows[:, :, n - 1] = 0
+    rows[:, :, :, n - 1] = 0
+    return rows.reshape(n ** 4, 4).contiguous()
+
+
+def lut_planes_packed(c, m, y, k, packed: torch.Tensor, n: int):
+    """`lut_planes` in the kernels' order of work, on the packed LUT:
+    the same f32 operations, each rounded on its own, so the same bits.
+    The four rows of the C and M corners (bases base, + n^3, + n^2, + n^3
+    + n^2) are gathered first; the weights are built as shared prefixes,
+    f0 * f1 (4 products), then * f2 (8) and * f3 (16), each the same left
+    to right product as lut_planes's; corners 0..15 accumulate in order,
+    corner c's sample the word 2 * (bit 2) + (bit 3) of row c & 3."""
+    scale = lut_scale(n).to(c.device)
+    comps = [v.to(_F32) * scale for v in (c, m, y, k)]
+    lo = [torch.clamp(torch.floor(v).to(torch.int32), 0, n - 2) for v in comps]
+    frac = [v - lv.to(_F32) for v, lv in zip(comps, lo)]
+    f = [(1.0 - fr, fr) for fr in frac]  # f[i][bit]
+    base = ((lo[0] * n + lo[1]) * n + lo[2]) * n + lo[3]
+    rows = [packed[(base + n ** 3 * (r & 1) + n ** 2 * (r >> 1)).to(
+        torch.int64)] for r in range(4)]
+    p01 = [f[0][j & 1] * f[1][j >> 1] for j in range(4)]
+    p012 = [p01[j & 3] * f[2][j >> 2] for j in range(8)]
+    w = [p012[j & 7] * f[3][j >> 3] for j in range(16)]
+    acc = [0.0, 0.0, 0.0]
+    for corner in range(16):
+        word = rows[corner & 3][..., 2 * ((corner >> 2) & 1) + (corner >> 3)]
+        for ch in range(3):
+            sample = ((word >> (8 * ch)) & 0xFF).to(_F32)
+            acc[ch] = acc[ch] + w[corner] * sample
+    return tuple(torch.clamp(torch.floor(a + 0.5), 0, 255) for a in acc)
+
+
 class DeviceCmykTransform:
     """One sampled ICC LUT for a device: `convert` evaluates (H, W, 4) u8
     CMYK pixels through the K12b kernel on CUDA (its plain version on
@@ -77,10 +134,11 @@ class DeviceCmykTransform:
 
     `lut` is the (n, n, n, n, 3) grid of `sample_lut` or its (n^4, 3) f32
     form; `lut_np` keeps the latter, the very array when it is given so.
-    The LUT's one device copy is the one `fused._device_cached` holds for
-    `lut_np`: the coefficient route, whose metas carry the same array,
-    reads that copy too. It is made here, so a failed upload raises at
-    once. The JAX package uploads lazily under a lock, because a direct
+    The LUT's one device copy is the packed one `fused._device_packed_lut`
+    holds for `lut_np`: the coefficient route, whose metas carry the same
+    array, reads that copy too. It is made here, so a LUT that does not
+    pack (not integers in [0, 255]) or a failed upload raises at once.
+    The JAX package uploads lazily under a lock, because a direct
     device_put there can hang on a wedged accelerator link; the port has
     no such link."""
 
@@ -96,9 +154,9 @@ class DeviceCmykTransform:
         self._lut()
 
     def _lut(self) -> torch.Tensor:
-        from .fused import _device_cached
+        from .fused import _device_packed_lut
 
-        return _device_cached(self.lut_np, self.device)
+        return _device_packed_lut(self.lut_np, self.n, self.device)
 
     def convert(self, cmyk: np.ndarray) -> np.ndarray:
         """(H, W, 4) u8 CMYK -> (H, W, 3) u8 RGB on the transform's

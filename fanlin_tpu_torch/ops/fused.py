@@ -21,13 +21,13 @@ runs on plain host arrays with no event.
 Routing: a coefficient batch is decoded on the device by the decode
 kernel (`jpeg_decode_kernels.jpeg_decode_rgb`), which writes the same
 (B, 3, SH, SW) u8 batch a pixel upload would give; a CMYK one by
-`jpeg_decode_cmyk` and the LUT kernel `cmyk_lut_kernels.cmyk_lut`,
-which write the same batch. Every uniform batch
-of opaque (3-channel) sources then goes through the hand-written CUDA
-resample kernel (`resample_kernels.resample_uniform`), whatever its
-encode tail; the kernel writes 3 channels and a constant 255 alpha
-plane is appended where the batch downloads 4. Alpha sources, GIF
-frames and non-uniform batches run the torch chain of `ops.chain`.
+`jpeg_decode_cmyk_rgb`, the 4-component decode that converts through the
+packed ICC LUT in its colour stage, which writes the same batch. Every
+uniform batch of opaque (3-channel) sources then goes through the hand-
+written CUDA resample kernel (`resample_kernels.resample_uniform`),
+whatever its encode tail; the kernel writes 3 channels and a constant
+255 alpha plane is appended where the batch downloads 4. Alpha sources,
+GIF frames and non-uniform batches run the torch chain of `ops.chain`.
 """
 
 from __future__ import annotations
@@ -38,8 +38,8 @@ import numpy as np
 import torch
 
 from ..utils.bytelru import ByteLRU
-from . import (cmyk_lut_kernels, dct, filters, jpeg_decode,
-               jpeg_decode_kernels, resample_kernels)
+from . import (cmyk_lut, dct, filters, jpeg_decode, jpeg_decode_kernels,
+               resample_kernels)
 from .chain import _transform_kernel, _transform_kernel_uniform
 from .plan import (_pack_params, _uniform_bands, _uniform_padded, bucket_b,
                    bucket_h, bucket_h16, bucket_w, plan_image)
@@ -197,6 +197,23 @@ def _device_cached(arr, device: torch.device):
         # an eviction must not free it under another stream's reads
         dev.record_stream(torch.cuda.current_stream(device))
     return dev
+
+
+# The packed form (cmyk_lut.pack_lut) of each f32 LUT array the metas and
+# DeviceCmykTransform carry, on the host, keyed like _device_cached by
+# the array's identity; its device copy is _device_cached's.
+_PACKED_LUT_CACHE = ByteLRU(max_bytes=64 * 1024 * 1024)
+
+
+def _device_packed_lut(arr: np.ndarray, n: int, device: torch.device):
+    key = id(arr)
+    hit = _PACKED_LUT_CACHE.get(key)
+    if hit is not None and hit[0] is arr:
+        packed = hit[1]
+    else:
+        packed = cmyk_lut.pack_lut(arr, n).numpy()
+        _PACKED_LUT_CACHE.put(key, (arr, packed), packed.nbytes)
+    return _device_cached(packed, device)
 
 
 class _Transfer:
@@ -500,15 +517,16 @@ class CmykCoefBatchAssembly(CoefBatchAssembly):
     """Host staging for one device batch of 4-component (CMYK / YCCK)
     JPEG coefficient sources: the host half of fanlin_tpu/ops/fused.py
     CmykCoefBatchAssembly (:2169-2366). The wire adds comp3's (K) block
-    grid at the luma grid; on the device the 4-component decode
-    (`jpeg_decode_cmyk`, K12a) and the sampled ICC LUT (`cmyk_lut`,
-    K12b) make the (B, 3, sh, sw) u8 batch that every sink of
-    CoefBatchAssembly then takes.
+    grid at the luma grid; on the device one kernel
+    (`jpeg_decode_cmyk_rgb`: the 4-component decode with the sampled ICC
+    LUT in its colour stage) makes the (B, 3, sh, sw) u8 batch that every
+    sink of CoefBatchAssembly then takes.
 
     The LUT travels with the metas (`lut_flat` (n^4, 3) f32, `lut_n`,
     `lut_key`: "" for the Engine's default profile, the profile's hash
     for an embedded one), so the port keeps no process-wide LUT; a batch
-    holds one LUT, and its device copy is cached by the array's identity.
+    holds one LUT, and its packed device copy is cached by the array's
+    identity.
     As in the reference there is no folded variant (the LUT is not
     linear)."""
 
@@ -534,14 +552,14 @@ class CmykCoefBatchAssembly(CoefBatchAssembly):
         super().__init__(plans, metas, device, jpeg420)
 
     def _device_x(self):
-        """Upload the block grids, decode them to CMYK and convert them
-        through the LUT on the device: (B, 3, sh, sw) u8."""
-        y, cb, cr, k, q = self.device_wire()
-        cmyk = jpeg_decode_kernels.jpeg_decode_cmyk(
-            y, cb, cr, k, q, self.subsamp, self.ycck, self.true_h,
-            self.true_w, self.sh, self.sw, len(self.plans))
-        return cmyk_lut_kernels.cmyk_lut(
-            cmyk, _device_cached(self.lut_flat, self.device), self.lut_n)
+        """Upload the block grids, then decode them and convert them
+        through the packed LUT on the device in one launch: (B, 3, sh, sw)
+        u8."""
+        return jpeg_decode_kernels.jpeg_decode_cmyk_rgb(
+            *self.device_wire(),
+            _device_packed_lut(self.lut_flat, self.lut_n, self.device),
+            self.lut_n, self.subsamp, self.ycck, self.true_h, self.true_w,
+            self.sh, self.sw, len(self.plans))
 
 
 _COEF_KINDS = ("coef", "coef444", "coef422", "coef440")

@@ -12,23 +12,29 @@ at the true chroma dims and jdcolor's conversion inside the true
 bucket padding: they decode as zero coefficients do, 128 inside the true
 rect, and their wire is never read.
 
-`jpeg_decode_cmyk` (K12a, the same source) is its 4-component form: y,
-cb, cr and k (B, bh, bw, 64) int16 blocks, k at y's grid, -> (B, 4,
-out_h, out_w) u8 CMYK in PIL's convention (plain CMYK inverted; YCCK as
-jdcolor's RGB and an inverted K), for `cmyk_lut_kernels.cmyk_lut`
-(K12b) to convert; it replaces the XLA prologue decode_cmyk of
-fanlin_tpu/ops/fused.py:908 get_cmyk_coef_program.
+`jpeg_decode_cmyk_rgb` (the same source) is the CMYK coefficient
+route's kernel: y, cb, cr and k (B, bh, bw, 64) int16 blocks, k at y's
+grid, and a LUT packed by `cmyk_lut.pack_lut` -> (B, 3, out_h, out_w) u8
+RGB. It decodes four components to CMYK in PIL's convention (plain CMYK
+inverted; YCCK as jdcolor's RGB and an inverted K) and converts each
+pixel through the sampled ICC LUT in its colour stage: the XLA program
+fanlin_tpu/ops/fused.py:908 get_cmyk_coef_program's decode_cmyk and
+lut_planes in one launch. `jpeg_decode_cmyk` (K12a) is its decode alone,
+(B, 4, out_h, out_w) u8 CMYK, which `cmyk_lut_kernels.cmyk_lut` (K12b)
+converts; nothing on the serving path launches it any more, and it
+stays as the yardstick the fused kernel is timed against. The plain
+version of the fused kernel is the composition of theirs.
 
-K3 `jpeg_islow` (blocks -> the three u8 sample planes (B, 8*bh, 8*bw))
-and K4 `jpeg_upsample_rgb` (the planes -> RGB) are its first form, two
-launches with the planes in device memory. Nothing on the serving path
-launches them; they stay as the yardstick the fused kernel is timed
-against, and their plain versions compose its plain version.
+`jpeg_islow_ref` and `jpeg_upsample_rgb_ref` (the dequant + islow iDCT
+of the three block grids to u8 planes, and those planes to RGB) compose
+`jpeg_decode_rgb_ref`.
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it
-runs its plain torch version, built from `ops.jpeg_decode`. There is no
-fallback: a failed build or launch raises. All are integer work,
-bit-exact against the plain versions.
+runs its plain torch version, built from `ops.jpeg_decode` (and, for the
+LUT, the kernel's order of work, `cmyk_lut.lut_planes_packed`). There is
+no fallback: a failed build or launch raises. The decodes are integer
+work and the LUT's f32 operations are rounded one by one as the plain
+version's, so every kernel is bit-exact against its plain version.
 """
 
 from __future__ import annotations
@@ -37,9 +43,10 @@ import threading
 
 import torch
 
-from . import _build
-from ._build import DEC_TILE_H, DEC_TILE_W
+from . import _build, cmyk_lut_kernels
 from . import jpeg_decode as jd
+from ._build import DEC_TILE_H, DEC_TILE_W
+from .cmyk_lut import lut_scale
 
 _U8 = torch.uint8
 _I16 = torch.int16
@@ -48,8 +55,8 @@ _I32 = torch.int32
 # Launches of each CUDA kernel. Incremented only where the kernel is
 # launched; the CPU path and the plain versions never count.
 _COUNT_LOCK = threading.Lock()
-_LAUNCHES = {"jpeg_decode_rgb": 0, "jpeg_islow": 0,
-             "jpeg_upsample_rgb": 0, "jpeg_decode_cmyk": 0}
+_LAUNCHES = {"jpeg_decode_rgb": 0, "jpeg_decode_cmyk": 0,
+             "jpeg_decode_cmyk_rgb": 0}
 
 
 def decode_tile(subsamp: int) -> tuple:
@@ -90,42 +97,10 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def jpeg_islow(y, cb, cr, q):
-    """K3: dequant + islow iDCT of the three block grids of a batch, in
-    one launch on CUDA. Returns (y, cb, cr) u8 planes."""
-    dev = y.device
-    for t, name in ((y, "y"), (cb, "cb"), (cr, "cr")):
-        _check(t, name, _I16, 4, dev, 16)
-        if t.shape[-1] != 64 or t.shape[0] != y.shape[0]:
-            raise ValueError(f"{name}: expected (B, bh, bw, 64)")
-    if cb.shape != cr.shape:
-        raise ValueError("cb and cr: shapes differ")
-    b = y.shape[0]
-    _check(q, "q", _I32, 3, dev, 4)
-    if tuple(q.shape) != (b, 2, 64):
-        raise ValueError(f"q: expected {(b, 2, 64)}, got {tuple(q.shape)}")
-    if dev.type == "cpu":
-        return jpeg_islow_ref(y, cb, cr, q)
-    if dev.type != "cuda":
-        raise ValueError(f"jpeg_islow: unsupported device {dev}")
-    lib = _build.load()
-    _, ybh, ybw, _ = y.shape
-    _, cbh, cbw, _ = cb.shape
-    outs = [torch.empty((b, 8 * bh, 8 * bw), dtype=_U8, device=dev)
-            for bh, bw in ((ybh, ybw), (cbh, cbw), (cbh, cbw))]
-    with torch.cuda.device(dev):
-        rc = lib.fanlin_jpeg_islow(
-            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), q.data_ptr(),
-            *(o.data_ptr() for o in outs), b, ybh, ybw, cbh, cbw,
-            _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"jpeg_islow launch failed: CUDA error {rc}")
-    _count("jpeg_islow")
-    return tuple(outs)
-
-
 def jpeg_islow_ref(y, cb, cr, q):
-    """Plain torch version of K3, on any device."""
+    """Dequant + islow iDCT of the three (B, bh, bw, 64) block grids of a
+    batch with q (B, 2, 64): their (B, 8 bh, 8 bw) u8 sample planes, on
+    any device."""
     outs = []
     for plane, blocks in enumerate((y, cb, cr)):
         dc, ac = jd.blocks_to_planar(blocks)
@@ -134,52 +109,11 @@ def jpeg_islow_ref(y, cb, cr, q):
     return tuple(outs)
 
 
-def _upsample_args(yp, cbp, crp, subsamp, true_h, true_w, out_h, out_w):
-    dev = yp.device
-    for t, name in ((yp, "y"), (cbp, "cb"), (crp, "cr")):
-        _check(t, name, _U8, 3, dev, 1)
-    if cbp.shape != crp.shape or cbp.shape[0] != yp.shape[0]:
-        raise ValueError("cb and cr: expected one (B, ch, cw) shape")
-    if subsamp not in (420, 422, 440, 444):
-        raise ValueError(f"subsamp {subsamp}: expected 420, 422, 440 or 444")
-    dv, dh = jd.chroma_divisors(subsamp)
-    if not (0 < true_h <= min(out_h, yp.shape[1])
-            and 0 < true_w <= min(out_w, yp.shape[2])
-            and -(-true_h // dv) <= cbp.shape[1]
-            and -(-true_w // dh) <= cbp.shape[2]):
-        raise ValueError(f"true dims {(true_h, true_w)} do not fit the planes "
-                         f"{tuple(yp.shape)}, {tuple(cbp.shape)} or the "
-                         f"output {(out_h, out_w)}")
-
-
-def jpeg_upsample_rgb(yp, cbp, crp, subsamp: int, true_h: int, true_w: int,
-                      out_h: int, out_w: int):
-    """K4: the u8 planes of jpeg_islow -> (B, 3, out_h, out_w) u8 RGB,
-    zero outside the true rect."""
-    _upsample_args(yp, cbp, crp, subsamp, true_h, true_w, out_h, out_w)
-    dev = yp.device
-    if dev.type == "cpu":
-        return jpeg_upsample_rgb_ref(yp, cbp, crp, subsamp, true_h, true_w,
-                                     out_h, out_w)
-    if dev.type != "cuda":
-        raise ValueError(f"jpeg_upsample_rgb: unsupported device {dev}")
-    lib = _build.load()
-    b = yp.shape[0]
-    out = torch.empty((b, 3, out_h, out_w), dtype=_U8, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.fanlin_jpeg_upsample_rgb(
-            yp.data_ptr(), cbp.data_ptr(), crp.data_ptr(), out.data_ptr(), b,
-            yp.shape[1], yp.shape[2], cbp.shape[1], cbp.shape[2], subsamp,
-            true_h, true_w, out_h, out_w, _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"jpeg_upsample_rgb launch failed: CUDA error {rc}")
-    _count("jpeg_upsample_rgb")
-    return out
-
-
 def jpeg_upsample_rgb_ref(yp, cbp, crp, subsamp: int, true_h: int,
                           true_w: int, out_h: int, out_w: int):
-    """Plain torch version of K4, on any device."""
+    """The u8 planes of jpeg_islow_ref -> (B, 3, out_h, out_w) u8 RGB:
+    the layout's fancy upsample at the true chroma dims and jdcolor's
+    conversion inside the true rect, zero outside it. Any device."""
     y = yp[:, :true_h, :true_w].to(_I32)
     cb = jd.upsample_chroma(cbp.to(_I32), subsamp, true_h, true_w)
     cr = jd.upsample_chroma(crp.to(_I32), subsamp, true_h, true_w)
@@ -240,9 +174,10 @@ def jpeg_decode_rgb(y, cb, cr, q, subsamp: int, true_h: int, true_w: int,
 
 def jpeg_decode_rgb_ref(y, cb, cr, q, subsamp: int, true_h: int, true_w: int,
                         out_h: int, out_w: int, n: int):
-    """Plain torch version of jpeg_decode_rgb, on any device: K3's and
-    K4's plain versions composed, then images i >= n set to what zero
-    coefficients decode to (128 inside the true rect, 0 outside)."""
+    """Plain torch version of jpeg_decode_rgb, on any device:
+    jpeg_islow_ref and jpeg_upsample_rgb_ref composed, then images i >= n
+    set to what zero coefficients decode to (128 inside the true rect, 0
+    outside)."""
     rgb = jpeg_upsample_rgb_ref(*jpeg_islow_ref(y, cb, cr, q), subsamp,
                                 true_h, true_w, out_h, out_w)
     if n < rgb.shape[0]:
@@ -316,3 +251,50 @@ def jpeg_decode_cmyk_ref(y, cb, cr, k, q, subsamp: int, ycck: bool,
         for p, v in enumerate(_CMYK_PAD[bool(ycck)]):
             out[n:, p, :true_h, :true_w] = v
     return out
+
+
+def jpeg_decode_cmyk_rgb(y, cb, cr, k, q, lut, lut_n: int, subsamp: int,
+                         ycck: bool, true_h: int, true_w: int, out_h: int,
+                         out_w: int, n: int):
+    """The 4-component decode of a batch converted through the packed ICC
+    LUT (lut: pack_lut's (lut_n^4, 4) int32 on the grids' device): block
+    grids -> (B, 3, out_h, out_w) u8 RGB, every pixel converted (LUT(0)
+    outside the true rect); images i >= n decode as zero coefficients.
+    One launch on CUDA."""
+    _decode_cmyk_args(y, cb, cr, k, q, subsamp, ycck, true_h, true_w, out_h,
+                      out_w, n)
+    dev = y.device
+    cmyk_lut_kernels.check_packed(lut, lut_n, dev)
+    if dev.type == "cpu":
+        return cmyk_lut_kernels.cmyk_lut_packed_ref(
+            jpeg_decode_cmyk_ref(y, cb, cr, k, q, subsamp, ycck, true_h,
+                                 true_w, out_h, out_w, n), lut, lut_n)
+    if dev.type != "cuda":
+        raise ValueError(f"jpeg_decode_cmyk_rgb: unsupported device {dev}")
+    lib = _build.load()
+    b, ybh, ybw, _ = y.shape
+    _, cbh, cbw, _ = cb.shape
+    out = torch.empty((b, 3, out_h, out_w), dtype=_U8, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fanlin_jpeg_decode_cmyk_rgb(
+            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), k.data_ptr(),
+            q.data_ptr(), out.data_ptr(), b, n, ybh, ybw, cbh, cbw, subsamp,
+            int(bool(ycck)), true_h, true_w, out_h, out_w,
+            *decode_tile(subsamp), lut.data_ptr(), lut_n,
+            float(lut_scale(lut_n)), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(
+            f"jpeg_decode_cmyk_rgb launch failed: CUDA error {rc}")
+    _count("jpeg_decode_cmyk_rgb")
+    return out
+
+
+def jpeg_decode_cmyk_rgb_ref(y, cb, cr, k, q, lut, lut_n: int, subsamp: int,
+                             ycck: bool, true_h: int, true_w: int, out_h: int,
+                             out_w: int, n: int):
+    """Plain torch version of jpeg_decode_cmyk_rgb, on any device, on the
+    f32 LUT ((lut_n^4, 3) on the grids' device): cmyk_lut_ref of
+    jpeg_decode_cmyk_ref."""
+    return cmyk_lut_kernels.cmyk_lut_ref(
+        jpeg_decode_cmyk_ref(y, cb, cr, k, q, subsamp, ycck, true_h, true_w,
+                             out_h, out_w, n), lut, lut_n)

@@ -163,6 +163,53 @@ def test_pipeline_overlaps_submit_and_collect(monkeypatch):
     assert submits[1] < ends[0], (submits, ends)
 
 
+def test_entries_join_a_batch_the_device_thread_has_not_taken(monkeypatch):
+    """While the device thread is busy, entries of a group join its
+    flushed batch that waits for the device thread, up to max_batch,
+    instead of queueing a batch per window; the batch they fill is
+    closed to more."""
+    release = threading.Event()
+    real = fused.make_assembly
+    calls = []
+
+    def blocking(plans, *a, **k):
+        calls.append(len(plans))
+        if len(calls) == 1:
+            assert release.wait(JOIN_S)
+        return real(plans, *a, **k)
+
+    monkeypatch.setattr(fused, "make_assembly", blocking)
+    b = MicroBatcher(max_batch=4, window_ms=1.0, device=CPU)
+    img = _rgba(make_test_image(64, 64))
+    q1, q2 = parse_query("w=32&h=32"), parse_query("w=48&h=24")
+    p1 = plan_mod.plan_image(64, 64, q1)
+    p2 = plan_mod.plan_image(64, 64, q2)
+    try:
+        futs = [b.submit(p1, img)]  # the device thread blocks on it
+        deadline = time.monotonic() + JOIN_S
+        while not calls and time.monotonic() < deadline:
+            time.sleep(0.001)
+        futs.append(b.submit(p2, img))  # flushed, then waits
+        while (b.stats["timer_flushes"] < 2
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        assert b.stats["timer_flushes"] == 2
+        futs += [b.submit(p2, img) for _ in range(4)]
+        assert b.stats["queued_joins"] == 3
+        release.set()
+        outs = [f.result(timeout=JOIN_S) for f in futs]
+    finally:
+        release.set()
+        assert b.close()
+    # the blocker, then the waiting batch filled to 4, then the fifth
+    assert calls == [1, 4, 1]
+    assert b.stats["batches"] == 3 and b.stats["images"] == 6
+    assert b.stats["backlog"] == 0
+    np.testing.assert_array_equal(outs[0], _single(img, q1))
+    for out in outs[1:]:
+        np.testing.assert_array_equal(out, _single(img, q2))
+
+
 def test_expired_entries_are_shed_before_device_work(monkeypatch):
     calls = []
 

@@ -244,6 +244,24 @@ def test_padding_past_the_true_rect_has_zero_weight():
                                                        CPU).run()[0])
 
 
+@pytest.mark.parametrize("where", ["coef", "transform"])
+def test_non_integer_lut_raises(where):
+    """A LUT that is not integers in [0, 255] does not pack: the
+    coefficient route's batch and DeviceCmykTransform raise ValueError,
+    with no f32 form to fall back on."""
+    lut = _lut().reshape(-1, 3).astype(np.float32)
+    lut[123, 1] = 127.5
+    if where == "transform":
+        with pytest.raises(ValueError, match="integers"):
+            tlut.DeviceCmykTransform(lut, CPU)
+        return
+    meta = read_jpeg_coeffs4(cmyk_jpeg(120, 88, seed=1))
+    meta.update(lut_flat=lut, lut_n=17, lut_key="")
+    plan = tplan.plan_image(120, 88, parse_query(QS), opaque=True)
+    with pytest.raises(ValueError, match="integers"):
+        tfused.make_assembly([plan], [meta], ["cmyk444"], CPU).run()
+
+
 def test_mixed_profiles_in_one_batch_raise():
     plan = tplan.plan_image(120, 88, parse_query(QS), opaque=True)
     a = _meta(cmyk_jpeg(120, 88, seed=1), _lut(0))
@@ -399,12 +417,14 @@ def _rotated_cmyk(icc=None):
 @pytest.mark.parametrize("route", ["pixels", "pixels_embedded", "coef"])
 @pytest.mark.parametrize("fault", ["kernel", "upload"])
 def test_engine_device_icc_failure_raises(monkeypatch, route, fault):
-    """With device ICC a failure of the K12b wrapper or of the LUT's
-    upload raises out of process_image, on the pixel route (an
-    EXIF-rotated source, with the default or an embedded profile) and on
-    the coefficient route: no request is answered with Pillow's plain
+    """With device ICC a failure of the LUT kernel's wrapper (K12b on the
+    pixel route, the fused decode on the coefficient route) or of the
+    packed LUT's upload raises out of process_image, on the pixel route
+    (an EXIF-rotated source, with the default or an embedded profile) and
+    on the coefficient route: no request is answered with Pillow's plain
     CMYK->RGB."""
     from fanlin_tpu_torch.ops import cmyk_lut_kernels as lk
+    from fanlin_tpu_torch.ops import jpeg_decode_kernels as jk
 
     embedded = make_cmyk_profile(1)
     t = Engine(CPU, cmyk2rgb=ticc.CMYK2RGB.with_icc_profile(
@@ -417,9 +437,10 @@ def test_engine_device_icc_failure_raises(monkeypatch, route, fault):
     def fail(*args, **kwargs):
         raise RuntimeError("injected")
 
-    if fault == "kernel":
-        name = "cmyk_lut" if route == "coef" else "cmyk_lut_pixels"
-        monkeypatch.setattr(lk, name, fail)
+    if fault == "kernel" and route == "coef":
+        monkeypatch.setattr(jk, "jpeg_decode_cmyk_rgb", fail)
+    elif fault == "kernel":
+        monkeypatch.setattr(lk, "cmyk_lut_pixels", fail)
     else:
         monkeypatch.setattr(tfused, "_device_cached", fail)
     with pytest.raises(RuntimeError, match="injected"):

@@ -302,19 +302,20 @@ def test_lut_pixels_matches_jax_program():
 
 
 def test_lut_kernel_cpu_paths_agree():
-    """cmyk_lut on planes and cmyk_lut_pixels on the same pixels give
-    the same bytes, and equal the plain version; no launch is counted on
-    the CPU."""
+    """cmyk_lut on planes and cmyk_lut_pixels on the same pixels, given
+    the packed LUT, give the same bytes, and equal the plain version on
+    the f32 LUT; no launch is counted on the CPU."""
     px = _planes((2, 23, 31), seed=5)
     flat = torch.from_numpy(_lut(1).reshape(-1, 3).astype(np.float32))
+    packed = tlut.pack_lut(flat, 17)
     planes = torch.from_numpy(px).permute(0, 3, 1, 2).contiguous()
     lk.reset_launch_counts()
-    a = lk.cmyk_lut(planes, flat, 17)
+    a = lk.cmyk_lut(planes, packed, 17)
     assert a.shape == (2, 3, 23, 31) and a.dtype == torch.uint8
     np.testing.assert_array_equal(a.numpy(), lk.cmyk_lut_ref(planes, flat,
                                                              17).numpy())
     for i in range(2):
-        b = lk.cmyk_lut_pixels(torch.from_numpy(px[i]), flat, 17)
+        b = lk.cmyk_lut_pixels(torch.from_numpy(px[i]), packed, 17)
         np.testing.assert_array_equal(b.numpy(),
                                       a[i].permute(1, 2, 0).numpy())
     assert lk.launch_counts() == {"cmyk_lut": 0}
@@ -334,10 +335,10 @@ def test_lut_grid_points_interpolate_to_themselves():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "channels", "lut_shape",
-                                 "lut_dtype", "device", "n"])
+                                 "lut_dtype", "lut_f32", "device", "n"])
 def test_lut_wrapper_rejects_bad_arguments(bad):
     x = torch.zeros((1, 4, 8, 8), dtype=torch.uint8)
-    lut = torch.zeros((17 ** 4, 3), dtype=torch.float32)
+    lut = torch.zeros((17 ** 4, 4), dtype=torch.int32)
     n = 17
     if bad == "dtype":
         x = x.to(torch.int32)
@@ -346,7 +347,9 @@ def test_lut_wrapper_rejects_bad_arguments(bad):
     elif bad == "lut_shape":
         lut = lut[:100].contiguous()
     elif bad == "lut_dtype":
-        lut = lut.double()
+        lut = lut.to(torch.int64)
+    elif bad == "lut_f32":  # the f32 LUT, not packed
+        lut = torch.zeros((17 ** 4, 3), dtype=torch.float32)
     elif bad == "device":
         lut = lut.to("meta")
     else:
@@ -356,16 +359,19 @@ def test_lut_wrapper_rejects_bad_arguments(bad):
 
 
 def test_device_transform_holds_its_lut_on_its_device():
-    """The transform's device copy is the one the coefficient route's
-    cache holds for its host array: one copy per LUT. A flat f32 LUT is
-    kept as the very array given."""
+    """The transform's device copy is the packed one the coefficient
+    route's cache holds for its host array: one copy per LUT. A flat f32
+    LUT is kept as the very array given."""
     lut = _lut(0)
     xform = tlut.DeviceCmykTransform(lut, CPU)
     assert xform.n == 17
     np.testing.assert_array_equal(xform.lut_np, lut.reshape(-1, 3))
-    dev = tfused._device_cached(xform.lut_np, CPU)
-    assert dev.device == CPU and dev.shape == (17 ** 4, 3)
+    dev = tfused._device_packed_lut(xform.lut_np, 17, CPU)
+    assert dev.device == CPU and dev.shape == (17 ** 4, 4)
+    assert dev.dtype == torch.int32
     assert xform._lut() is dev
+    np.testing.assert_array_equal(dev.numpy(),
+                                  tlut.pack_lut(xform.lut_np, 17).numpy())
     flat = xform.lut_np
     assert tlut.DeviceCmykTransform(flat, CPU).lut_np is flat
     with pytest.raises(ValueError):

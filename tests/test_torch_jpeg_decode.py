@@ -1,7 +1,8 @@
-"""The port's plain decode functions (fanlin_tpu_torch.ops.jpeg_decode)
-and the CPU path of the decode kernels' wrappers
-(ops.jpeg_decode_kernels, K3 jpeg_islow and K4 jpeg_upsample_rgb)
-against the JAX package's fanlin_tpu.ops.jpeg_decode, on the CPU.
+"""The port's plain decode functions (fanlin_tpu_torch.ops.jpeg_decode),
+the plain composition jpeg_islow_ref + jpeg_upsample_rgb_ref and the CPU
+path of the decode kernel's wrapper (ops.jpeg_decode_kernels,
+jpeg_decode_rgb) against the JAX package's fanlin_tpu.ops.jpeg_decode,
+on the CPU.
 
 All of it is integer work, so the tolerance is none: every array must
 be equal, on seeded coefficient grids for the four layouts at odd true
@@ -151,22 +152,26 @@ def test_decode_rgb(subsamp, dims):
     for g, w in zip(got, want):
         _eq(g, w)
 
-    planes = jk.jpeg_islow(_t(y), _t(cb), _t(cr), _t(q))
+    # the plain composition and the fused kernel's CPU path, both at the
+    # assembly's output rows
     out_h = bucket_h(true_h)
-    rgb = jk.jpeg_upsample_rgb(*planes, subsamp, true_h, true_w, out_h, pad_w)
-    assert rgb.dtype == torch.uint8 and rgb.shape == (2, 3, out_h, pad_w)
     ref = np.stack([np.asarray(w) for w in want], axis=1)[:, :, :out_h]
+    grids = [_t(a) for a in (y, cb, cr, q)]
+    rgb = jk.jpeg_upsample_rgb_ref(*jk.jpeg_islow_ref(*grids), subsamp,
+                                   true_h, true_w, out_h, pad_w)
+    assert rgb.dtype == torch.uint8 and rgb.shape == (2, 3, out_h, pad_w)
     _eq(rgb, ref.astype(np.uint8))
+    _eq(jk.jpeg_decode_rgb(*grids, subsamp, true_h, true_w, out_h, pad_w, 2),
+        ref.astype(np.uint8))
 
 
 def test_crafted_grid_kernels_match_plain_and_jax():
-    """The crafted out-of-range grid through K3 + K4 (CPU path) gives
-    the JAX decode's bytes, saturated."""
+    """The crafted out-of-range grid: the plain iDCT planes saturate, and
+    the plain composition and jpeg_decode_rgb's CPU path give the JAX
+    decode's bytes."""
     (y, cb, cr), q = _grids(444, 32, 32, crafted=True)
-    planes = jk.jpeg_islow(_t(y), _t(cb), _t(cr), _t(q))
-    ref = jk.jpeg_islow_ref(_t(y), _t(cb), _t(cr), _t(q))
-    for p, r in zip(planes, ref):
-        _eq(p, r.numpy())
+    grids = [_t(a) for a in (y, cb, cr, q)]
+    planes = jk.jpeg_islow_ref(*grids)
     assert int(planes[0].max()) == 255 and int(planes[0].min()) == 0
     args = []
     for g in (y, cb, cr):
@@ -174,8 +179,9 @@ def test_crafted_grid_kernels_match_plain_and_jax():
     qf = q.astype(np.float32)
     want = J.decode444_rgb(*map(jnp.asarray, args), jnp.asarray(qf[:, 0]),
                            jnp.asarray(qf[:, 1]), 32, 32, 32, 128)
-    rgb = jk.jpeg_upsample_rgb(*planes, 444, 32, 32, 32, 128)
-    _eq(rgb, np.stack([np.asarray(w) for w in want], 1).astype(np.uint8))
+    want = np.stack([np.asarray(w) for w in want], 1).astype(np.uint8)
+    _eq(jk.jpeg_upsample_rgb_ref(*planes, 444, 32, 32, 32, 128), want)
+    _eq(jk.jpeg_decode_rgb(*grids, 444, 32, 32, 32, 128, 2), want)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "q_shape", "subsamp", "dims",
@@ -183,31 +189,27 @@ def test_crafted_grid_kernels_match_plain_and_jax():
 def test_wrappers_reject_bad_arguments(bad):
     (y, cb, cr), q = _grids(420, 37, 23, batch=1)
     y, cb, cr, q = map(_t, (y, cb, cr, q))
+    geometry = [420, 37, 23, 48, 128, 1]  # subsamp, true, out dims, n
     if bad == "dtype":
-        with pytest.raises(ValueError):
-            jk.jpeg_islow(y.to(torch.int32), cb, cr, q)
+        y = y.to(torch.int32)
     elif bad == "q_shape":
-        with pytest.raises(ValueError):
-            jk.jpeg_islow(y, cb, cr, q[:, :1])
+        q = q[:, :1].contiguous()
+    elif bad == "subsamp":
+        geometry[0] = 411
+    elif bad == "dims":
+        geometry[3] = 32  # out_h below true_h
+    if bad == "device":
+        meta = [t.to("meta") for t in (y, cb, cr, q)]
+        with pytest.raises(ValueError, match="unsupported device"):
+            jk.jpeg_decode_rgb(*meta, *geometry)
     else:
-        planes = jk.jpeg_islow(y, cb, cr, q)
-        if bad == "subsamp":
-            with pytest.raises(ValueError):
-                jk.jpeg_upsample_rgb(*planes, 411, 37, 23, 40, 128)
-        elif bad == "dims":
-            with pytest.raises(ValueError):
-                jk.jpeg_upsample_rgb(*planes, 420, 37, 23, 32, 128)
-        else:
-            meta = tuple(p.to("meta") for p in planes)
-            with pytest.raises(ValueError, match="unsupported device"):
-                jk.jpeg_upsample_rgb(*meta, 420, 37, 23, 40, 128)
+        with pytest.raises(ValueError):
+            jk.jpeg_decode_rgb(y, cb, cr, q, *geometry)
 
 
 def test_cpu_path_never_counts_launches():
     jk.reset_launch_counts()
     (y, cb, cr), q = _grids(420, 37, 23, batch=1)
-    planes = jk.jpeg_islow(*map(_t, (y, cb, cr, q)))
-    jk.jpeg_upsample_rgb(*planes, 420, 37, 23, 40, 128)
-    assert jk.launch_counts() == {"jpeg_decode_rgb": 0, "jpeg_islow": 0,
-                                  "jpeg_upsample_rgb": 0,
-                                  "jpeg_decode_cmyk": 0}
+    jk.jpeg_decode_rgb(*map(_t, (y, cb, cr, q)), 420, 37, 23, 48, 128, 1)
+    assert jk.launch_counts() == {"jpeg_decode_rgb": 0, "jpeg_decode_cmyk": 0,
+                                  "jpeg_decode_cmyk_rgb": 0}

@@ -101,8 +101,8 @@ def test_gateway_requests():
             # the CPU runs the plain versions: no kernel launches
             assert stats["kernel_launches"] == {
                 "resample": 0, "resample_blur": 0, "jpeg_decode_rgb": 0,
-                "jpeg_islow": 0, "jpeg_upsample_rgb": 0,
-                "jpeg_decode_cmyk": 0, "cmyk_lut": 0}
+                "jpeg_decode_cmyk": 0, "jpeg_decode_cmyk_rgb": 0,
+                "cmyk_lut": 0}
         finally:
             await client.close()
 
