@@ -102,15 +102,37 @@ Phases (each failure exits non-zero; nothing is caught):
      in turns, event ms of the fused kernel, the pair (K12a then K12b)
      and each alone, their device ms, plain ms, bound and share at
      README-like B=8 (lenna as CMYK) and 12 MP B=2
+  8. worker mode (tpu.workers): `python -m fanlin_tpu_torch.cli` in
+     subprocesses on the card, over the golden files and phase 5's and
+     7's folder, every wait bounded: (a) boot with "workers": 4, one
+     device-service banner and four worker banners (their pids); (b) the
+     README request, its WebP and blur variants, synth (4:2:0), the
+     EXIF-6 and the progressive JPEG, a PNG and a CMYK print asset, each
+     on its own connection, byte-equal to the single-process server's
+     (build_state on the card in this process, CMYK on host lcms2 as in
+     worker mode); (c) a worker's /stats shows the service's launches of
+     resample, resample_blur and jpeg_decode_rgb, and a 16-request README
+     burst rides uniform batches (one resample and one jpeg_decode_rgb
+     launch per batch); (d) the card has one client: the service holds
+     the CUDA device files and no worker does, and no worker pid is among
+     nvidia-smi's compute apps; (e) 16 and 64 concurrent README requests
+     over HTTP against workers 1, 2 and 4 in turns, median of 5: img/s,
+     batches/images and the median f_device; (f) spawn to the first 200
+     and the first request's latency against the tenth's, warmup on and
+     off, beside phase 1's build seconds; (g) "source_cache_mb": 64 and
+     three variants of lenna on one connection: bodies of the uncached
+     server, 2 hits; (h) SIGTERM: exit 0 within 15 s, no worker left
 Launch counts are set to 0 just before each main-path run (the pixel
 Engine, the coefficient Engine, the server, each phase-5 burst, the two
 jpegdct engines and the jpegdct server burst of phase 6, the CMYK engine
-and the CMYK server burst of phase 7) and read just after it; every
-kernel of the serving path (resample, resample_blur, jpeg_decode_rgb)
-must have been launched by the coefficient engine, the server and phase
-5 (b), jpeg_decode_cmyk_rgb by both CMYK runs and K12b by the CMYK
-engine (its EXIF-rotated request), and neither by an earlier run; K12a
-by no run.
+and the CMYK server burst of phase 7) and read just after it; phase 8's
+counts live in the device service, and its windows ((b) and (c)) are the
+differences of a worker's /stats read just before and just after each.
+Every kernel of the serving path (resample, resample_blur,
+jpeg_decode_rgb) must have been launched by the coefficient engine, the
+server, phase 5 (b) and phase 8 (b), jpeg_decode_cmyk_rgb by both CMYK
+runs and K12b by the CMYK engine (its EXIF-rotated request), and neither
+by an earlier run; K12a by no run.
 
 The second-to-last line is {"kernels": [...]}: each kernel's main-path
 launches (K12a: 0, with phase 7's as checked_launches), worst error,
@@ -228,7 +250,7 @@ def phase0() -> str:
     return smi
 
 
-def phase1() -> None:
+def phase1() -> float:
     from fanlin_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -241,6 +263,7 @@ def phase1() -> None:
           "the host reader and encoder "
           f"{os.path.relpath(host, ROOT)} in {time.perf_counter() - t1:.2f} s",
           flush=True)
+    return t1 - t0
 
 
 def _time_pair(plain, kernel, reps: int):
@@ -1992,13 +2015,502 @@ def _phase7_lut(folder: str) -> np.ndarray:
     return cmyk_lut.sample_lut(conv.convert, 17)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: worker mode (tpu.workers, P10): `python -m fanlin_tpu_torch.cli`
+# in subprocesses, N gateway workers around one CUDA device service
+
+# every wait of phase 8 is bounded by one of these (seconds)
+BOOT_S = 180.0
+REQUEST_S = 60.0
+DRAIN_S = 15.0
+WARMUP_S = 120.0
+README = "/baz/lenna_src.jpg?w=300&h=200"
+# (b)'s requests: the README request, its WebP and blur variants, 4:2:0,
+# EXIF orientation 6, progressive, PNG and a CMYK print asset (host lcms2
+# in worker mode)
+WORKER_URLS = [
+    (README, None),
+    (README + "&webp=true&quality=20", {"Accept": "image/webp"}),
+    (README + "&blur=10", None),
+    ("/baz/synth_src.jpg?w=300&h=200", None),
+    ("/gen/rot6.jpg?w=300&h=200", None),
+    ("/gen/progressive.jpg?w=300&h=200", None),
+    ("/baz/lenna_src.png?w=300&h=200", None),
+    ("/gen/print_cmyk.jpg?w=300&h=200", None),
+]
+# (g)'s three variants of one source
+VARIANTS = [README, "/baz/lenna_src.jpg?w=200&h=150",
+            "/baz/lenna_src.jpg?w=120&h=90&blur=1"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cli_config(folder: str, port: int, **tpu) -> dict:
+    """Phase 8's deployment: the golden files and build/chip_smoke/
+    (phases 5 and 7) over file origins, the synthetic default profile,
+    max_clients 64 (no admission cap below the largest burst)."""
+    return {
+        "port": port, "bind_addr": "127.0.0.1", "max_clients": 64,
+        "suppress_logging": True,
+        "client": {"s3": {"aws_region": "x"},
+                   "web": {"user_agent": "chip-smoke", "timeout": 2}},
+        "providers": [{"path": "baz", "src": "file://localhost" + GOLDEN},
+                      {"path": "gen", "src": "file://localhost" + folder}],
+        "profile_path": os.path.join(folder, "default.icc"),
+        "tpu": tpu,
+    }
+
+
+class _CliServer:
+    """`python -m fanlin_tpu_torch.cli -j <config>` in a process group of
+    its own (on CUDA: the CLI is given no device); a thread keeps reading
+    its output."""
+
+    def __init__(self, folder: str, **tpu):
+        self.workers = tpu.get("workers", 0)
+        self.port = _free_port()
+        self.base = f"http://127.0.0.1:{self.port}"
+        cfg = _cli_config(folder, self.port, **tpu)
+        self.t_spawn = time.perf_counter()
+        self.proc = subprocess.Popen(
+            self.command(json.dumps(cfg)), cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, start_new_session=True)
+        self.lines = []
+        self._eof = False
+        self._cond = threading.Condition()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def command(self, cfg_json: str) -> list:
+        return [sys.executable, "-m", "fanlin_tpu_torch.cli", "-j", cfg_json]
+
+    def _read(self) -> None:
+        for raw in iter(self.proc.stdout.readline, b""):
+            with self._cond:
+                self.lines.append(raw.decode("utf-8", "replace").rstrip())
+                self._cond.notify_all()
+        with self._cond:
+            self._eof = True
+            self._cond.notify_all()
+
+    def worker_pids(self) -> list:
+        return [int(line.split()[2]) for line in list(self.lines)
+                if line.startswith("fanlin-tpu-torch worker ")]
+
+    def service_pid(self):
+        for line in list(self.lines):
+            if line.startswith("fanlin-tpu-torch device service "):
+                return int(line.split()[3])
+        return None
+
+    def _up(self) -> bool:
+        if self.workers > 1:
+            return (len(self.worker_pids()) == self.workers
+                    and self.service_pid() is not None)
+        return any("listening on" in line for line in self.lines)
+
+    def wait_banners(self) -> float:
+        """Seconds from spawn to the last banner."""
+        deadline = time.monotonic() + BOOT_S
+        with self._cond:
+            while not self._up():
+                check(not self._eof, "phase8: the server died during "
+                      "startup:\n" + "\n".join(self.lines[-30:]))
+                left = deadline - time.monotonic()
+                check(left > 0, "phase8: the server did not come up:\n"
+                      + "\n".join(self.lines[-30:]))
+                self._cond.wait(timeout=min(left, 1.0))
+        return time.perf_counter() - self.t_spawn
+
+    def terminate(self) -> float:
+        """(h) SIGTERM: exit 0 within DRAIN_S, no worker left."""
+        pids = self.worker_pids()
+        t0 = time.perf_counter()
+        self.proc.send_signal(15)
+        code = self.proc.wait(timeout=DRAIN_S)
+        took = time.perf_counter() - t0
+        check(code == 0, f"phase8h: the server exited {code}")
+        alive = [p for p in pids if _pid_alive(p)]
+        check(not alive, f"phase8h: workers {alive} outlived the drain")
+        return took
+
+    def kill(self) -> None:
+        try:
+            os.killpg(self.proc.pid, 9)
+        except ProcessLookupError:
+            pass
+        self.proc.wait(timeout=30)
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def _server_timing(header: str) -> dict:
+    out = {}
+    for part in header.split(","):
+        name, _, dur = part.strip().partition(";dur=")
+        if dur:
+            out[name] = float(dur)
+    return out
+
+
+async def _get(session, base: str, url: str, headers=None) -> tuple:
+    """(status, body, Server-Timing marks, seconds)."""
+    import aiohttp
+
+    t0 = time.perf_counter()
+    async with session.get(base + url, headers=headers,
+                           timeout=aiohttp.ClientTimeout(
+                               total=REQUEST_S)) as r:
+        body = await r.read()
+        return (r.status, body, _server_timing(r.headers.get(
+            "Server-Timing", "")), time.perf_counter() - t0)
+
+
+async def _get_stats(session, base: str) -> dict:
+    status, body, _, _ = await _get(session, base, "/stats")
+    check(status == 200, f"phase8: /stats status {status}")
+    return json.loads(body)
+
+
+def _fresh_session():
+    """A client whose every request opens a connection of its own, so
+    SO_REUSEPORT spreads them over the workers."""
+    import aiohttp
+
+    return aiohttp.ClientSession(
+        connector=aiohttp.TCPConnector(force_close=True, limit=0))
+
+
+async def _cold_start(srv: _CliServer, label: str) -> dict:
+    """(f) Spawn to the first 200 of the README request, polled on fresh
+    connections, then nine more: the first's latency against the
+    tenth's."""
+    import aiohttp
+
+    deadline = time.monotonic() + BOOT_S
+    async with _fresh_session() as s:
+        while True:
+            check(srv.proc.poll() is None, f"phase8f {label}: server died:\n"
+                  + "\n".join(srv.lines[-30:]))
+            check(time.monotonic() < deadline,
+                  f"phase8f {label}: no 200 within {BOOT_S} s")
+            try:
+                status, _, marks, first = await _get(s, srv.base, README)
+            except aiohttp.ClientConnectionError:
+                await asyncio.sleep(0.01)
+                continue
+            if status == 200:
+                break
+            await asyncio.sleep(0.01)
+        to_first = time.perf_counter() - srv.t_spawn
+        lat = [first]
+        timings = [marks]
+        for _ in range(9):
+            status, _, marks, t = await _get(s, srv.base, README)
+            check(status == 200, f"phase8f {label}: status {status}")
+            lat.append(t)
+            timings.append(marks)
+    out = {"spawn_to_first_200_s": to_first, "first_ms": lat[0] * 1e3,
+           "tenth_ms": lat[9] * 1e3, "first_server_timing": timings[0],
+           "tenth_server_timing": timings[9]}
+    print(f"phase8f cold start, workers {srv.workers}, {label}: spawn to "
+          f"first 200 {to_first:.3f} s, first request {lat[0] * 1e3:.3f} ms "
+          f"{timings[0]}, tenth {lat[9] * 1e3:.3f} ms {timings[9]}",
+          flush=True)
+    return out
+
+
+async def _wait_warm(srv: _CliServer, want: int) -> None:
+    """Wait (bounded) until the server's batcher ran `want` warm batches,
+    and check it runs no more."""
+    deadline = time.monotonic() + WARMUP_S
+    async with _fresh_session() as s:
+        while True:
+            got = (await _get_stats(s, srv.base))["batcher"]["warm_batches"]
+            if got >= want:
+                break
+            check(time.monotonic() < deadline,
+                  f"phase8: {got} of {want} warm batches in {WARMUP_S} s")
+            await asyncio.sleep(0.05)
+        await asyncio.sleep(0.3)
+        got = (await _get_stats(s, srv.base))["batcher"]["warm_batches"]
+    check(got == want, f"phase8: {got} warm batches, expected {want}")
+
+
+def _cpu_s(pids) -> dict:
+    """pid -> CPU seconds (user + system) so far."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for pid in pids:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        out[pid] = (int(fields[11]) + int(fields[12])) / tick
+    return out
+
+
+def _diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _card_clients(srv: _CliServer) -> None:
+    """(d) The card has one client: the service holds the CUDA device
+    files open and no worker does; nvidia-smi's compute apps list the
+    service and no worker (where it reports this machine's pids)."""
+    def device_files(pid):
+        fds = os.path.join("/proc", str(pid), "fd")
+        out = set()
+        for fd in os.listdir(fds):
+            try:
+                target = os.readlink(os.path.join(fds, fd))
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                out.add(target)
+        return sorted(out)
+
+    svc, workers = srv.service_pid(), srv.worker_pids()
+    check(svc == srv.proc.pid, f"phase8d: service pid {svc} is not the "
+          f"CLI's {srv.proc.pid}")
+    svc_files = device_files(svc)
+    worker_files = {p: device_files(p) for p in workers}
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    listed = {int(x) for x in apps.split() if x.strip().isdigit()}
+    print(f"phase8d service {svc} device files {svc_files}; workers "
+          f"{worker_files}; nvidia-smi compute apps {sorted(listed)} "
+          f"(this script {os.getpid()})", flush=True)
+    check(svc_files, "phase8d: the service holds no CUDA device file")
+    check(not any(worker_files.values()),
+          f"phase8d: a worker opened the card: {worker_files}")
+    check(not listed & set(workers),
+          f"phase8d: worker pids among the compute apps: {listed}")
+    if os.getpid() in listed:  # nvidia-smi reports this pid namespace
+        check(svc in listed, f"phase8d: service {svc} not among {listed}")
+    else:
+        print("phase8d nvidia-smi lists no pid of this pid namespace: the "
+              "device-file check stands alone", flush=True)
+
+
+async def _phase8_reference(dev: torch.device, folder: str) -> dict:
+    """(b)'s reference: the same requests through the single-process
+    server in this process (build_state on the card, the same config
+    without workers: CMYK on host lcms2 as in worker mode)."""
+    from aiohttp import web
+
+    from fanlin_tpu_torch.config import Config
+    from fanlin_tpu_torch.server.app import build_state, create_app
+
+    cfg = Config.from_obj(_cli_config(folder, 0))
+    state = await build_state(cfg, device=dev)
+    check(state.engine.device_cmyk is None, "phase8: device ICC is on")
+    runner = web.AppRunner(create_app(cfg, state), access_log=None)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", 0).start()
+    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+    out = {}
+    try:
+        async with _fresh_session() as s:
+            for url, headers in WORKER_URLS + [(u, None) for u in VARIANTS]:
+                status, body, _, _ = await _get(s, base, url, headers)
+                check(status == 200, f"phase8 reference {url}: {status}")
+                out[url] = body
+    finally:
+        await runner.cleanup()
+    return out
+
+
+async def _bursts(servers: dict, n_reps: int = 5) -> None:
+    """(e) 16 and 64 concurrent README requests, each on a connection of
+    its own, against each server in turns (workers 1, 2, 4, then 4, 2,
+    1, ...); median of n_reps. Prints img/s, batches/images from /stats,
+    the median f_device of the responses, the CPU seconds of the
+    service (or single process), of the workers and of this client over
+    the bursts' walls (cores busy), and the service's mean socket
+    receive, batcher and send ms per request."""
+    rows = {(w, n): {"walls": [], "f_device": [], "batches": 0,
+                     "images": 0, "cpu": {"service": 0.0, "workers": 0.0,
+                                          "client": 0.0},
+                     "sock": {"runs": 0, "recv_ms_total": 0.0,
+                              "run_ms_total": 0.0, "send_ms_total": 0.0}}
+            for w in servers for n in (16, 64)}
+    async with _fresh_session() as s:
+        for rep in range(n_reps):
+            order = sorted(servers) if rep % 2 == 0 else sorted(servers)[::-1]
+            for w in order:
+                base = servers[w].base
+                srv = servers[w]
+                for n in (16, 64):
+                    stats0 = await _get_stats(s, base)
+                    before = stats0["batcher"]
+                    cpu0 = _cpu_s([srv.proc.pid] + srv.worker_pids())
+                    me0 = sum(os.times()[:2])
+                    t0 = time.perf_counter()
+                    got = await asyncio.gather(
+                        *(_get(s, base, README) for _ in range(n)))
+                    wall = time.perf_counter() - t0
+                    me1 = sum(os.times()[:2])
+                    cpu1 = _cpu_s([srv.proc.pid] + srv.worker_pids())
+                    stats1 = await _get_stats(s, base)
+                    after = stats1["batcher"]
+                    check(all(g[0] == 200 for g in got),
+                          f"phase8e workers {w}: statuses "
+                          f"{sorted({g[0] for g in got})}")
+                    row = rows[(w, n)]
+                    row["walls"].append(wall)
+                    row["f_device"] += [g[2]["f_device"] for g in got]
+                    row["batches"] += after["batches"] - before["batches"]
+                    row["images"] += after["images"] - before["images"]
+                    used = _diff(cpu1, cpu0)
+                    row["cpu"]["service"] += used.pop(srv.proc.pid)
+                    row["cpu"]["workers"] += sum(used.values())
+                    row["cpu"]["client"] += me1 - me0
+                    if stats1.get("service"):
+                        for k, v in _diff(stats1["service"],
+                                          stats0["service"]).items():
+                            row["sock"][k] += v
+    for (w, n), row in sorted(rows.items()):
+        med = statistics.median(row["walls"])
+        walls = sum(row["walls"])
+        cores = {k: round(v / walls, 3) for k, v in row["cpu"].items()}
+        runs = max(row["sock"]["runs"], 1)
+        sock = {k[:-9] + "_ms": round(v / runs, 3)
+                for k, v in row["sock"].items() if k != "runs"}
+        print(f"phase8e workers {w}, {n} concurrent README requests over "
+              f"HTTP: {med * 1e3:.3f} ms (median of {n_reps}), "
+              f"{n / med:.2f} img/s, {row['batches']} batches / "
+              f"{row['images']} images, f_device median "
+              f"{statistics.median(row['f_device']):.1f} ms; cores busy "
+              f"{cores}; service per request {sock if row['sock']['runs'] else None}",
+              flush=True)
+        check(row["images"] == n * n_reps,
+              f"phase8e workers {w}: {row['images']} images")
+
+
+async def _phase8(dev: torch.device, folder: str, build_s: float) -> dict:
+    """Phase 8; returns the launch-count windows of (b) and (c), read
+    from a worker's /stats (the service's counters) just before and just
+    after each."""
+    from fanlin_tpu_torch.engine import warmup
+
+    windows = {}
+    servers = []
+    kinds = len(warmup._kinds(device_decode=True, device_dct=False))
+    want_warm = len(warmup.DEFAULT_SHAPES) * 2 * kinds  # B = 1 and 8
+    try:
+        reference = await _phase8_reference(dev, folder)
+        # (a) boot tpu.workers 4; its spawn to first 200 is (f)'s
+        # warmup-on sample
+        main = _CliServer(folder, workers=4)
+        servers.append(main)
+        cold = {"on": await _cold_start(main, "warmup on")}
+        boot = main.wait_banners()
+        print(f"phase8a workers {main.worker_pids()} and device service "
+              f"{main.service_pid()} up in {boot:.3f} s", flush=True)
+        await _wait_warm(main, want_warm)
+        async with _fresh_session() as s:
+            # (b) bytes, each request on its own connection
+            before = await _get_stats(s, main.base)
+            for url, headers in WORKER_URLS:
+                status, body, _, _ = await _get(s, main.base, url, headers)
+                check(status == 200, f"phase8b {url}: status {status}")
+                check(body == reference[url], f"phase8b {url}: the worker's "
+                      "body differs from the single-process server's")
+            after = await _get_stats(s, main.base)
+            windows["worker requests"] = _diff(after["kernel_launches"],
+                                               before["kernel_launches"])
+            w = windows["worker requests"]
+            print(f"phase8b {len(WORKER_URLS)} requests byte-equal to the "
+                  f"single-process server; service launches {w}", flush=True)
+            for name in MAIN_PATH_KERNELS:
+                check(w[name] > 0, f"phase8c: {name} not launched in the "
+                      "service, or not counted in a worker's /stats")
+            # (c) a 16-request README burst rides uniform batches
+            before = after
+            got = await asyncio.gather(
+                *(_get(s, main.base, README) for _ in range(16)))
+            after = await _get_stats(s, main.base)
+            check(all(g[0] == 200 and g[1] == reference[README]
+                      for g in got), "phase8c: a burst body differs")
+            w = windows["worker burst"] = _diff(after["kernel_launches"],
+                                                before["kernel_launches"])
+            b = _diff(after["batcher"], before["batcher"])
+            print(f"phase8c 16 README requests over HTTP: {b['batches']} "
+                  f"batches, {b['images']} images, launches {w}", flush=True)
+            check(b["images"] == 16 and w["resample"] + w["resample_blur"]
+                  == b["batches"] == w["jpeg_decode_rgb"],
+                  f"phase8c: launches {w} for {b['batches']} batches: a "
+                  "batch left the kernel (plans lost their identity?)")
+        # (d) the card has one client
+        _card_clients(main)
+        # (f) the warmup-off sample
+        off = _CliServer(folder, workers=4, warmup=False)
+        servers.append(off)
+        cold["off"] = await _cold_start(off, "warmup off")
+        off.wait_banners()
+        print(f"phase8f drain {off.terminate():.3f} s; nvcc build of "
+              f"phase 1 {build_s:.2f} s", flush=True)
+        # (e) workers 1 and 2 beside the 4 of (a), and (g)'s server
+        one = _CliServer(folder, workers=1)
+        two = _CliServer(folder, workers=2)
+        cached = _CliServer(folder, workers=4, warmup=False,
+                            source_cache_mb=64)
+        servers += [one, two, cached]
+        for srv in (one, two, cached):
+            srv.wait_banners()
+        for srv in (one, two):
+            await _wait_warm(srv, want_warm)
+        await _bursts({1: one, 2: two, 4: main})
+        # (g) three variants of one source on one kept-alive connection
+        # (one worker, one cache)
+        import aiohttp
+
+        async with aiohttp.ClientSession(
+                connector=aiohttp.TCPConnector(limit=1)) as s:
+            marks = []
+            for url in VARIANTS:
+                status, body, t, _ = await _get(s, cached.base, url)
+                check(status == 200 and body == reference[url],
+                      f"phase8g {url}: {status}, or a body that differs "
+                      "from the uncached server's")
+                marks.append(t["f_decode"])
+            st = (await _get_stats(s, cached.base))["caches"]["sources"]
+        print(f"phase8g source cache {st}; f_decode {marks} ms (first, "
+              "then the cached variants)", flush=True)
+        # one entry, read once and hit twice (with a profile configured
+        # each JPEG also misses once on the host-ICC pixels' key)
+        check(st["hits"] == 2 and st["entries"] == 1,
+              f"phase8g: source cache {st}")
+        # (h) drain every server
+        for srv in (one, two, cached, main):
+            took = srv.terminate()
+            print(f"phase8h workers {srv.workers}: SIGTERM to exit 0 in "
+                  f"{took:.3f} s", flush=True)
+    finally:
+        for srv in servers:
+            srv.kill()
+    print("phase8 cold start " + json.dumps(cold), flush=True)
+    return windows
+
+
 def main() -> int:
     smi = phase0()
     from fanlin_tpu_torch import device as device_mod
 
     device_mod.configure()
     dev = device_mod.cuda_device()
-    phase1()
+    build_s = phase1()
     bench = phase2(dev)
     decode = phase2b(dev)
     phase3_pre_encode(dev)
@@ -2037,6 +2549,8 @@ def main() -> int:
     windows["cmyk engine"] = _counts()
     phase7_stage_times(cmyk_engine, host_icc_engine, cmyk_dir)
     windows["cmyk server"] = asyncio.run(_phase7_server(dev, cmyk_dir))
+    # phase 8: worker mode, N gateway workers around one device service
+    windows.update(asyncio.run(_phase8(dev, cmyk_dir, build_s)))
     for name, c in windows.items():
         print(f"launch counts ({name}): {c}", flush=True)
     for name in earlier:

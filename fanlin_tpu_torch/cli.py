@@ -2,8 +2,11 @@
 
 Port of fanlin_tpu/cli.py (the reference's clap interface, reference
 src/main.rs:21-41): -c/--conf (default fanlin.json), -j/--json inline
-config wins over the file. One process serving on the CUDA device,
-with graceful shutdown on SIGINT/SIGTERM (main.rs:276-294)."""
+config wins over the file. Serves on the CUDA device, with graceful
+shutdown on SIGINT/SIGTERM (main.rs:276-294): one process, or with
+`tpu.workers` > 1 N gateway workers around one device service
+(`server.workers`). `tpu.warmup` warms the kernels and caches at
+startup (`engine.warmup`) in the background."""
 
 from __future__ import annotations
 
@@ -11,10 +14,15 @@ import argparse
 import asyncio
 import signal
 import sys
+import threading
+from typing import Optional
+
+import torch
 
 from aiohttp import web
 
 from . import config as config_mod
+from .engine import warmup as warmup_mod
 from .server.app import build_state, check_ported, create_app
 from .utils import logging as json_logging
 
@@ -31,8 +39,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-async def serve(cfg: config_mod.Config) -> None:
-    state = await build_state(cfg)
+async def serve(cfg: config_mod.Config,
+                device: Optional[torch.device] = None) -> None:
+    state = await build_state(cfg, device=device)
+    if cfg.tpu.warmup:
+        # configured shapes join the defaults; without them the
+        # fallback images' geometries do
+        shapes = warmup_mod.shapes_from_state(state,
+                                              tuple(cfg.tpu.warmup_shapes))
+
+        def warm():
+            warmup_mod.warm_host(shapes)
+            warmup_mod.warm(state.engine.runner.batcher, shapes,
+                            device_decode=state.engine.device_decode,
+                            device_dct=cfg.tpu.device_dct)
+
+        threading.Thread(target=warm, name="fanlin-warmup",
+                         daemon=True).start()
     app = create_app(cfg, state)
     runner = web.AppRunner(app, access_log=None)
     await runner.setup()
@@ -52,7 +75,9 @@ async def serve(cfg: config_mod.Config) -> None:
     await runner.cleanup()
 
 
-def main(argv=None) -> int:
+def main(argv=None, device: Optional[torch.device] = None) -> int:
+    """device: where to serve; None is CUDA (raising where there is
+    none). Tests pass torch.device("cpu")."""
     args = parse_args(argv)
     try:
         if args.json is not None:
@@ -64,7 +89,13 @@ def main(argv=None) -> int:
         print(f"failed to load config: {e}", file=sys.stderr)
         return 1
     json_logging.setup(bool(cfg.suppress_logging))
-    asyncio.run(serve(cfg))
+    if cfg.tpu.workers > 1:
+        # N gateway workers around one device service: branch before any
+        # asyncio or CUDA state exists (the workers fork from here)
+        from .server.workers import serve_multiworker
+
+        return serve_multiworker(cfg, device=device)
+    asyncio.run(serve(cfg, device))
     return 0
 
 

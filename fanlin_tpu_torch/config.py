@@ -213,7 +213,8 @@ class TpuConfig:
     # quality/format splits) pays the host decode once; the response
     # cache above only catches byte-identical requests. Additive over
     # the reference (handler.rs decodes per request). 0 = off (the
-    # parity default).
+    # parity default). Per process: with `workers`, each worker holds
+    # up to this much.
     source_cache_mb: int = 0
     # nested-corner (nc) lossless coefficient upload rung: trades
     # ~8 ms/img of extra host pack CPU for ~250 KB/img of wire on
@@ -236,7 +237,10 @@ class TpuConfig:
     # service process owns the TPU and the micro-batcher; workers
     # hand device batches to it over a unix socket, so cross-worker
     # requests still coalesce into shared device batches.
-    # 0/1 = single process (the default).
+    # 0/1 = single process (the default). In the PyTorch port the
+    # service is the one CUDA process (server/workers.py). Each worker
+    # keeps its own caches: N workers hold up to N x response_cache_mb
+    # and N x source_cache_mb.
     workers: int = 0
     # VP8 rate-distortion effort for lossy WebP encodes (libwebp's
     # WebPConfig.method, 0 fastest .. 6 slowest). 4 — the libwebp

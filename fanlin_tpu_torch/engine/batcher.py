@@ -192,7 +192,9 @@ class MicroBatcher:
                       # (cumulative ms and peak; mean = total / images)
                       "backlog": 0,
                       "queue_wait_ms_total": 0.0,
-                      "queue_wait_ms_peak": 0.0}
+                      "queue_wait_ms_peak": 0.0,
+                      # startup batches run by engine.warmup
+                      "warm_batches": 0}
         self._scheduler = threading.Thread(
             target=self._flush_loop, name="fanlin-batch-flush", daemon=True)
         self._scheduler.start()
@@ -294,6 +296,23 @@ class MicroBatcher:
                                     else max(next_deadline - now, 0.0))
             for group in due:
                 self._dispatch(group)
+
+    def warm_batch(self, plans, payloads, kinds) -> Future:
+        """Run one batch on the device thread, on its stream, outside
+        the counters of served traffic (engine.warmup): it loads the
+        kernels' modules and grows the pinned staging pool as a served
+        batch of that kind would. The future resolves to the batch's
+        results."""
+        def run():
+            asm = fused.make_assembly(plans, payloads, kinds, self.device)
+            with self._on_stream():
+                out = asm.submit()
+            results = asm.collect(out)
+            with self._lock:
+                self.stats["warm_batches"] += 1
+            return results
+
+        return self._device.submit(run)
 
     # -- device execution --------------------------------------------------
 

@@ -45,6 +45,13 @@ prologue to the transform; an embedded profile rides its own sampled
 LUT (`icc.embedded_device_lut`, kind "...@<hash>"). Every other CMYK
 source converts its pixels through the same LUT
 (`ops.cmyk_lut.DeviceCmykTransform`).
+
+With a `source_cache.SourceCache` (`tpu.source_cache_mb`) every decode
+result (coefficient metas after their EXIF rotation, decoded and
+colour-managed pixels, GIF frames) is kept by the source's content hash,
+as in fanlin_tpu/engine/processor.py:140-235, so the variants of a hot
+source read it once; a gateway worker's Engine has no device and sends
+its batches to the device service (`server.workers.RemoteRunner`).
 """
 
 from __future__ import annotations
@@ -60,7 +67,7 @@ from ..ops import cmyk_lut, filters, fused, jpeg_decode, plan as plan_mod
 from ..spec import content as content_mod
 from ..spec import query as query_mod
 from . import (codecs, icc, jpeg_coeffs, jpeg_encode, native_codecs,
-               png_writer, svg)
+               png_writer, source_cache, svg)
 
 # read_jpeg_coeffs' subsampling layout -> the coefficient batch kind
 _COEF_KIND = {420: "coef", 422: "coef422", 440: "coef440", 444: "coef444"}
@@ -87,11 +94,14 @@ class SyncDeviceRunner:
 
 
 class Engine:
-    def __init__(self, device: torch.device, runner=None,
+    def __init__(self, device: Optional[torch.device] = None, runner=None,
                  device_decode: bool = True, device_dct: bool = False,
                  cmyk2rgb=None, use_embedded_profile: bool = False):
         """device: where the transform runs (torch.device("cuda") to
-        serve, torch.device("cpu") for the plain versions).
+        serve, torch.device("cpu") for the plain versions); None only
+        with a runner that owns its device elsewhere (a gateway
+        worker's server.workers.RemoteRunner: that process never
+        touches a device).
         runner: runs the device batches; SyncDeviceRunner(device) when
         None, the server passes a batcher.BatchingRunner.
         device_decode: JPEGs take the coefficient path.
@@ -100,6 +110,8 @@ class Engine:
         cmyk2rgb: the default profile's icc.CMYK2RGB, or None
         (reference handler.rs:19-20); use_embedded_profile: prefer a
         CMYK JPEG's own profile."""
+        if runner is None and device is None:
+            raise ValueError("Engine needs a device or a runner")
         self.device = device
         self.runner = runner if runner is not None else SyncDeviceRunner(device)
         self.device_decode = device_decode
@@ -111,6 +123,10 @@ class Engine:
         self.device_cmyk = None
         # observability: requests served by source kind (/stats)
         self.stats = {"pixel_src": 0, "coef_src": 0}
+        # decoded-source cache (source_cache.SourceCache, wired from
+        # tpu.source_cache_mb): hot sources served as several variants
+        # pay the host decode once
+        self.source_cache = None
 
     def enable_device_icc(self, n: int = 17) -> None:
         """Sample the default lcms2 transform into an n^4 LUT on the
@@ -124,7 +140,7 @@ class Engine:
         lut = cmyk_lut.sample_lut(self.cmyk2rgb.convert, n)
         self.device_cmyk = cmyk_lut.DeviceCmykTransform(lut, self.device)
 
-    def _try_cmyk_coef(self, data: bytes, orientation: int):
+    def _try_cmyk_coef(self, data: bytes, orientation: int, skey=None):
         """The coefficient meta of a 4-component (CMYK / YCCK) JPEG bound
         for the device decode and LUT, with its LUT attached, else None
         (the pixel path). EXIF-rotated CMYK stays on pixels (the grids'
@@ -134,15 +150,22 @@ class Engine:
         Profile precedence is the reference's (handler.rs:446-459): with
         use_embedded_profile set, an embedded profile that lcms2 accepts
         rides its own sampled LUT (kind "...@<key>"); a broken one falls
-        back to the default profile's LUT (key "")."""
+        back to the default profile's LUT (key "").
+
+        skey: the source's content key when the source cache is on."""
         if (not self.device_decode or self.device_cmyk is None
                 or orientation != 1):
             return None
         if icc.jpeg_num_components(data) != 4:
             return None
-        meta = jpeg_coeffs.read_jpeg_coeffs4(data)
+        scache = self.source_cache
+        meta = scache.get_meta("coef4", skey) if scache is not None else None
         if meta is None:
-            return None
+            meta = jpeg_coeffs.read_jpeg_coeffs4(data)
+            if meta is None:
+                return None
+            if scache is not None:
+                scache.put_meta("coef4", skey, meta)
         lut = None
         if self.use_embedded_profile:
             prof = icc.jpeg_embedded_profile_bytes(data)
@@ -151,6 +174,9 @@ class Engine:
         if lut is None:
             t = self.device_cmyk
             lut = (t.lut_np, t.n, "")
+        # the LUT is per request (profile) state: attach it to a copy,
+        # never to a meta the source cache shares
+        meta = dict(meta)
         meta["lut_flat"], meta["lut_n"], meta["lut_key"] = lut
         return meta
 
@@ -182,23 +208,49 @@ class Engine:
         t0 = time.perf_counter()
         orientation = codecs.read_orientation(data)
         meta = converted = None
+        scache = self.source_cache
+        skey = source_cache.content_key(data) if scache is not None else None
         if fmt == codecs.JPEG:
             # 4-component sources: the device decode and LUT, else the
             # colour-managed pixels (handler.rs:398-466)
-            meta = self._try_cmyk_coef(data, orientation)
+            meta = self._try_cmyk_coef(data, orientation, skey)
             if meta is None:
-                try:
-                    converted = self._convert_jpeg_color_if_needed(data)
-                except codecs.CodecError as e:
-                    # the decode-alloc gate fires inside the ICC load
-                    raise ProcessError(str(e)) from e
+                # "icc" entries exist only for an Engine with colour
+                # management (the conversion is a no-op otherwise)
+                icc_on = self.use_embedded_profile or self.cmyk2rgb is not None
+                hit = (scache.get_pixels("icc", skey)
+                       if scache is not None and icc_on else None)
+                if hit is not None:
+                    converted = hit[0]
+                else:
+                    try:
+                        converted = self._convert_jpeg_color_if_needed(data)
+                    except codecs.CodecError as e:
+                        # the decode-alloc gate fires inside the ICC load
+                        raise ProcessError(str(e)) from e
+                    if converted is not None and scache is not None:
+                        scache.put_pixels("icc", skey, converted, False,
+                                          False)
         if (meta is None and converted is None and self.device_decode
                 and fmt == codecs.JPEG):
-            meta = jpeg_coeffs.read_jpeg_coeffs(data)
-            if meta is not None and orientation != 1:
-                # rotate the coefficient grids; a flip that is not
-                # MCU-aligned gives None and the pixel path
-                meta = jpeg_decode.orient_meta(meta, orientation)
+            # the kind carries the orientation: a hot EXIF-rotated source
+            # is cached after its rotation. A rotation that is not
+            # grid-exact caches a pixel-only sentinel, so the reader does
+            # not run again per variant only to find the pixel path.
+            ckind = "coef" if orientation == 1 else "coef.o%d" % orientation
+            cached = (scache.get_meta(ckind, skey)
+                      if scache is not None else None)
+            if cached is not None:
+                meta = None if cached.get("_pixel_only") else cached
+            else:
+                meta = jpeg_coeffs.read_jpeg_coeffs(data)
+                if meta is not None and orientation != 1:
+                    # rotate the coefficient grids; a flip that is not
+                    # MCU-aligned gives None and the pixel path
+                    meta = jpeg_decode.orient_meta(meta, orientation)
+                if scache is not None:
+                    scache.put_meta(ckind, skey, meta if meta is not None
+                                    else {"_pixel_only": True})
         if meta is not None:
             # a gray JPEG decodes through zero chroma (r = g = b = y);
             # is_gray keeps the output pixel type of the host decode
@@ -210,7 +262,15 @@ class Engine:
                 if converted is not None:
                     img, has_alpha, is_gray = converted, False, False
                 else:
-                    img, has_alpha, is_gray = codecs.decode(data)
+                    hit = (scache.get_pixels("pix", skey)
+                           if scache is not None else None)
+                    if hit is not None:
+                        img, has_alpha, is_gray = hit
+                    else:
+                        img, has_alpha, is_gray = codecs.decode(data)
+                        if scache is not None:
+                            scache.put_pixels("pix", skey, img, has_alpha,
+                                              is_gray)
             except codecs.CodecError as e:
                 raise ProcessError(str(e)) from e
             img = np.ascontiguousarray(
@@ -327,10 +387,18 @@ class Engine:
         filter; corrupt frames stay as 1x1 placeholders untouched by
         the transforms; frame delays are dropped and the result loops
         forever. webp/avif flags are ignored."""
-        try:
-            frames = codecs.decode_gif_frames(data)
-        except codecs.CodecError as e:
-            raise ProcessError(str(e)) from e
+        scache = self.source_cache
+        frames = skey = None
+        if scache is not None:
+            skey = source_cache.content_key(data)
+            frames = scache.get_frames(skey)
+        if frames is None:
+            try:
+                frames = codecs.decode_gif_frames(data)
+            except codecs.CodecError as e:
+                raise ProcessError(str(e)) from e
+            if scache is not None:
+                scache.put_frames(skey, frames)
 
         placeholder_shape = (1, 1, 4)
         work_idx = [

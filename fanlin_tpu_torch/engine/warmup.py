@@ -1,0 +1,169 @@
+"""Startup warmup (`tpu.warmup`, `tpu.warmup_shapes`).
+
+Port of fanlin_tpu/engine/warmup.py. The reference pays its one-time
+setup at startup (the lcms2 transform, reference src/handler.rs:483,
+main.rs:74-76); the JAX package precompiles its XLA programs there. On
+the card nothing compiles per shape, but a fresh process is still cold
+where a first request would pay: the kernels' lazily loaded modules
+(one per kernel function), the plan cache and its device matrices, and
+the pinned host staging pool that a first batch of a size grows. So
+`warm` runs each shape once at B=1 and once at B=max_batch on every
+kind the Engine routes that shape to: pixel and coefficient sources
+(4:2:0 and 4:4:4), each with the device encode front-ends that are on
+(`jpeg420` and `webp420` with the native codec core, `jpegdct` with
+`tpu.device_dct`).
+
+The host side of a first request is cold too: PIL loads its format
+plugins at the first open (tens of ms), the host JPEG reader's library
+loads, the plans are built. `warm_host` pays those in the process that
+serves HTTP; in worker mode the parent runs it before the fork, so
+every worker starts with them (the JAX package warms the device side
+only).
+
+Every batch runs through `MicroBatcher.warm_batch`: on the batcher's
+device thread and stream, where the port touches device tensors, one
+batch at a time, so served batches interleave with warmup.
+
+Left out of the JAX package's warmup, having no counterpart in the
+port: the spectral-thinning flavours and the jpegdct pack-rung ladder
+(the narrow-link wire rungs, not ported), the wedge defer-and-resume
+loop (no failover: the port's batcher has no wedge gauge) and the
+eight compile threads (there is nothing to compile in parallel).
+"""
+
+from __future__ import annotations
+
+import io
+import logging
+import time
+from typing import Tuple
+
+import numpy as np
+
+from ..ops import filters
+from ..ops.plan import plan_image
+from ..spec.query import parse_query
+from . import jpeg_coeffs, native_codecs
+
+log = logging.getLogger("fanlin.warmup")
+
+# (src_w, src_h, query) shapes warmed by default: the README request and
+# its blur variant.
+DEFAULT_SHAPES: Tuple[Tuple[int, int, str], ...] = (
+    (512, 512, "w=300&h=200"),
+    (512, 512, "w=300&h=200&blur=10"),
+)
+
+# cap on the geometries derived from a deployment's fallback images
+MAX_DERIVED_GEOMETRIES = 4
+
+# the coefficient kinds warmed, by read_jpeg_coeffs subsampling: 4:2:0
+# (camera and web JPEGs) and 4:4:4 (the README source)
+_COEF_KINDS = ((2, "coef"), (0, "coef444"))
+
+
+def shapes_from_state(state, configured: Tuple = ()) -> Tuple:
+    """The warmup shapes of a deployment. Configured shapes
+    (tpu.warmup_shapes) are added to the defaults; without them the
+    source geometries of the preloaded fallback images (the only ones a
+    config implies) are, under the default query, at most
+    MAX_DERIVED_GEOMETRIES of them."""
+    if configured:
+        return DEFAULT_SHAPES + tuple(configured)
+    shapes = list(DEFAULT_SHAPES)
+    seen = {(w, h) for w, h, _ in DEFAULT_SHAPES}
+    derived = 0
+    for data in getattr(state, "fallback_images", {}).values():
+        if derived >= MAX_DERIVED_GEOMETRIES:
+            break
+        try:
+            from PIL import Image
+
+            with Image.open(io.BytesIO(data)) as im:
+                w, h = im.size
+        except Exception:
+            continue
+        if (w, h) in seen:
+            continue
+        seen.add((w, h))
+        shapes.append((w, h, "w=300&h=200"))
+        derived += 1
+    return tuple(shapes)
+
+
+def _coef_meta(src_w: int, src_h: int, subsampling: int) -> dict:
+    """A read_jpeg_coeffs dict at the shape's true block grids: the
+    port's reader on a flat JPEG that PIL writes."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.full((src_h, src_w, 3), 128, np.uint8)).save(
+        buf, format="JPEG", quality=92, subsampling=subsampling)
+    return jpeg_coeffs.read_jpeg_coeffs(buf.getvalue())
+
+
+def _kinds(device_decode: bool, device_dct: bool):
+    """(source, kind) pairs: source is "pix" or a PIL subsampling."""
+    sinks = ["rgb"]
+    if native_codecs.available():
+        sinks.append("jpeg420")
+    if native_codecs.has_webp_yuv420():
+        sinks.append("webp420")
+    if device_dct:
+        sinks.append("jpegdct:75")
+    out = [("pix", sink) for sink in sinks]
+    if device_decode:
+        for subsampling, base in _COEF_KINDS:
+            out += [(subsampling, base if sink == "rgb" else f"{base}+{sink}")
+                    for sink in sinks]
+    return out
+
+
+def warm_host(shapes=DEFAULT_SHAPES) -> None:
+    """The host side of a first request, for `shapes`: PIL's plugins, the
+    host JPEG reader's library and the plans. Touches no device."""
+    from PIL import Image
+
+    from ..ops import _build
+
+    Image.init()
+    _build.load_host()
+    for src_w, src_h, qs in shapes:
+        plan_image(src_w, src_h, parse_query(qs), filters.LANCZOS3,
+                   opaque=True)
+
+
+def warm(batcher, shapes=DEFAULT_SHAPES, device_decode: bool = True,
+         device_dct: bool = False) -> int:
+    """Run every (src_w, src_h, query) shape through `batcher` at B=1
+    and B=max_batch on each kind it may take. Returns the number of
+    batches run; a failed batch is logged and skipped, and a closed
+    batcher ends the warmup."""
+    t0 = time.perf_counter()
+    kinds = _kinds(device_decode, device_dct)
+    done = total = 0
+    for src_w, src_h, qs in shapes:
+        plan = plan_image(src_w, src_h, parse_query(qs), filters.LANCZOS3,
+                          opaque=True)
+        payloads = {"pix": np.zeros((src_h, src_w, 3), np.uint8)}
+        for b in sorted({1, batcher.max_batch}):
+            for src, kind in kinds:
+                if src not in payloads:
+                    payloads[src] = _coef_meta(src_w, src_h, src)
+                total += 1
+                try:
+                    fut = batcher.warm_batch([plan] * b,
+                                             [payloads[src]] * b, [kind] * b)
+                except RuntimeError:
+                    log.info("warmup stopped: the batcher closed")
+                    return done
+                try:
+                    fut.result()
+                except Exception as e:
+                    log.warning("warmup batch %s %dx%d B=%d failed: %r",
+                                kind, src_w, src_h, b, e)
+                    continue
+                done += 1
+    log.info("warmed %d of %d batches in %.3f s", done, total,
+             time.perf_counter() - t0)
+    return done

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -76,6 +76,12 @@ class ImagePlan:
     # False when the output alpha is constant 255 (opaque source or
     # fill canvas): the alpha plane is then never downloaded.
     want_alpha: bool = True
+    # plan_image's arguments: a worker process sends a plan by this key
+    # and the device service re-interns it through plan_image, so every
+    # worker's requests for one (source, query) share one plan object
+    # there (the matrices never cross the socket). None for a plan not
+    # built by plan_image.
+    cache_key: Optional[tuple] = None
 
 
 # Plans hold dense (out x src) f32 matrices, so the cache is
@@ -110,6 +116,7 @@ def plan_image(src_w: int, src_h: int, params, filter_name: str = filters.LANCZO
         if plan is None:
             plan = _plan_image_uncached(src_w, src_h, params, filter_name,
                                         opaque)
+            plan.cache_key = key
             _PLAN_CACHE.put(key, plan, plan.av.nbytes + plan.ah.nbytes)
     with _PLAN_BUILDS_LOCK:
         if _PLAN_BUILDS.get(key) is build:

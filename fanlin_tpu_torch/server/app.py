@@ -17,10 +17,14 @@ request semantics:
 * response headers: Content-Type, Vary: Accept when webp/avif was
   requested, Server-Timing with f_fetch / f_process marks.
 
-One process, one device. The engine serves through the micro-batcher
+One device. The engine serves through the micro-batcher
 (`engine.batcher`, `tpu.max_batch`, `batch_window_ms`,
 `pipeline_depth`, `max_queue`): concurrent requests of one shape group
-share a device batch. There is no mesh, compile cache or warmup yet.
+share a device batch. With `tpu.workers` > 1 this gateway runs in N
+worker processes around one device service (`server.workers`); the
+CLI warms the kernels and caches at startup (`tpu.warmup`,
+`engine.warmup`); `tpu.source_cache_mb` caches decoded sources
+(`engine.source_cache`). There is no mesh (`tpu.data_parallel`).
 Config options whose code is not in the port raise at startup
 (`check_ported`). Accepted but inert: the batcher's failover knobs
 (`tpu.host_fallback`, `device_stall_s`, `spill_wait_ms`) and
@@ -43,6 +47,7 @@ from aiohttp import web
 from .. import config as config_mod
 from .. import device as device_mod
 from ..engine import Engine, native_codecs
+from ..engine.source_cache import SourceCache
 from ..engine.batcher import (REQUEST_CANCEL, REQUEST_DEADLINE,
                               BatcherOverload, BatchingRunner, MicroBatcher,
                               RequestExpired)
@@ -68,9 +73,7 @@ REQUEST_TIMEOUT_SECS = 10.0  # tower TimeoutLayer (main.rs:105-107)
 _UNPORTED = (
     ("tpu.fast_decode", lambda c: c.tpu.fast_decode),
     ("tpu.fast", lambda c: c.tpu.fast),
-    ("tpu.workers > 0", lambda c: c.tpu.workers > 0),
     ("tpu.data_parallel", lambda c: c.tpu.data_parallel),
-    ("tpu.source_cache_mb > 0", lambda c: c.tpu.source_cache_mb > 0),
     ("tpu.profile_dir", lambda c: bool(c.tpu.profile_dir)),
 )
 
@@ -196,22 +199,43 @@ async def ping_handler(request: web.Request) -> web.Response:
     return web.Response(text="pong")
 
 
+def kernel_launches() -> dict:
+    """This process's launch counts of every CUDA kernel."""
+    return {**resample_kernels.launch_counts(),
+            **jpeg_decode_kernels.launch_counts(),
+            **cmyk_lut_kernels.launch_counts()}
+
+
 async def stats_handler(request: web.Request) -> web.Response:
     """Additive observability endpoint (the reference has none):
     engine and batcher counters, the CUDA kernels' launch counts, cache
-    stats."""
+    stats. In a gateway worker the batcher and the kernels live in the
+    device service: their counters come from there (None when it does
+    not answer); the engine and the caches are this worker's."""
     state: State = request.app[STATE_KEY]
-    batcher = getattr(state.engine.runner, "batcher", None)
+    runner = state.engine.runner
+    extra = {}
+    if hasattr(runner, "service_stats"):
+        service = await asyncio.to_thread(runner.service_stats) or {}
+        batcher_stats = service.get("batcher")
+        launches = service.get("kernel_launches")
+        # the socket's share of f_device (server.workers)
+        extra["service"] = service.get("service")
+    else:
+        batcher = getattr(runner, "batcher", None)
+        batcher_stats = dict(batcher.stats) if batcher is not None else None
+        launches = kernel_launches()
+    scache = state.engine.source_cache
     body = {
         "engine": dict(state.engine.stats),
-        "batcher": dict(batcher.stats) if batcher is not None else None,
-        "kernel_launches": {**resample_kernels.launch_counts(),
-                            **jpeg_decode_kernels.launch_counts(),
-                            **cmyk_lut_kernels.launch_counts()},
+        "batcher": batcher_stats,
+        "kernel_launches": launches,
         "caches": {
             "responses": (state.response_cache.stats()
                           if state.response_cache is not None else None),
+            "sources": scache.stats() if scache is not None else None,
         },
+        **extra,
     }
     return web.Response(text=json.dumps(body), content_type="application/json")
 
@@ -296,7 +320,8 @@ def create_app(cfg: config_mod.Config, state: State) -> web.Application:
 
 
 async def build_state(cfg: config_mod.Config,
-                      device: Optional[torch.device] = None) -> State:
+                      device: Optional[torch.device] = None, runner=None,
+                      device_decode: Optional[bool] = None) -> State:
     """Startup sequence, mirroring reference main() (main.rs:63-81):
     option check -> device -> micro-batcher -> infra client -> state
     -> fallback preload (failure only warns) -> the ICC profile, its
@@ -307,19 +332,28 @@ async def build_state(cfg: config_mod.Config,
     and `dct_pack_floor` are not ported and do nothing.
 
     device: where the engine runs; defaults to CUDA and raises when
-    CUDA is absent. Tests pass torch.device("cpu") explicitly."""
+    CUDA is absent. Tests pass torch.device("cpu") explicitly.
+    runner: a gateway worker's server.workers.RemoteRunner
+    (fanlin_tpu/server/app.py:451-459). With a runner no batcher is
+    built and no device is touched here, CMYK stays on host lcms2
+    (`device_icc` needs a local batcher), and `device_decode` is the
+    device service's (default: `tpu.device_decode`)."""
     check_ported(cfg)
-    device_mod.configure()
-    if device is None:
-        device = device_mod.cuda_device()
+    if runner is None:
+        device_mod.configure()
+        if device is None:
+            device = device_mod.cuda_device()
+        runner = BatchingRunner(MicroBatcher(
+            cfg.tpu.max_batch, cfg.tpu.batch_window_ms, device=device,
+            pipeline_depth=cfg.tpu.pipeline_depth,
+            max_queue=cfg.tpu.max_queue))
+    if device_decode is None:
+        device_decode = cfg.tpu.device_decode
     native_codecs.set_webp_method(cfg.tpu.webp_method)
-    batcher = MicroBatcher(cfg.tpu.max_batch, cfg.tpu.batch_window_ms,
-                           device=device,
-                           pipeline_depth=cfg.tpu.pipeline_depth,
-                           max_queue=cfg.tpu.max_queue)
-    engine = Engine(device, runner=BatchingRunner(batcher),
-                    device_decode=cfg.tpu.device_decode,
+    engine = Engine(device, runner=runner, device_decode=device_decode,
                     device_dct=cfg.tpu.device_dct)
+    if cfg.tpu.source_cache_mb:
+        engine.source_cache = SourceCache(cfg.tpu.source_cache_mb)
     if cfg.tpu.codec_threads:
         from concurrent.futures import ThreadPoolExecutor
 
@@ -342,7 +376,7 @@ async def build_state(cfg: config_mod.Config,
     # start (the fallback would serve other bytes).
     if cfg.profile_path:
         state.create_cmyk_to_rgb_converter(cfg.profile_path)
-        if cfg.tpu.device_icc:
+        if cfg.tpu.device_icc and isinstance(runner, BatchingRunner):
             state.engine.enable_device_icc()
     if cfg.use_embedded_profile:
         state.enable_embedded_profile_utilization()

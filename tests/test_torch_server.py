@@ -1,7 +1,8 @@
 """The port's HTTP gateway (fanlin_tpu_torch.server.app) through
 aiohttp's TestClient on the CPU, over the file origin — the request
 semantics of tests/test_server.py: ping, transforms, 404, 400 on a bad
-query, options the port lacks refused at startup — and its micro-batcher:
+query, options the port lacks refused at startup and the scale-out ones
+accepted — and its micro-batcher:
 coalescing, 503 on overload, 408 on an expired deadline, /stats and
 cleanup."""
 
@@ -111,9 +112,7 @@ def test_gateway_requests():
 
 @pytest.mark.parametrize("tpu,extra", [
     ('{"fast_decode": true}', ""),
-    ('{"workers": 2}', ""),
     ('{"data_parallel": true}', ""),
-    ('{"source_cache_mb": 8}', ""),
 ])
 def test_unported_options_refused_at_startup(tpu, extra):
     cfg = _config(tpu, extra)
@@ -122,6 +121,26 @@ def test_unported_options_refused_at_startup(tpu, extra):
     with pytest.raises(ConfigError):
         asyncio.run(build_state(cfg, device=CPU))
     assert cli.main(["-j", json.dumps(_raw(tpu, extra))]) == 1
+
+
+@pytest.mark.parametrize("tpu", ['{"workers": 2}', '{"source_cache_mb": 8}'])
+def test_scale_out_options_accepted_at_startup(tpu):
+    """tpu.workers and tpu.source_cache_mb are ported
+    (tests/test_torch_workers.py and test_torch_source_cache.py serve
+    with each): they pass the option check and build a state; the source
+    cache hangs on the engine, and workers only matter to the CLI, which
+    forks them."""
+    cfg = _config(tpu)
+    check_ported(cfg)
+    state = asyncio.run(build_state(cfg, device=CPU))
+    try:
+        cache = state.engine.source_cache
+        if cfg.tpu.source_cache_mb:
+            assert cache.stats()["max_bytes"] == 8 * 1024 * 1024
+        else:
+            assert cache is None and cfg.tpu.workers == 2
+    finally:
+        assert state.engine.runner.batcher.close()
 
 
 @pytest.mark.parametrize("tpu,extra", [
