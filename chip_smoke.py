@@ -122,18 +122,47 @@ Phases (each failure exits non-zero; nothing is caught):
      off, beside phase 1's build seconds; (g) "source_cache_mb": 64 and
      three variants of lenna on one connection: bodies of the uncached
      server, 2 hits; (h) SIGTERM: exit 0 within 15 s, no worker left
+  9. the folded fast path (tpu.fast_decode: K11, torch code) and
+     tpu.data_parallel on one card: (a) K11
+     (jpeg_decode.folded_decode_resample) on the card against the same
+     code on the CPU at full f32, <= 1 LSB and <= 0.5 % differing, over
+     its f32 output and the folded route's pixels, on README 4:4:4 B=1,
+     8, 16, synth 4:2:0 B=16, 4:2:2, 4:4:0 and gray sources, odd dims
+     (641x479, 7x5), 12 MP 4:2:0 B=2 and blur; (b) the golden corpus
+     through Engine(dev, fast_decode=True) against Engine(dev), >= 45 dB
+     each: a folded request counts coef_src and launches neither
+     jpeg_decode_rgb nor the resample kernel, a grayscale or invert one
+     one of each; (c) the server with "tpu": {"fast_decode": true}: the
+     README request, its WebP and blur variants and synth answer 200
+     with a serial Engine's bodies, 16 README requests from 16 threads
+     ride <= 4 folded batches with no decode or resample launch, and at
+     workers 4 every body equals the single process's (the service
+     launching neither kernel); (d) "tpu": {"data_parallel": true} in
+     one process and at workers 4: the default config's bodies, only the
+     service holding the card; (e) at README B=1, 8, 16, synth B=16 and
+     12 MP B=2, in turns, the folded route (K11, composite, crop) against
+     the staged one (jpeg_decode_rgb, then the resample kernel) from the
+     same uploaded wire, and K11 alone: event ms, device ms and kernels
+     per call (torch.profiler), K11's bound (FLOP of its products at the
+     f32 rate, bytes at 3.35 TB/s) and its CPU ms; the README request's
+     stage times with fast_decode and the default route in turns
 Launch counts are set to 0 just before each main-path run (the pixel
 Engine, the coefficient Engine, the server, each phase-5 burst, the two
 jpegdct engines and the jpegdct server burst of phase 6, the CMYK engine
-and the CMYK server burst of phase 7) and read just after it; phase 8's
-counts live in the device service, and its windows ((b) and (c)) are the
-differences of a worker's /stats read just before and just after each.
+and the CMYK server burst of phase 7, the fast_decode engine and the
+fast_decode server burst of phase 9) and read just after it; phase 8's
+and 9's worker-mode counts live in the device service, and their
+windows are the differences of a worker's /stats read just before and
+just after each.
 Every kernel of the serving path (resample, resample_blur,
 jpeg_decode_rgb) must have been launched by the coefficient engine, the
 server, phase 5 (b) and phase 8 (b), jpeg_decode_cmyk_rgb by both CMYK
 runs and K12b by the CMYK engine (its EXIF-rotated request), and neither
 by an earlier run; K12a by no run.
 
+Before them a {"torch_programs": [...]} line gives K11's figures (torch
+code, not a kernel): its folded batches on the main path, worst error,
+event, device and CPU ms, kernels per call and bound at README B=16.
 The second-to-last line is {"kernels": [...]}: each kernel's main-path
 launches (K12a: 0, with phase 7's as checked_launches), worst error,
 event and plain ms, bound and library ms (the CMYK kernels at
@@ -616,21 +645,27 @@ def _time_turns(fns: dict, reps: int, launches: int) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
+# uncounted calls that open each profiler trace (`_traced`)
+OPENING_CALLS = 5
+
+
 def _traced(fn, calls: int) -> tuple:
     """torch.profiler's records of `calls` calls of `fn`: (kernel
     records, the number of kernel launches) of those calls, each kernel
     matched to its launch by correlation id. The profiler loses the
     kernel records of the first launches of a trace (on the H100 they
-    were missing there and nowhere else), so each trace opens with one
-    call, a synchronize and a 20 ms pause, none of them counted; a line
-    says how many of that call's records were lost."""
+    were missing there and nowhere else: up to 7 of them, more than a
+    call of a 3-kernel function launches), so each trace opens with
+    OPENING_CALLS calls, a synchronize and a 20 ms pause, none of them
+    counted; a line says how many of their records were lost."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(OPENING_CALLS):
+            fn()
         torch.cuda.synchronize()
         # the profiler's clock counts ns since the epoch; the mark sits
         # 10 ms from either side's launches
@@ -648,7 +683,7 @@ def _traced(fn, calls: int) -> tuple:
     opening = {e.correlation_id() for e in launches if e.start_ns() < mark}
     if opening - seen:
         print(f"the profiler lost {len(opening - seen)} of {len(opening)} "
-              "kernel records of the trace's opening call (not measured)",
+              "kernel records of the trace's opening calls (not measured)",
               flush=True)
     launched = {e.correlation_id() for e in launches} - opening
     kernels = [e for e in events if e.device_type() == cuda
@@ -993,6 +1028,7 @@ class _BatchLog:
 
         self.rows = []
         self.kinds = []
+        self.folded = 0  # batches on the folded route (K11)
         self._fused = fused
         self._real = fused.make_assembly
 
@@ -1002,6 +1038,7 @@ class _BatchLog:
             self.rows.append((len(plans), len({id(p) for p in plans}),
                               len(set(kinds)), asm.uses_kernel()))
             self.kinds.extend(kinds)
+            self.folded += bool(getattr(asm, "fold", False))
             return asm
 
         self._fused.make_assembly = make
@@ -1226,18 +1263,19 @@ def k9_bound(w: int, h: int, b: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def _device_ms_all(fn, calls: int) -> float:
-    """Device ms per call of `fn`: every kernel torch.profiler saw over
-    `calls` calls (K9 is torch code: many small kernels), summed; every
-    launch must have its kernel record (`_traced`), or the trace is taken
-    again, up to three times."""
+def _device_ms_all(fn, calls: int) -> tuple:
+    """(device ms per call, kernels per call) of `fn`: every kernel
+    torch.profiler saw over `calls` calls (K9 and K11 are torch code:
+    many small kernels), summed; every launch must have its kernel record
+    (`_traced`), or the trace is taken again, up to three times."""
     for _ in range(3):
         recs, n = _traced(fn, calls)
         if n > 0 and len(recs) == n:
-            return sum(e.duration_ns() for e in recs) / 1e6 / calls
-        print(f"the profiler saw {len(recs)} kernels for {n} launches of "
-              "the K9 tail: tracing again", flush=True)
-    check(False, "the profiler missed launches of the K9 tail three times")
+            return (sum(e.duration_ns() for e in recs) / 1e6 / calls,
+                    n / calls)
+        print(f"the profiler saw {len(recs)} kernels for {n} launches: "
+              "tracing again", flush=True)
+    check(False, "the profiler missed launches three times")
 
 
 def phase6_tail(dev: torch.device) -> dict:
@@ -1310,7 +1348,7 @@ def phase6_tail(dev: torch.device) -> dict:
         def tail(card_planes=card_planes, tables=tables):
             return dct.ycbcr420_to_planar(*card_planes, *tables)
 
-        dev_ms = _device_ms_all(tail, 10)
+        dev_ms = _device_ms_all(tail, 10)[0]
         ev_ms = _time_turns({"k9": tail}, 10, 5)["k9"]
         t0 = time.perf_counter()
         dct.ycbcr420_to_planar(*planes, *dct.ijg_quant_tables(75))
@@ -2504,6 +2542,378 @@ async def _phase8(dev: torch.device, folder: str, build_s: float) -> dict:
     return windows
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the folded fast path (P8, tpu.fast_decode; K11 as torch code)
+# and tpu.data_parallel on one card (F2)
+
+# (name, _decode_source kind, query, images, timed): K11's shapes. The
+# README request at B = 1, 8, 16, synth 4:2:0 at 16, 4:2:2, 4:4:0 and
+# gray sources, odd dims, a 12 MP camera source and blur.
+FOLD_SHAPES = [
+    ("lenna444_b1", "lenna", "w=300&h=200", 1, True),
+    ("lenna444_b8", "lenna", "w=300&h=200", 8, True),
+    ("lenna444_b16", "lenna", "w=300&h=200", 16, True),
+    ("synth420_b16", "synth", "w=300&h=200", 16, True),
+    ("pil422_b4", "pil422", "w=300&h=200", 4, False),
+    ("grid440_b4", "grid440", "w=300&h=200", 4, False),
+    ("gridgray_b4", "gridgray", "w=300&h=200", 4, False),
+    ("odd420_641x479_b2", "odd420", "w=300&h=200", 2, False),
+    ("odd422_641x479_n3_b4", "odd422", "w=97&h=89", 3, False),
+    ("tiny420_7x5_b1", "tiny420", "w=3&h=2", 1, False),
+    ("12mp420_b2", "12mp", "w=1200&h=800", 2, True),
+    ("lenna444_blur_b8", "lenna", "w=100&h=80&blur=1", 8, False),
+]
+# (c)'s requests: the README request, its WebP and blur variants, and a
+# 4:2:0 source
+FOLD_URLS = [
+    (README, None),
+    (README + "&webp=true&quality=20", {"Accept": "image/webp"}),
+    (README + "&blur=1", None),
+    ("/baz/synth_src.jpg?w=300&h=200", None),
+]
+FOLD_GOLDEN_FLOOR_DB = 45.0  # tests/test_folded_decode.py's parity bar
+
+
+def k11_bound(asm) -> dict:
+    """The least work of one K11 call on `asm`'s batch: the int16 block
+    wire and quant tables read once, the folded matrices read once, the
+    (B, 3, OH, OW) f32 result written once; the FLOP of the matrix
+    products (a multiply-add as two): per plane the AC pair over the
+    grid's planar size and the DC pair over its block grid. The bound is
+    the larger time, f32 at the card's rate outside the tensor cores."""
+    from fanlin_tpu_torch.ops import plan as plan_mod
+
+    mats = plan_mod._folded_padded(asm.plans[0], asm.subsamp)
+    (oh, gh), (ow, sw) = mats[0].shape, mats[1].shape
+    dv, dh = DIVISORS[asm.subsamp]
+    flop = 0
+    for h, w in ((gh, sw),) + ((gh // dv, sw // dh),) * 2:
+        flop += 2 * oh * h * w + 2 * oh * w * ow
+        flop += 2 * oh * (h // 8) * (w // 8) + 2 * oh * (w // 8) * ow
+    flop *= asm.b
+    nbytes = (asm.upload_bytes + 4 * asm.b * 3 * oh * ow
+              + sum(m.nbytes for m in {id(m): m for m in mats}.values()))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / F32_FLOP_PER_S * 1e3
+    return {"bytes": nbytes, "f32_flop": flop,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase9_kernels(dev: torch.device) -> dict:
+    """(a) K11 on the card against the same torch code on the CPU, at
+    full f32 (<= 1 LSB, <= 0.5 % of bytes differing) on FOLD_SHAPES, over
+    K11's f32 output and over the folded route's u8 pixels (composite,
+    blur, crop); (e) at the timed shapes, in turns, the folded route
+    against the staged one (jpeg_decode_rgb then the resample kernel),
+    both from the uploaded wire: event ms, device ms and kernels per
+    call (torch.profiler), K11's bound and share, and K11's CPU ms."""
+    from fanlin_tpu_torch.ops import fused, plan as plan_mod
+    from fanlin_tpu_torch.ops import jpeg_decode_kernels as jk
+    from fanlin_tpu_torch.ops import resample_kernels as rk
+    from fanlin_tpu_torch.spec.query import parse_query
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(20261019)
+    results = {}
+    for name, kind, qs, images, timed in FOLD_SHAPES:
+        meta, _ = _decode_source(kind, rng)
+        plan = plan_mod.plan_image(meta["w"], meta["h"], parse_query(qs),
+                                   opaque=True)
+        asm = fused.CoefBatchAssembly([plan] * images, [meta] * images, dev,
+                                      fold=True)
+        ref = fused.CoefBatchAssembly([plan] * images, [meta] * images, cpu,
+                                      fold=True)
+        check(asm.fold and not asm.uses_kernel(),
+              f"phase9a {name}: the batch does not fold")
+        wire = asm.device_wire()
+        ref_wire = ref.device_wire()
+        fg = asm.folded(wire)
+        torch.cuda.synchronize()
+        want = ref.folded(ref_wire)
+        d = (fg[:images].cpu() - want[:images]).abs()
+        err, frac = int(d.max()), float((d > 0).float().mean())
+        got_px, want_px = asm.run(), ref.run()
+        dp = np.concatenate([np.abs(g.astype(np.int32) - w.astype(np.int32))
+                             .ravel() for g, w in zip(got_px, want_px)])
+        px_err, px_frac = int(dp.max()), float((dp > 0).mean())
+        print(f"phase9a {name} {meta['w']}x{meta['h']} {asm.subsamp} "
+              f"B={asm.b} n={images} grid {plan_mod.bucket_h16(asm.true_h)}"
+              f"x{asm.sw} out "
+              f"{tuple(fg.shape[2:])}: K11 card vs CPU max {err} "
+              f"frac {frac:.2e}; route pixels max {px_err} frac "
+              f"{px_frac:.2e}", flush=True)
+        check(err <= MAX_LSB and frac <= MAX_FRAC and px_err <= MAX_LSB
+              and px_frac <= MAX_FRAC,
+              f"phase9a {name}: the card's K11 differs from the CPU's")
+        res = {"err": max(err, px_err)}
+        if timed:
+            av, ah, bv, bh = (fused._device_cached(a, dev)
+                              for a in plan_mod._uniform_padded(plan))
+            bands = fused._device_cached(plan_mod._uniform_bands(plan), dev)
+            flags, fill, box = (torch.from_numpy(a).to(dev)
+                                for a in (asm.flags, asm.fill, asm.box))
+            dec = (asm.subsamp, asm.true_h, asm.true_w, asm.sh, asm.sw,
+                   images)
+
+            def staged():
+                x = jk.jpeg_decode_rgb(*wire, *dec)
+                return rk.resample_uniform(flags, fill, box, av, ah, x, bv,
+                                           bh, crop=(plan.out_h, plan.out_w),
+                                           bands=bands)
+
+            def folded():
+                return asm.folded_pixels(wire, flags, fill, box)
+
+            def k11():
+                return asm.folded(wire)
+
+            big = kind == "12mp"
+            ev = _time_turns({"staged": staged, "folded": folded,
+                              "k11": k11}, reps=5 if big else 10,
+                             launches=10 if big else 50)
+            dms = {n: _device_ms_all(f, 5 if big else 20)
+                   for n, f in (("staged", staged), ("folded", folded),
+                                ("k11", k11))}
+            cpu_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                ref.folded(ref_wire)
+                cpu_ms.append((time.perf_counter() - t0) * 1e3)
+            bnd = k11_bound(asm)
+            res.update(ms=ev["k11"], device_ms=dms["k11"][0],
+                       kernels_per_call=dms["k11"][1],
+                       plain_ms=statistics.median(cpu_ms), bound=bnd)
+            for n in ("staged", "folded", "k11"):
+                print(f"phase9e {name} {n}: event_ms={ev[n]:.4f} "
+                      f"device_ms={dms[n][0]:.4f} kernels per call "
+                      f"{dms[n][1]:.1f}", flush=True)
+            print(f"phase9e {name} K11 needs {bnd['bytes']} B and "
+                  f"{bnd['f32_flop']} f32 FLOP: bound {bnd['bound_ms']:.4f} "
+                  f"ms by {bnd['bound_by']}, {bnd['bound_ms'] / dms['k11'][0] * 100:.1f} "
+                  f"% of it on device time, {bnd['bound_ms'] / ev['k11'] * 100:.1f} "
+                  f"% on event time; CPU (plain) "
+                  f"{res['plain_ms']:.4f} ms", flush=True)
+        results[name] = res
+    return results
+
+
+class _Captured:
+    """An Engine runner that keeps the device result of each call (the
+    pixels, or the encode front-end's planes, before the host encode)."""
+
+    def __init__(self, runner):
+        self.runner = runner
+        self.device = runner.device
+        self.last = None
+
+    def run(self, plans, images, kinds=None):
+        out = self.runner.run(plans, images, kinds)
+        self.last = out[0]
+        return out
+
+
+def _result_arrays(res) -> np.ndarray:
+    """One device result (pixels, or a ("ycbcr420", y, cb, cr)-style
+    tuple) as one flat int32 array."""
+    parts = res[1:] if isinstance(res, tuple) else (res,)
+    return np.concatenate([np.asarray(p, np.int32).ravel() for p in parts
+                           if isinstance(p, np.ndarray)])
+
+
+def phase9_engine(dev: torch.device):
+    """(b) The golden corpus through Engine(dev, fast_decode=True) against
+    Engine(dev), held to the JAX package's budget for the fold
+    (tests/test_folded_decode.py): >= 45 dB and max |diff| <= 16 on the
+    device result before the host encode; the encoded bodies' dB is
+    printed beside it (two JPEG encodes at q75 turn the fold's few LSB
+    into more: the JAX package's own folded and exact routes read 43.1-
+    43.7 dB apart there on lenna crop100 and synth upscale700x600). A
+    folded request counts coef_src and launches neither jpeg_decode_rgb
+    nor the resample kernel; a grayscale or invert one (staged) launches
+    one of each. Returns (engine, folded batches, launch window)."""
+    from PIL import Image
+
+    from fanlin_tpu_torch.engine import Engine
+    from fanlin_tpu_torch.ops import fused
+    from fanlin_tpu_torch.spec.content import Format
+
+    fold = Engine(dev, fast_decode=True)
+    fold.runner = _Captured(fold.runner)
+    folded = 0
+    runs = []
+    _reset_counts()
+    for src, data, cfg, q in _golden_sources():
+        before = _counts()
+        with _BatchLog() as log:
+            _, body = fold.process_image(data, q, Format())
+        added = {k: v - before[k] for k, v in _counts().items()}
+        want_fold = not (q.grayscale() or q.inverse())
+        check(log.folded == int(want_fold) and all(
+            k.split("+")[0].endswith(fused.FOLD_SUFFIX) == want_fold
+            for k in log.kinds), f"phase9b {src}/{cfg}: kinds {log.kinds}")
+        resample = added["resample"] + added["resample_blur"]
+        check(resample == added["jpeg_decode_rgb"] == (0 if want_fold else 1),
+              f"phase9b {src}/{cfg}: launches {added}")
+        folded += log.folded
+        runs.append((src, data, cfg, q, body,
+                     _result_arrays(fold.runner.last), added, log.kinds))
+    window = _counts()
+    check(fold.stats == {"pixel_src": 0, "coef_src": len(runs)},
+          f"phase9b engine stats {fold.stats}")
+    # the default route after the window, on the same requests
+    staged = Engine(dev)
+    staged.runner = _Captured(staged.runner)
+    for src, data, cfg, q, body, got_px, added, kinds in runs:
+        want = staged.process_image(data, q, Format())[1]
+        ref_px = _result_arrays(staged.runner.last)
+        d_px = psnr(got_px, ref_px)
+        max_px = int(np.abs(got_px - ref_px).max())
+        with Image.open(io.BytesIO(body)) as im:
+            got = np.asarray(im.convert("RGB"), dtype=np.int32)
+        with Image.open(io.BytesIO(want)) as im:
+            ref = np.asarray(im.convert("RGB"), dtype=np.int32)
+        print(f"phase9b {src}/{cfg} fast_decode vs default: device result "
+              f"{d_px:.2f} dB, max |diff| {max_px}; encoded bodies "
+              f"{psnr(got, ref):.2f} dB, max |diff| "
+              f"{int(np.abs(got - ref).max())}; launches {added}, kinds "
+              f"{kinds}", flush=True)
+        check(d_px >= FOLD_GOLDEN_FLOOR_DB and max_px <= 16,
+              f"phase9b {src}/{cfg}: {d_px:.2f} dB, max {max_px}")
+    return fold, folded, window
+
+
+async def _phase9_inproc(dev: torch.device, folder: str, burst: bool = False,
+                         **tpu) -> dict:
+    """FOLD_URLS through the single-process server (build_state on the
+    card in this process) with phase 8's deployment and `tpu`; with
+    `burst`, (c)'s 16 README requests from 16 threads through its engine
+    too. Returns {"bodies": {url: body}} and, with burst, the burst's
+    launch window and folded batches."""
+    from aiohttp import web
+
+    from fanlin_tpu_torch.config import Config
+    from fanlin_tpu_torch.engine import Engine
+    from fanlin_tpu_torch.server.app import build_state, create_app
+    from fanlin_tpu_torch.spec.content import Format
+    from fanlin_tpu_torch.spec.query import parse_query
+
+    cfg = Config.from_obj(_cli_config(folder, 0, **tpu))
+    state = await build_state(cfg, device=dev)
+    check(state.engine.fast_decode == bool(tpu.get("fast_decode")),
+          f"phase9: the engine's fast_decode with {tpu}")
+    batcher = state.engine.runner.batcher
+    runner = web.AppRunner(create_app(cfg, state), access_log=None)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", 0).start()
+    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+    serial = Engine(dev, fast_decode=bool(tpu.get("fast_decode")))
+    out = {"bodies": {}}
+    try:
+        async with _fresh_session() as s:
+            for url, headers in FOLD_URLS:
+                status, body, _, _ = await _get(s, base, url, headers)
+                check(status == 200, f"phase9 {tpu} {url}: status {status}")
+                path, _, qs = url.partition("?")
+                accepted = Format()
+                if headers:
+                    accepted.accept_webp()
+                with open(os.path.join(GOLDEN, os.path.basename(path)),
+                          "rb") as f:
+                    want = serial.process_image(f.read(), parse_query(qs),
+                                                accepted)[1]
+                check(body == want, f"phase9 {tpu} {url}: the HTTP body "
+                      "differs from the serial Engine's")
+                out["bodies"][url] = body
+        if burst:
+            with open(os.path.join(GOLDEN, "lenna_src.jpg"), "rb") as f:
+                lenna = f.read()
+            before = dict(batcher.stats)
+            with _BatchLog() as log:
+                _reset_counts()
+                bodies, wall = await asyncio.to_thread(
+                    _thread_burst, state.engine, lenna, "w=300&h=200", 16)
+                window = _counts()
+            batches = batcher.stats["batches"] - before["batches"]
+            print(f"phase9c fast_decode server: 16 README requests from 16 "
+                  f"threads in {batches} batches {[r[0] for r in log.rows]}, "
+                  f"kinds {sorted(set(log.kinds))}, {log.folded} folded, "
+                  f"launches {window}, wall {wall * 1000:.3f} ms", flush=True)
+            check(batches <= 4 and len(log.rows) == batches == log.folded
+                  and all(r[1] == r[2] == 1 and not r[3] for r in log.rows),
+                  f"phase9c: {batches} batches, {log.rows}, {log.folded} "
+                  "folded")
+            check(window["resample"] == window["resample_blur"]
+                  == window["jpeg_decode_rgb"] == 0,
+                  f"phase9c: a folded batch launched {window}")
+            check(all(b == out["bodies"][README] for b in bodies),
+                  "phase9c: a batched body differs from the serial one")
+            out.update(window=window, folded=log.folded)
+    finally:
+        await runner.cleanup()
+    return out
+
+
+async def _phase9_workers(dev: torch.device, folder: str) -> dict:
+    """(c) fast_decode and (d) data_parallel (one card) in one process and
+    at workers 4. Returns the launch windows of the in-process burst and
+    of the worker-mode requests (from a worker's /stats), and the folded
+    batches of the burst."""
+    from fanlin_tpu_torch.engine import warmup
+
+    fold = await _phase9_inproc(dev, folder, burst=True, fast_decode=True)
+    default = await _phase9_inproc(dev, folder)
+    dp = await _phase9_inproc(dev, folder, data_parallel=True)
+    check(dp["bodies"] == default["bodies"], "phase9d: data_parallel's "
+          "bodies differ from the default config's")
+    print("phase9d data_parallel in one process: the default config's "
+          f"{len(dp['bodies'])} bodies", flush=True)
+    windows = {"phase9c": fold["window"]}
+    servers = []
+    kinds = len(warmup._kinds(True, False, True))
+    try:
+        srv = _CliServer(folder, workers=4, fast_decode=True)
+        servers.append(srv)
+        srv.wait_banners()
+        await _wait_warm(srv, len(warmup.DEFAULT_SHAPES) * 2 * kinds)
+        dps = _CliServer(folder, workers=4, data_parallel=True, warmup=False)
+        servers.append(dps)
+        dps.wait_banners()
+        async with _fresh_session() as s:
+            for label, server, want in (
+                    ("phase9c fast_decode", srv, fold["bodies"]),
+                    ("phase9d data_parallel", dps, default["bodies"])):
+                before = await _get_stats(s, server.base)
+                for url, headers in FOLD_URLS:
+                    status, body, _, _ = await _get(s, server.base, url,
+                                                    headers)
+                    check(status == 200 and body == want[url],
+                          f"{label} workers 4 {url}: status {status}, or a "
+                          "body that differs from the single process's")
+                after = await _get_stats(s, server.base)
+                w = _diff(after["kernel_launches"], before["kernel_launches"])
+                print(f"{label} workers 4: {len(FOLD_URLS)} bodies "
+                      f"byte-equal to the single process's; service "
+                      f"launches {w}", flush=True)
+                if server is srv:
+                    check(w["resample"] == w["resample_blur"]
+                          == w["jpeg_decode_rgb"] == 0,
+                          f"phase9c workers 4: the service launched {w}")
+                    windows["phase9c workers"] = w
+                else:
+                    check(w["jpeg_decode_rgb"] == len(FOLD_URLS),
+                          f"phase9d workers 4: the service launched {w}")
+                    windows["phase9d workers"] = w
+        _card_clients(dps)
+        for label, server in (("fast_decode", srv), ("data_parallel", dps)):
+            print(f"phase9 workers 4 {label}: SIGTERM to exit 0 in "
+                  f"{server.terminate():.3f} s", flush=True)
+    finally:
+        for server in servers:
+            server.kill()
+    return windows, fold["folded"]
+
+
 def main() -> int:
     smi = phase0()
     from fanlin_tpu_torch import device as device_mod
@@ -2551,6 +2961,12 @@ def main() -> int:
     windows["cmyk server"] = asyncio.run(_phase7_server(dev, cmyk_dir))
     # phase 8: worker mode, N gateway workers around one device service
     windows.update(asyncio.run(_phase8(dev, cmyk_dir, build_s)))
+    # phase 9: the folded fast path (tpu.fast_decode, K11) and
+    # tpu.data_parallel on one card
+    k11 = phase9_kernels(dev)
+    fold_engine, n_folded, windows["fold engine"] = phase9_engine(dev)
+    w9, burst_folded = asyncio.run(_phase9_workers(dev, cmyk_dir))
+    windows.update(w9)
     for name, c in windows.items():
         print(f"launch counts ({name}): {c}", flush=True)
     for name in earlier:
@@ -2604,6 +3020,12 @@ def main() -> int:
     # and the README request through the CMYK engine (a YCbCr source)
     readme_stage_times(coef_engine, "coefficient (beside phase 7)")
     readme_stage_times(cmyk_engine, "coefficient, CMYK engine")
+    # phase 9 (e): the fast_decode route and the default one in turns
+    for label, engine in (("coefficient", coef_engine),
+                          ("fast_decode", fold_engine),
+                          ("fast_decode", fold_engine),
+                          ("coefficient", coef_engine)):
+        readme_stage_times(engine, label)
     print("phase6e K9 tail summary " + json.dumps(k9), flush=True)
     check("jax" not in sys.modules, "jax was imported")
     check("fanlin_tpu" not in sys.modules, "fanlin_tpu was imported")
@@ -2666,6 +3088,19 @@ def main() -> int:
         if key == "k12a":
             entry["checked_launches"] = checked[name]
         kernels.append(entry)
+    # K11 is torch code, not a kernel: its figures on a line of their own
+    # (README B=16; launches: the folded batches of (b) and (c)'s burst)
+    t = k11["lenna444_b16"]
+    print(json.dumps({"torch_programs": [{
+        "name": "folded_decode_resample", "route": "torch",
+        "source": "fanlin_tpu_torch/ops/jpeg_decode.py",
+        "replaces": "fanlin_tpu/ops/jpeg_decode.py:543",
+        "launches": n_folded + burst_folded,
+        "max_abs_err": max(r["err"] for r in k11.values()),
+        "ms": t["ms"], "device_ms": t["device_ms"],
+        "kernels_per_call": t["kernels_per_call"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound"]["bound_ms"], "bound_by": t["bound"]["bound_by"],
+        "library_ms": None}]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

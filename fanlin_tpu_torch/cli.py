@@ -52,7 +52,8 @@ async def serve(cfg: config_mod.Config,
             warmup_mod.warm_host(shapes)
             warmup_mod.warm(state.engine.runner.batcher, shapes,
                             device_decode=state.engine.device_decode,
-                            device_dct=cfg.tpu.device_dct)
+                            device_dct=cfg.tpu.device_dct,
+                            fast_decode=cfg.tpu.fast_decode)
 
         threading.Thread(target=warm, name="fanlin-warmup",
                          daemon=True).start()
@@ -95,7 +96,12 @@ def main(argv=None, device: Optional[torch.device] = None) -> int:
         from .server.workers import serve_multiworker
 
         return serve_multiworker(cfg, device=device)
-    asyncio.run(serve(cfg, device))
+    try:
+        asyncio.run(serve(cfg, device))
+    except config_mod.ConfigError as e:
+        # what only the device can tell (tpu.data_parallel's count)
+        print(f"failed to start: {e}", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -29,3 +29,13 @@ def cuda_device(index: int = 0) -> torch.device:
             "plain versions)"
         )
     return torch.device("cuda", index)
+
+
+def device_count(device: torch.device) -> int:
+    """How many devices of `device`'s type this process sees: what a
+    data-parallel mesh would span (the CPU counts as one). On CUDA this
+    initialises the driver, so call it only where CUDA may be touched:
+    never in a parent process before it forks its workers."""
+    if device.type == "cuda":
+        return torch.cuda.device_count()
+    return 1

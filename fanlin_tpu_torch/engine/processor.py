@@ -31,7 +31,11 @@ decoded-then-rotated pixels by a few LSB at source size (within 1 LSB
 after a downscale in the tests). With `device_dct`, a JPEG output in
 RGB/RGBA mode takes the `jpegdct:Q` sink: the device also runs the 8x8
 DCT and quantisation (`ops.dct`) and the host only entropy-codes the
-coefficients with the port's own encoder (`jpeg_encode`).
+coefficients with the port's own encoder (`jpeg_encode`). With
+`fast_decode` a YCbCr coefficient source without grayscale or invert
+takes the folded decode-resize (`jpeg_decode.folded_decode_resample`)
+in place of the decode and resample kernels: a few LSB from the exact
+decode (>= 45 dB), the opt-in fast path of the reference.
 
 A CMYK or YCCK JPEG takes the reference's colour management when a
 profile is configured (`cmyk2rgb`) or embedded profiles are used: host
@@ -96,7 +100,8 @@ class SyncDeviceRunner:
 class Engine:
     def __init__(self, device: Optional[torch.device] = None, runner=None,
                  device_decode: bool = True, device_dct: bool = False,
-                 cmyk2rgb=None, use_embedded_profile: bool = False):
+                 cmyk2rgb=None, use_embedded_profile: bool = False,
+                 fast_decode: bool = False):
         """device: where the transform runs (torch.device("cuda") to
         serve, torch.device("cpu") for the plain versions); None only
         with a runner that owns its device elsewhere (a gateway
@@ -107,6 +112,10 @@ class Engine:
         device_decode: JPEGs take the coefficient path.
         device_dct: JPEG outputs take the jpegdct sink (device DCT and
         quantisation, host entropy coding only).
+        fast_decode: YCbCr coefficient sources without grayscale or
+        invert take the folded decode-resize (their kind gains
+        fused.FOLD_SUFFIX): within a few LSB of the exact decode, not
+        equal to it.
         cmyk2rgb: the default profile's icc.CMYK2RGB, or None
         (reference handler.rs:19-20); use_embedded_profile: prefer a
         CMYK JPEG's own profile."""
@@ -116,6 +125,7 @@ class Engine:
         self.runner = runner if runner is not None else SyncDeviceRunner(device)
         self.device_decode = device_decode
         self.device_dct = device_dct
+        self.fast_decode = fast_decode
         self.cmyk2rgb = cmyk2rgb
         self.use_embedded_profile = use_embedded_profile
         # the default profile sampled into a device LUT
@@ -302,6 +312,10 @@ class Engine:
                     base += "@" + meta["lut_key"]
             else:
                 base = _COEF_KIND[meta["subsamp"]]
+                # the decision travels in the kind: folded and staged
+                # requests never share a batch
+                if self.fast_decode and not (plan.gray or plan.invert):
+                    base += fused.FOLD_SUFFIX
             kind = base if kind == "rgb" else f"{base}+{kind}"
 
         t1 = time.perf_counter()

@@ -11,7 +11,9 @@ the pinned host staging pool that a first batch of a size grows. So
 kind the Engine routes that shape to: pixel and coefficient sources
 (4:2:0 and 4:4:4), each with the device encode front-ends that are on
 (`jpeg420` and `webp420` with the native codec core, `jpegdct` with
-`tpu.device_dct`).
+`tpu.device_dct`); with `tpu.fast_decode` the coefficient kinds are the
+folded ones (their matrices and device copies, as the JAX package
+compiles its folded programs at startup, fanlin_tpu/engine/warmup.py:202).
 
 The host side of a first request is cold too: PIL loads its format
 plugins at the first open (tens of ms), the host JPEG reader's library
@@ -40,7 +42,7 @@ from typing import Tuple
 
 import numpy as np
 
-from ..ops import filters
+from ..ops import filters, fused
 from ..ops.plan import plan_image
 from ..spec.query import parse_query
 from . import jpeg_coeffs, native_codecs
@@ -102,8 +104,9 @@ def _coef_meta(src_w: int, src_h: int, subsampling: int) -> dict:
     return jpeg_coeffs.read_jpeg_coeffs(buf.getvalue())
 
 
-def _kinds(device_decode: bool, device_dct: bool):
-    """(source, kind) pairs: source is "pix" or a PIL subsampling."""
+def _kinds(device_decode: bool, device_dct: bool, fold: bool = False):
+    """(source, kind) pairs: source is "pix" or a PIL subsampling; with
+    `fold` the coefficient kinds are the folded ones (fast_decode)."""
     sinks = ["rgb"]
     if native_codecs.available():
         sinks.append("jpeg420")
@@ -114,6 +117,8 @@ def _kinds(device_decode: bool, device_dct: bool):
     out = [("pix", sink) for sink in sinks]
     if device_decode:
         for subsampling, base in _COEF_KINDS:
+            if fold:
+                base += fused.FOLD_SUFFIX
             out += [(subsampling, base if sink == "rgb" else f"{base}+{sink}")
                     for sink in sinks]
     return out
@@ -134,17 +139,19 @@ def warm_host(shapes=DEFAULT_SHAPES) -> None:
 
 
 def warm(batcher, shapes=DEFAULT_SHAPES, device_decode: bool = True,
-         device_dct: bool = False) -> int:
+         device_dct: bool = False, fast_decode: bool = False) -> int:
     """Run every (src_w, src_h, query) shape through `batcher` at B=1
-    and B=max_batch on each kind it may take. Returns the number of
-    batches run; a failed batch is logged and skipped, and a closed
-    batcher ends the warmup."""
+    and B=max_batch on each kind it may take (with `fast_decode`, the
+    folded kinds where the Engine would fold the shape's plan). Returns
+    the number of batches run; a failed batch is logged and skipped, and
+    a closed batcher ends the warmup."""
     t0 = time.perf_counter()
-    kinds = _kinds(device_decode, device_dct)
     done = total = 0
     for src_w, src_h, qs in shapes:
         plan = plan_image(src_w, src_h, parse_query(qs), filters.LANCZOS3,
                           opaque=True)
+        kinds = _kinds(device_decode, device_dct,
+                       fast_decode and not (plan.gray or plan.invert))
         payloads = {"pix": np.zeros((src_h, src_w, 3), np.uint8)}
         for b in sorted({1, batcher.max_batch}):
             for src, kind in kinds:

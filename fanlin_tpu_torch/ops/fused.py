@@ -28,6 +28,11 @@ written CUDA resample kernel (`resample_kernels.resample_uniform`),
 whatever its encode tail; the kernel writes 3 channels and a constant
 255 alpha plane is appended where the batch downloads 4. Alpha sources,
 GIF frames and non-uniform batches run the torch chain of `ops.chain`.
+A uniform coefficient batch without grayscale or invert whose kind asks
+for the fold (`tpu.fast_decode`) takes neither kernel: its decode and
+resample run as the folded matrix products of
+`jpeg_decode.folded_decode_resample` (K11, fanlin_tpu/ops/fused.py
+:759-828), then the chain's composite and blur.
 """
 
 from __future__ import annotations
@@ -40,9 +45,11 @@ import torch
 from ..utils.bytelru import ByteLRU
 from . import (cmyk_lut, dct, filters, jpeg_decode, jpeg_decode_kernels,
                resample_kernels)
-from .chain import _transform_kernel, _transform_kernel_uniform
-from .plan import (_pack_params, _uniform_bands, _uniform_padded, bucket_b,
-                   bucket_h, bucket_h16, bucket_w, plan_image)
+from .chain import (_post_resample, _transform_kernel,
+                    _transform_kernel_uniform)
+from .plan import (_folded_padded, _pack_params, _uniform_bands,
+                   _uniform_padded, bucket_b, bucket_h, bucket_h16,
+                   bucket_w, plan_image)
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -433,9 +440,13 @@ class CoefBatchAssembly(BatchAssembly):
 
     PLANES = ("y", "cb", "cr")  # the meta's block grids, in wire order
 
-    def __init__(self, plans, metas, device: torch.device, jpeg420=False):
+    def __init__(self, plans, metas, device: torch.device, jpeg420=False,
+                 fold=False):
         """metas: read_jpeg_coeffs dicts (either package's), all of one
-        (w, h) and subsamp. jpeg420: as for BatchAssembly."""
+        (w, h) and subsamp. jpeg420: as for BatchAssembly. fold: take the
+        folded decode-resize (`tpu.fast_decode`) where the batch allows
+        it: uniform, with no grayscale or invert, which need the decoded
+        pixels (the gate of fanlin_tpu/ops/fused.py:1737-1744)."""
         if len(plans) != len(metas) or not plans:
             raise ValueError("one plan per source, at least one source")
         m0 = metas[0]
@@ -463,6 +474,8 @@ class CoefBatchAssembly(BatchAssembly):
         self.jpeg420 = jpeg420 if geometry_uniform else False
         self.c_out = 4 if any(p.want_alpha for p in plans) else 3
         self.c_in = 3
+        self.fold = bool(fold) and self.uniform and not (p0.gray or
+                                                         p0.invert)
 
         dv, dh = jpeg_decode.chroma_divisors(self.subsamp)
         gh = bucket_h16(self.true_h)  # whole 4:2:0 MCU rows
@@ -493,6 +506,11 @@ class CoefBatchAssembly(BatchAssembly):
             self.uniform, self.has_blur, zeros=self._io.zeros,
         )
 
+    def uses_kernel(self) -> bool:
+        """A folded batch launches neither the decode kernel nor the
+        resample kernel: its decode and resample are matrix products."""
+        return not self.fold and super().uses_kernel()
+
     @property
     def upload_bytes(self) -> int:
         """Host->device bytes of the coefficient wire (blocks + tables)."""
@@ -511,6 +529,37 @@ class CoefBatchAssembly(BatchAssembly):
         return jpeg_decode_kernels.jpeg_decode_rgb(
             *self.device_wire(), self.subsamp, self.true_h, self.true_w,
             self.sh, self.sw, len(self.plans))
+
+    def folded(self, wire):
+        """The folded decode-resize of the uploaded wire (`device_wire()`):
+        (B, 3, OH, OW) f32 resampled pixels (K11)."""
+        y, cb, cr, q = wire
+        mats = [_device_cached(m, self.device)
+                for m in _folded_padded(self.plans[0], self.subsamp)]
+        (ydc, yac), (cbdc, cbac), (crdc, crac) = (
+            jpeg_decode.blocks_to_planar(g) for g in (y, cb, cr))
+        return jpeg_decode.folded_decode_resample(
+            ydc, yac, cbdc, cbac, crdc, crac, q[:, 0], q[:, 1], mats)
+
+    def folded_pixels(self, wire, flags, fill, box):
+        """The folded route on the device: K11 on the uploaded wire, then
+        the pixel path's composite and blur, cropped to the true output
+        dims (as fanlin_tpu/ops/fused.py:2071-2076 does): (B, 3, out_h,
+        out_w) u8."""
+        p0 = self.plans[0]
+        _, _, bv, bh = (_device_cached(a, self.device)
+                        for a in _uniform_padded(p0))
+        out = _post_resample(self.folded(wire), flags, fill, box, bv, bh,
+                             uniform=True, opaque_in=True)
+        return out[:, :, : p0.out_h, : p0.out_w]
+
+    def submit(self):
+        if not self.fold:
+            return super().submit()
+        params = (self._io.upload(a) for a in (self.flags, self.fill,
+                                                self.box))
+        out = self.folded_pixels(self.device_wire(), *params)
+        return self._io.download(_tail(out, self.c_out, self.jpeg420))
 
 
 class CmykCoefBatchAssembly(CoefBatchAssembly):
@@ -563,6 +612,9 @@ class CmykCoefBatchAssembly(CoefBatchAssembly):
 
 
 _COEF_KINDS = ("coef", "coef444", "coef422", "coef440")
+# a coefficient kind with this suffix asks for the folded decode-resize
+# (tpu.fast_decode): "coef444-fold", "coef-fold+jpeg420", ...
+FOLD_SUFFIX = "-fold"
 # "cmyk444" / "cmyk420", "y" for YCCK, "@<profile hash>" for an embedded
 # profile's LUT (the JAX Engine's kind strings)
 _CMYK_KIND = re.compile(r"cmyk(444|420)(y?)(?:@[0-9a-f]+)?")
@@ -593,7 +645,8 @@ def make_assembly(plans, payloads, kinds, device: torch.device):
     """The assembly for a homogeneous batch. Kinds: "rgb" (pixels out),
     "jpeg420", "webp420", "png:N", "jpegdct:Q" for pixel sources
     (payloads are (H, W, C) u8 arrays); "coef", "coef444", "coef422",
-    "coef440", each optionally with "+jpeg420", "+webp420", "+png:N" or
+    "coef440", each optionally with FOLD_SUFFIX (the folded
+    decode-resize) and with "+jpeg420", "+webp420", "+png:N" or
     "+jpegdct:Q", for coefficient sources (payloads are read_jpeg_coeffs
     dicts); "cmyk444", "cmyk420" (+ "y" for YCCK, + "@<key>" for an
     embedded profile's LUT), with the same sinks, for 4-component sources
@@ -610,9 +663,14 @@ def make_assembly(plans, payloads, kinds, device: torch.device):
                              f"dicts of subsamp {subsamp}, ycck {ycck}")
         return CmykCoefBatchAssembly(plans, payloads, device,
                                      _sink_arg(sink or "rgb"))
+    fold = base.endswith(FOLD_SUFFIX)
+    if fold:
+        base = base[: -len(FOLD_SUFFIX)]
     if base in _COEF_KINDS:
         return CoefBatchAssembly(plans, payloads, device,
-                                 _sink_arg(sink or "rgb"))
+                                 _sink_arg(sink or "rgb"), fold=fold)
+    if fold:
+        raise ValueError(f"batch kind {k0!r}: only coefficient kinds fold")
     if sink:
         raise NotImplementedError(
             f"batch kind {k0!r} is not yet in the PyTorch port")

@@ -9,12 +9,21 @@ wrapping products, saturation after the iDCT), on the device of the
 given tensors. These are the plain versions of the CUDA decode kernels
 in `ops.jpeg_decode_kernels` (`jpeg_decode_rgb`, and K3/K4 before it;
 `decode_cmyk` for `jpeg_decode_cmyk`), and the tests hold each against its JAX twin array for array.
+
+Also the folded decode-resize of `tpu.fast_decode` (K11, from
+fanlin_tpu/ops/jpeg_decode.py:436-642): `folded_matrices` composes the
+decode's linear steps into the resample matrices on the host (numpy),
+and `folded_decode_resample` runs them as full-f32 matrix products in
+torch. It is an XLA program in the reference, not a Pallas kernel, and
+stays torch code here.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .dct import _dct_matrix
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -291,6 +300,135 @@ def blocks_to_planar(blocks: torch.Tensor):
     planar = ac.reshape(b, bh, bw, 8, 8).permute(0, 1, 3, 2, 4).reshape(
         b, bh * 8, bw * 8)
     return dc, planar
+
+
+# ----------------------------------------------------------------------------
+# The folded decode-resize (K11, `tpu.fast_decode`)
+# ----------------------------------------------------------------------------
+#
+# Every step between the dequantised coefficients and the resampled
+# pixels is linear (iDCT, triangle chroma upsample, YCbCr->RGB, Lanczos
+# resample), so the decode composes into the resample matrices on the
+# host:
+#     Y_resampled  = (Av·Mv) · C_y · (Ah·Mh)^T
+#     Cb_resampled = (Av·Uv·Mv½) · C_cb · (Ah·Uh·Mh½)^T   (half-res)
+# and the colour conversion runs on the small resampled planes. The
+# staged path's integer roundings (islow, upsample, jdcolor) are skipped,
+# so the result is within a few LSB of it (>= 45 dB), not equal: the
+# opt-in fast path. Port of fanlin_tpu/ops/jpeg_decode.py:436-642 (the
+# dense planar form only).
+
+
+def _upsample_triangle(n_out: int, n_in: int) -> np.ndarray:
+    """The linear part of libjpeg's fancy upsample as an (n_out, n_in)
+    matrix: out[2k] = (3c[k] + c[k-1])/4, out[2k+1] = (3c[k] + c[k+1])/4,
+    neighbours clamped at the edges."""
+    u = np.zeros((n_out, n_in), dtype=np.float32)
+    for k in range(n_in):
+        if 2 * k < n_out:
+            u[2 * k, k] += 0.75
+            u[2 * k, max(k - 1, 0)] += 0.25
+        if 2 * k + 1 < n_out:
+            u[2 * k + 1, k] += 0.75
+            u[2 * k + 1, min(k + 1, n_in - 1)] += 0.25
+    return u
+
+
+def _repeat8(n: int) -> np.ndarray:
+    """(n, n/8) block-broadcast matrix: R[8i+x, i] = 1."""
+    r = np.zeros((n, n // 8), dtype=np.float32)
+    for i in range(n // 8):
+        r[8 * i : 8 * i + 8, i] = 1.0
+    return r
+
+
+def _fold_blockdiag(a: np.ndarray) -> np.ndarray:
+    """a @ blockdiag(D^T) without building the block diagonal: each
+    8-column block a[:, 8i:8i+8] @ D^T, D the (u, x) DCT matrix."""
+    d = _dct_matrix()
+    rows, cols = a.shape
+    blocks = a.reshape(rows, cols // 8, 8)
+    return np.einsum("rbk,kx->rbx", blocks, d.T.astype(np.float32),
+                     dtype=np.float32).reshape(rows, cols)
+
+
+def folded_matrices(av_pad: np.ndarray, ah_pad: np.ndarray, true_h: int,
+                    true_w: int, subsamp: int = 420):
+    """The resample matrices composed with the decode's linear prefix.
+
+    av_pad (OH, GH), ah_pad (OW, SW): resample matrices padded to the
+    coefficient grid's planar size (crop and canvas folded in, zero past
+    the true source). Returns (ay, ahy, acv, ach, dyv, dyh, dcv, dch):
+      ay (OH, GH), ahy (OW, SW)     luma: resample ∘ iDCT
+      acv, ach                      chroma: resample ∘ upsample ∘ iDCT,
+                                    at the chroma grid's planar size
+      dyv (OH, GH/8), dyh (OW, SW/8) the luma DC (block-constant) path
+      dcv, dch                      the chroma DC path
+    4:4:4 (and gray) chroma uses the luma matrices themselves."""
+    sh, sw = av_pad.shape[1], ah_pad.shape[1]
+    ay = _fold_blockdiag(av_pad)
+    ahy = _fold_blockdiag(ah_pad)
+    dyv = av_pad @ _repeat8(sh)
+    dyh = ah_pad @ _repeat8(sw)
+    dv, dh = chroma_divisors(subsamp)
+
+    def chroma(a_pad, n_true, n_pad, halved, fold, dc):
+        if not halved:
+            return fold, dc
+        c = (n_true + 1) // 2
+        u = a_pad[:, :n_true] @ _upsample_triangle(n_true, c)
+        u_pad = np.zeros((u.shape[0], n_pad // 2), dtype=np.float32)
+        u_pad[:, :c] = u
+        return _fold_blockdiag(u_pad), u_pad @ _repeat8(n_pad // 2)
+
+    acv, dcv = chroma(av_pad, true_h, sh, dv == 2, ay, dyv)
+    ach, dch = chroma(ah_pad, true_w, sw, dh == 2, ahy, dyh)
+    return (ay, ahy, acv, ach, dyv, dyh, dcv, dch)
+
+
+# libjpeg's fixed-point colour ratios, as f32 multipliers
+_CR_R = 91881.0 / 65536.0
+_CB_B = 116130.0 / 65536.0
+_CB_G = 22554.0 / 65536.0
+_CR_G = 46802.0 / 65536.0
+
+
+def folded_decode_resample(ydc, yac, cbdc, cbac, crdc, crac, lq, cq, mats):
+    """The device side of the folded path (K11): dequantise, one matmul
+    pair per plane (luma at the grid's size, chroma at its subsampled
+    size) plus a block-constant DC pair, then the colour conversion on
+    the resampled planes. All products in full f32.
+
+    ydc (B, GH/8, SW/8) DC grid and yac (B, GH, SW) planar AC with the DC
+    slots zero (`blocks_to_planar`), chroma likewise at its grid's size;
+    lq, cq (B, 64) natural-order quant tables; mats: `folded_matrices`'
+    eight as f32 tensors on the inputs' device. Returns fg (B, 3, OH, OW)
+    f32, rounded and clamped like the staged resample's output."""
+    ay, ahy, acv, ach, dyv, dyh, dcv, dch = mats
+    b = ydc.shape[0]
+
+    def pair(x, mv, mh):
+        return torch.matmul(torch.matmul(mv, x), mh.transpose(0, 1))
+
+    def plane(ac, q, mv, mh):
+        _, h, w = ac.shape
+        qt = q.to(_F32).reshape(b, 8, 8)[:, None, :, None, :].expand(
+            b, h // 8, 8, w // 8, 8).reshape(b, h, w)
+        return pair(ac.to(_F32) * qt, mv, mh)
+
+    def dc_plane(dc, q, mv, mh, shift):
+        v = dc.to(_F32) * (q[:, 0].to(_F32) / 8.0)[:, None, None] + shift
+        return pair(v, mv, mh)
+
+    yr = plane(yac, lq, ay, ahy) + dc_plane(ydc, lq, dyv, dyh, 128.0)
+    # chroma stays centred (no +128): the colour ratios take it so
+    cbz = plane(cbac, cq, acv, ach) + dc_plane(cbdc, cq, dcv, dch, 0.0)
+    crz = plane(crac, cq, acv, ach) + dc_plane(crdc, cq, dcv, dch, 0.0)
+    r = yr + _CR_R * crz
+    g = yr - _CB_G * cbz - _CR_G * crz
+    bl = yr + _CB_B * cbz
+    fg = torch.stack([r, g, bl], dim=1)
+    return torch.floor(torch.clamp(fg, 0.0, 255.0) + 0.5)
 
 
 # ----------------------------------------------------------------------------

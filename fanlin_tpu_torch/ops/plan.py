@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..utils.bytelru import ByteLRU
-from . import filters
+from . import filters, jpeg_decode
 from .resample_kernels import band_ranges
 
 # Shape buckets: H padded to a multiple of 8, W to a multiple of 128.
@@ -213,6 +213,33 @@ def _uniform_entry(plan: ImagePlan):
     nbytes = sum(a.nbytes for a in value if a is not None) + bands.nbytes
     _UNIFORM_CACHE.put(key, (plan, value, bands), nbytes)
     return value, bands
+
+
+# The folded matrices (jpeg_decode.folded_matrices) of uniform
+# coefficient batches on the fast_decode path, keyed like _UNIFORM_CACHE
+# by plan identity, and by the source's subsampling layout.
+_FOLDED_CACHE = ByteLRU(max_bytes=128 * 1024 * 1024)
+
+
+def _folded_padded(plan: ImagePlan, subsamp: int):
+    """The eight folded matrices of `plan` (whose source dims are the
+    coefficient source's true dims) for a source of layout `subsamp`,
+    cached. They contract over the coefficient grid, bucket_h16(src_h)
+    rows high, which exceeds the pixel bucket bucket_h(src_h) where that
+    is 8; the resample matrices are zero past the true source either
+    way."""
+    key = (id(plan), subsamp)
+    hit = _FOLDED_CACHE.get(key)
+    if hit is not None and hit[0] is plan:
+        return hit[1]
+    av_b, ah, _, _ = _uniform_padded(plan)
+    av = np.zeros((av_b.shape[0], bucket_h16(plan.src_h)), dtype=np.float32)
+    av[:, : av_b.shape[1]] = av_b
+    mats = jpeg_decode.folded_matrices(av, ah, plan.src_h, plan.src_w,
+                                       subsamp)
+    nbytes = sum(m.nbytes for m in {id(m): m for m in mats}.values())
+    _FOLDED_CACHE.put(key, (plan, mats), nbytes)
+    return mats
 
 
 def _pack_params(plans, b: int, sh: int, sw: int, oh: int, ow: int,

@@ -24,12 +24,16 @@ share a device batch. With `tpu.workers` > 1 this gateway runs in N
 worker processes around one device service (`server.workers`); the
 CLI warms the kernels and caches at startup (`tpu.warmup`,
 `engine.warmup`); `tpu.source_cache_mb` caches decoded sources
-(`engine.source_cache`). There is no mesh (`tpu.data_parallel`).
-Config options whose code is not in the port raise at startup
-(`check_ported`). Accepted but inert: the batcher's failover knobs
-(`tpu.host_fallback`, `device_stall_s`, `spill_wait_ms`) and
-`tpu.dct_pack_floor` (jpegdct batches always download full int16
-coefficients, the reference's widest pack level).
+(`engine.source_cache`); `tpu.fast_decode` routes YCbCr coefficient
+sources through the folded decode-resize. There is no mesh:
+`tpu.data_parallel` serves unsharded on one device, as the reference
+does there, and is refused where more than one is visible
+(`check_data_parallel`). Config options whose code is not in the port
+raise at startup (`check_ported`). Accepted but inert: the batcher's
+failover knobs (`tpu.host_fallback`, `device_stall_s`,
+`spill_wait_ms`), `tpu.dct_pack_floor` (jpegdct batches always download
+full int16 coefficients, the reference's widest pack level) and, on one
+device, `tpu.mesh_sp`.
 """
 
 from __future__ import annotations
@@ -69,12 +73,14 @@ VARY_ACCEPT = "Accept"
 REQUEST_TIMEOUT_SECS = 10.0  # tower TimeoutLayer (main.rs:105-107)
 
 # Config options whose code is not in the port yet: serving them would
-# silently serve something else, so startup refuses them.
+# silently serve something else, so startup refuses them. Spectral
+# thinning (lossy upload thinning of folded batches) rides the
+# narrow-link pack modes, which the port's dense wire lacks.
 _UNPORTED = (
-    ("tpu.fast_decode", lambda c: c.tpu.fast_decode),
     ("tpu.fast", lambda c: c.tpu.fast),
-    ("tpu.data_parallel", lambda c: c.tpu.data_parallel),
     ("tpu.profile_dir", lambda c: bool(c.tpu.profile_dir)),
+    ("tpu.spectral_db with tpu.fast_decode",
+     lambda c: c.tpu.fast_decode and c.tpu.spectral_db > 0),
 )
 
 
@@ -86,6 +92,26 @@ def check_ported(cfg: config_mod.Config) -> None:
             "not yet supported by the PyTorch port (fanlin_tpu_torch): "
             + ", ".join(bad)
         )
+
+
+def check_data_parallel(cfg: config_mod.Config, device: torch.device) -> None:
+    """`tpu.data_parallel` on the process that owns `device`: with one
+    device visible the batches run unsharded, as in the reference
+    (fanlin_tpu/server/app.py:469-486), and `tpu.mesh_sp` does nothing;
+    with more the multi-device mesh would be needed, which the port
+    lacks, so it raises ConfigError rather than serve from one of them.
+    Counts the devices, so it runs only where CUDA may be touched."""
+    if not cfg.tpu.data_parallel:
+        return
+    n = device_mod.device_count(device)
+    if n > 1:
+        raise config_mod.ConfigError(
+            f"tpu.data_parallel with {n} {device.type} devices: the "
+            "multi-device mesh is not yet in the PyTorch port "
+            "(fanlin_tpu_torch); set data_parallel to false, or make one "
+            "device visible")
+    log.info("tpu.data_parallel: one %s device, batches run unsharded",
+             device.type)
 
 
 def _create_headers(content_type: str, params: query_mod.Query,
@@ -323,7 +349,8 @@ async def build_state(cfg: config_mod.Config,
                       device: Optional[torch.device] = None, runner=None,
                       device_decode: Optional[bool] = None) -> State:
     """Startup sequence, mirroring reference main() (main.rs:63-81):
-    option check -> device -> micro-batcher -> infra client -> state
+    option check -> device -> its count under `tpu.data_parallel`
+    (`check_data_parallel`) -> micro-batcher -> infra client -> state
     -> fallback preload (failure only warns) -> the ICC profile, its
     device LUT (`tpu.device_icc`) and embedded profiles. The engine
     serves through
@@ -343,6 +370,7 @@ async def build_state(cfg: config_mod.Config,
         device_mod.configure()
         if device is None:
             device = device_mod.cuda_device()
+        check_data_parallel(cfg, device)
         runner = BatchingRunner(MicroBatcher(
             cfg.tpu.max_batch, cfg.tpu.batch_window_ms, device=device,
             pipeline_depth=cfg.tpu.pipeline_depth,
@@ -350,8 +378,14 @@ async def build_state(cfg: config_mod.Config,
     if device_decode is None:
         device_decode = cfg.tpu.device_decode
     native_codecs.set_webp_method(cfg.tpu.webp_method)
+    if cfg.tpu.spectral_db > 0:
+        # refused with fast_decode (check_ported); alone it never acts
+        log.warning("tpu.spectral_db set without tpu.fast_decode: spectral "
+                    "thinning only applies to folded batches and will not "
+                    "activate")
     engine = Engine(device, runner=runner, device_decode=device_decode,
-                    device_dct=cfg.tpu.device_dct)
+                    device_dct=cfg.tpu.device_dct,
+                    fast_decode=cfg.tpu.fast_decode)
     if cfg.tpu.source_cache_mb:
         engine.source_cache = SourceCache(cfg.tpu.source_cache_mb)
     if cfg.tpu.codec_threads:

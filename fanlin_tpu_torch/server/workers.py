@@ -74,6 +74,7 @@ import time
 import torch
 from aiohttp import web
 
+from .. import config as config_mod
 from .. import device as device_mod
 from ..engine import native_codecs
 from ..engine import warmup as warmup_mod
@@ -81,7 +82,8 @@ from ..engine.batcher import (REQUEST_CANCEL, REQUEST_DEADLINE,
                               BatchingRunner, MicroBatcher, RequestExpired)
 from ..ops import _build
 from ..ops.plan import plan_image
-from .app import build_state, create_app, kernel_launches
+from .app import (build_state, check_data_parallel, create_app,
+                  kernel_launches)
 
 log = logging.getLogger("fanlin.workers")
 
@@ -329,6 +331,7 @@ class DeviceService:
         device_mod.configure()
         if device is None:
             device = device_mod.cuda_device()
+        check_data_parallel(cfg, device)  # counts devices: after the fork
         if device.type == "cuda":
             _build.load()  # compiled by the parent before the fork
             torch.empty(1, device=device)  # the CUDA context, now
@@ -351,6 +354,7 @@ class DeviceService:
         self._warmup_on = bool(cfg.tpu.warmup)
         self._device_decode = bool(cfg.tpu.device_decode)
         self._device_dct = bool(cfg.tpu.device_dct)
+        self._fast_decode = bool(cfg.tpu.fast_decode)
         self._warmed: set = set()
         self._warm_lock = threading.Lock()
         if self._warmup_on:
@@ -376,7 +380,8 @@ class DeviceService:
         threading.Thread(
             target=warmup_mod.warm, args=(self.batcher, fresh),
             kwargs={"device_decode": self._device_decode,
-                    "device_dct": self._device_dct},
+                    "device_dct": self._device_dct,
+                    "fast_decode": self._fast_decode},
             name="fanlin-warmup", daemon=True).start()
 
     def start(self):
@@ -540,7 +545,13 @@ def serve_multiworker(cfg, device=None) -> int:
     service = None
     died = 0
     try:
-        service = DeviceService(cfg, uds_path, device)
+        try:
+            service = DeviceService(cfg, uds_path, device)
+        except config_mod.ConfigError as e:
+            # what only the device can tell (tpu.data_parallel's count):
+            # no worker may go on serving 502s without a service
+            print(f"failed to start: {e}", file=sys.stderr, flush=True)
+            return 1
         service.start()
         print(f"fanlin-tpu-torch device service {os.getpid()} up ({n} "
               f"workers on {cfg.bind_addr}:{cfg.port}, {service.device})",

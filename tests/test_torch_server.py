@@ -111,8 +111,8 @@ def test_gateway_requests():
 
 
 @pytest.mark.parametrize("tpu,extra", [
-    ('{"fast_decode": true}', ""),
-    ('{"data_parallel": true}', ""),
+    ('{"fast": true}', ""),
+    ('{"profile_dir": "fanlin-profile"}', ""),
 ])
 def test_unported_options_refused_at_startup(tpu, extra):
     cfg = _config(tpu, extra)
@@ -121,6 +121,84 @@ def test_unported_options_refused_at_startup(tpu, extra):
     with pytest.raises(ConfigError):
         asyncio.run(build_state(cfg, device=CPU))
     assert cli.main(["-j", json.dumps(_raw(tpu, extra))]) == 1
+
+
+@pytest.mark.parametrize("tpu", [
+    '{"fast_decode": true}',
+    '{"data_parallel": true}',
+    '{"data_parallel": true, "mesh_sp": 2}',
+    '{"spectral_db": 30}',
+])
+def test_fast_decode_and_data_parallel_accepted_at_startup(tpu):
+    """tpu.fast_decode (tests/test_torch_folded.py), data_parallel on one
+    device (mesh_sp inert there, as in the reference) and spectral_db
+    without fast_decode (it only warns: it never acts) start the
+    server; fast_decode reaches the Engine."""
+    cfg = _config(tpu)
+    check_ported(cfg)
+    state = asyncio.run(build_state(cfg, device=CPU))
+    try:
+        assert state.engine.fast_decode == cfg.tpu.fast_decode
+    finally:
+        assert state.engine.runner.batcher.close()
+
+
+F2_URLS = ["/baz/lenna_src.jpg?w=300&h=200",
+           "/baz/lenna_src.jpg?w=300&h=200&webp=true&quality=20",
+           "/baz/lenna_src.jpg?w=100&h=80&blur=1",
+           "/baz/synth_src.jpg?w=300&h=200"]
+
+
+async def _bodies(tpu: str):
+    client = await _client(_config(tpu))
+    try:
+        out = []
+        for url in F2_URLS:
+            r = await client.get(url, headers={"Accept": "image/webp"})
+            assert r.status == 200, url
+            out.append(await r.read())
+        stats = json.loads(await (await client.get("/stats")).text())
+        return out, stats
+    finally:
+        await client.close()
+
+
+def test_data_parallel_serves_the_default_bodies_on_one_device():
+    """The reference builds no mesh on one device: data_parallel serves
+    exactly the default config's bytes there."""
+    got, _ = asyncio.run(_bodies('{"data_parallel": true}'))
+    want, _ = asyncio.run(_bodies("{}"))
+    assert got == want
+
+
+def test_data_parallel_refused_with_several_devices(monkeypatch):
+    """With more than one device visible, data_parallel needs the mesh
+    the port lacks: startup raises, naming the option and the count; the
+    same count without data_parallel serves on the one given device."""
+    from fanlin_tpu_torch import device as device_mod
+
+    monkeypatch.setattr(device_mod, "device_count", lambda device: 2)
+    with pytest.raises(ConfigError, match=r"tpu\.data_parallel with 2 "):
+        asyncio.run(build_state(_config('{"data_parallel": true}'),
+                                device=CPU))
+    state = asyncio.run(build_state(_config(), device=CPU))
+    assert state.engine.runner.batcher.close()
+
+
+def test_fast_decode_serves_the_folded_route():
+    """The server with fast_decode: every request answers 200 with the
+    bytes of a serial Engine(fast_decode=True) and counts coef_src."""
+    got, stats = asyncio.run(_bodies('{"fast_decode": true}'))
+    assert stats["engine"] == {"pixel_src": 0, "coef_src": len(F2_URLS)}
+    engine = Engine(CPU, fast_decode=True)
+    accepted = Format()
+    accepted.accept_webp()
+    for url, body in zip(F2_URLS, got):
+        path, _, qs = url.partition("?")
+        with open(os.path.join(GOLDEN, path.split("/")[-1]), "rb") as f:
+            want = engine.process_image(f.read(), query_mod.parse_query(qs),
+                                        accepted)[1]
+        assert body == want, url
 
 
 @pytest.mark.parametrize("tpu", ['{"workers": 2}', '{"source_cache_mb": 8}'])

@@ -259,6 +259,7 @@ def _bare_service(**attrs):
     svc._warmup_on = True
     svc._device_decode = True
     svc._device_dct = False
+    svc._fast_decode = False
     svc._warmed = set()
     svc._warm_lock = threading.Lock()
     svc.batcher = None
@@ -277,8 +278,8 @@ def test_warm_shapes_dedups_across_workers(monkeypatch):
     calls = []
     monkeypatch.setattr(
         warmup_mod, "warm",
-        lambda batcher, shapes, device_decode=True, device_dct=False:
-            calls.append(tuple(shapes)))
+        lambda batcher, shapes, device_decode=True, device_dct=False,
+        fast_decode=False: calls.append(tuple(shapes)))
     svc = _bare_service()
     a, b, c = (64, 64, "w=32&h=32"), (128, 128, "w=32"), (256, 256, "h=9")
     svc.warm_shapes((a, b))       # worker 1
@@ -681,6 +682,57 @@ def test_workers_warmup_through_the_service(workers):
         assert srv.terminate() == 0
     finally:
         srv.kill()
+
+
+def test_workers_serve_fast_decode_and_data_parallel():
+    """tpu.fast_decode and tpu.data_parallel (one device) in worker mode:
+    the fold decision travels in the batch kind across the socket, and
+    every body equals the single-process server's with the same config."""
+    tpu = {"fast_decode": True, "data_parallel": True}
+    srv = _Server("wk-fold", workers=2, **tpu)
+    try:
+        got = [srv.get(u, h)[1] for u, h in URLS]
+        want = asyncio.run(_single_process_bodies("wk-fold", URLS, tpu))
+        assert got == want, "worker-mode bytes != single-process bytes"
+        assert srv.terminate() == 0
+    finally:
+        srv.kill()
+
+
+# the CLI as BOOT runs it, with two devices visible to the device count
+BOOT_TWO_DEVICES = BOOT.replace(
+    "from fanlin_tpu_torch.cli import main; ",
+    "from fanlin_tpu_torch import device; "
+    "device.device_count = lambda dev: 2; "
+    "from fanlin_tpu_torch.cli import main; ")
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_data_parallel_on_several_devices_stops_the_cli(workers):
+    """With two devices visible, tpu.data_parallel stops the CLI with a
+    non-zero exit and the reason on stderr, in one process and in worker
+    mode (where the device service counts, after the fork): no worker is
+    left serving without a service."""
+    raw = _raw(_free_port(), "wk-dp2",
+               {"workers": workers, "data_parallel": True})
+    proc = subprocess.Popen(
+        [sys.executable, "-c", BOOT_TWO_DEVICES, "-j", json.dumps(raw)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, cwd=REPO,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BOOT_S)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+            leftover = True
+        except ProcessLookupError:
+            leftover = False
+        proc.wait(timeout=30)
+    err = err.decode("utf-8", "replace")
+    assert proc.returncode != 0, out
+    assert "tpu.data_parallel with 2 cpu devices" in err, err
+    assert "listening on" not in out.decode("utf-8", "replace")
+    assert not leftover, "a process of the CLI outlived it"
 
 
 def test_warm_runs_on_the_device_thread(monkeypatch):
