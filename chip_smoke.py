@@ -146,14 +146,45 @@ Phases (each failure exits non-zero; nothing is caught):
      per call (torch.profiler), K11's bound (FLOP of its products at the
      f32 rate, bytes at 3.35 TB/s) and its CPU ms; the README request's
      stage times with fast_decode and the default route in turns
+ 10. tpu.fast (the bf16 resample: the resample kernel's bf16 form, the
+     torch chain's, K11's AC pairs) and tpu.profile_dir: (a) the fast
+     kernel against its plain version (resample_uniform_ref(fast=True))
+     at README B=1/8/16, gray, invert, canvas, blur B=16 and 12 MP B=2
+     with and without blur, <= 1 LSB and <= 0.5 % differing; (b) the
+     golden corpus through Engine(dev, fast=True) against Engine(dev),
+     >= 48 dB on the device result before the encode, one
+     jpeg_decode_rgb and one fast resample launch a request; (c) the
+     server with "tpu": {"fast": true} over phase 8's requests and an
+     alpha PNG in one process and at workers 4, byte-equal between the
+     two, every kernel batch on resample_fast / resample_blur_fast and
+     none on the split keys (at workers 4 over the service's life,
+     warmup included); with device_icc the print asset rides
+     jpeg_decode_cmyk_rgb and the fast kernel; with fast_decode the
+     README and synth requests fold, launching no kernel, with a serial
+     Engine's bytes; (d) at each shape of (a), fast and split forms in
+     turns: event, device (torch.profiler) and enqueue ms, the bound
+     (bf16 products at 989 TFLOP/s, bytes at 3.35 TB/s) and share, the
+     plain fast form's ms, and at README and blur B=16 a bf16
+     torch.einsum (library ms); K11's bf16 form against its f32 one
+     (event and device ms, dB; card against CPU within 1 LSB) at README
+     B=16 and 12 MP B=2; the README stage times of the fast and the
+     default route in turns; (e) GET /profile?seconds=2 during 16 README
+     requests on the one-process server: the trace holds gemm_kernel and
+     decode_rgb_kernel records (its host ops counted by thread), a
+     second GET meanwhile answers 409, and so does one while another
+     capture of the port (utils.profiling.exclusive) runs; at workers 4
+     a worker answers /profile and no worker opens the card
 Launch counts are set to 0 just before each main-path run (the pixel
 Engine, the coefficient Engine, the server, each phase-5 burst, the two
 jpegdct engines and the jpegdct server burst of phase 6, the CMYK engine
 and the CMYK server burst of phase 7, the fast_decode engine and the
-fast_decode server burst of phase 9) and read just after it; phase 8's
-and 9's worker-mode counts live in the device service, and their
+fast_decode server burst of phase 9, the fast engine and the three
+one-process fast servers of phase 10) and read just after it; phase 8's,
+9's and 10's worker-mode counts live in the device service, and their
 windows are the differences of a worker's /stats read just before and
-just after each.
+just after each. The fast keys (resample_fast, resample_blur_fast) must
+be launched by phase 10's runs and by no earlier one, the split keys by
+none of phase 10's.
 Every kernel of the serving path (resample, resample_blur,
 jpeg_decode_rgb) must have been launched by the coefficient engine, the
 server, phase 5 (b) and phase 8 (b), jpeg_decode_cmyk_rgb by both CMYK
@@ -162,11 +193,14 @@ by an earlier run; K12a by no run.
 
 Before them a {"torch_programs": [...]} line gives K11's figures (torch
 code, not a kernel): its folded batches on the main path, worst error,
-event, device and CPU ms, kernels per call and bound at README B=16.
+event, device and CPU ms, kernels per call and bound at README B=16;
+and its bf16 form's (phase 10 (d)).
 The second-to-last line is {"kernels": [...]}: each kernel's main-path
 launches (K12a: 0, with phase 7's as checked_launches), worst error,
 event and plain ms, bound and library ms (the CMYK kernels at
-README-like B=8); the last line is {"ok": true,
+README-like B=8; the fast forms of the resample kernel at README and
+blur B=16, with their device ms and the split form's event ms beside);
+the last line is {"ok": true,
 "device": {...}}. The port
 imports torch, and nothing of jax or of fanlin_tpu.
 """
@@ -321,8 +355,10 @@ def resample_work(av, ah, bv, bh, crop, planes: int) -> dict:
     pass (or the stored crop) reads; the bytes of the source pixels those
     weights reach, of the non-zero weights (f32) and of the u8 output.
     `tf32_flop` counts them as csrc/resample.cu's split-TF32 tensor-core
-    products: 2 per multiply-add in pass 1, 3 in passes 2-4. `dense` is
-    the dense chain's FLOP."""
+    products: 2 per multiply-add in pass 1, 3 in passes 2-4. The fast
+    form's work (`tpu.fast`): `bf16_flop`, one bf16 product per
+    multiply-add of passes 1-2, and `blur_tf32_flop`, the blur pair's
+    split products. `dense` is the dense chain's FLOP."""
     oh, ow = crop
     big_oh, sh = av.shape
     big_ow, sw = ah.shape
@@ -345,13 +381,30 @@ def resample_work(av, ah, bv, bh, crop, planes: int) -> dict:
     src = int(av.any(0).sum()) * int(t_cols.sum())
     products = 2 * macs[0] + 3 * sum(macs[1:])
     return {"flop": 2 * sum(macs) * planes, "tf32_flop": 2 * products * planes,
+            "bf16_flop": 2 * sum(macs[:2]) * planes,
+            "blur_tf32_flop": 2 * 3 * sum(macs[2:]) * planes,
             "dense": dense * planes,
             "nbytes": planes * (src + oh * ow) + 4 * weights}
 
 
-def _checked_call(dev, name, sw, sh, qs, batch, rng):
-    """Build one uniform batch of random sources, run the kernel once and
-    hold it against its plain version; returns what timing needs."""
+def resample_bound(work: dict, fast: bool = False) -> tuple:
+    """(bound ms, "bytes" or "operations") of one resample call: the
+    bytes at the HBM rate, or its tensor-core products (split TF32; with
+    `fast` the bf16 products at the bf16 rate and the blur pair's split
+    TF32), whichever takes longer."""
+    t_bytes = work["nbytes"] / HBM_BYTES_PER_S * 1e3
+    if fast:
+        t_ops = (work["bf16_flop"] / BF16_FLOP_PER_S
+                 + work["blur_tf32_flop"] / TF32_FLOP_PER_S) * 1e3
+    else:
+        t_ops = work["tf32_flop"] / TF32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _checked_call(dev, name, sw, sh, qs, batch, rng, fast=False):
+    """Build one uniform batch of random sources, run the kernel once
+    (its bf16 form with `fast`) and hold it against its plain version;
+    returns what timing needs."""
     from fanlin_tpu_torch.spec.query import parse_query
     from fanlin_tpu_torch.ops import fused, plan as plan_mod
     from fanlin_tpu_torch.ops import resample_kernels as rk
@@ -369,15 +422,16 @@ def _checked_call(dev, name, sw, sh, qs, batch, rng):
     args = (flags, fill, box, tav, tah, x, tbv, tbh)
     crop = (plan.out_h, plan.out_w)
 
-    got = rk.resample_uniform(*args, crop=crop, bands=bands)
+    got = rk.resample_uniform(*args, crop=crop, bands=bands, fast=fast)
     torch.cuda.synchronize()
-    want = rk.resample_uniform_ref(*args, crop=crop)
+    want = rk.resample_uniform_ref(*args, crop=crop, fast=fast)
     check(got.shape == want.shape == (asm.b, 3) + crop,
           f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
     diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
     max_err = int(diff.max())
     frac = float((diff > 0).float().mean())
-    print(f"phase2 {name} B={asm.b} src={asm.sh}x{asm.sw} "
+    print(f"{'phase10a fast' if fast else 'phase2'} {name} B={asm.b} "
+          f"src={asm.sh}x{asm.sw} "
           f"out={asm.oh}x{asm.ow} max_abs_err={max_err} frac_diff={frac:.2e}",
           flush=True)
     check(max_err <= MAX_LSB, f"{name}: max abs err {max_err} LSB")
@@ -493,6 +547,7 @@ PIXEL_OPS = {444: 22, 422: 30, 440: 30, 420: 34}
 # operations, 132 SMs, 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12  # dense bf16 on the tensor cores
 INT32_OPS_PER_S = 64 * 2 * 132 * 1.98e9
 # Single-rounded f32 instructions (the LUT's __fmul_rn, __fadd_rn; an
 # FMA that stands for one rounded multiply counts one): one per FP32
@@ -1033,8 +1088,8 @@ class _BatchLog:
         self._real = fused.make_assembly
 
     def __enter__(self):
-        def make(plans, payloads, kinds, device):
-            asm = self._real(plans, payloads, kinds, device)
+        def make(plans, payloads, kinds, device, **kw):
+            asm = self._real(plans, payloads, kinds, device, **kw)
             self.rows.append((len(plans), len({id(p) for p in plans}),
                               len(set(kinds)), asm.uses_kernel()))
             self.kinds.extend(kinds)
@@ -2914,6 +2969,401 @@ async def _phase9_workers(dev: torch.device, folder: str) -> dict:
     return windows, fold["folded"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: tpu.fast (the bf16 resample: the resample kernel's bf16 form,
+# the torch chain's, K11's AC pairs) and tpu.profile_dir (GET /profile)
+
+# (name, src_w, src_h, query, batch): phase 2's shapes the fast form is
+# checked on; all are timed against the split form in turns
+FAST_SHAPES = [s for s in SHAPES if s[0] in (
+    "readme_b1", "readme_b8", "readme_b16", "grayscale_b16", "inverse_b16",
+    "canvas_b16", "blur_b16", "12mp_b2", "12mp_blur_b2")]
+FAST_DB = 48.0  # tests/test_fused.py::test_fast_mode_close_to_exact
+FAST_KEYS = ("resample_fast", "resample_blur_fast")
+SPLIT_KEYS = ("resample", "resample_blur")
+# (c)'s requests: phase 8's (the README request, its WebP and blur
+# variants, 4:2:0, EXIF 6, progressive, PNG, a CMYK print asset on host
+# lcms2) and an alpha PNG (the torch chain)
+FAST_URLS = WORKER_URLS + [("/gen/alpha.png?w=300&h=200&rgb=9,8,7", None)]
+
+
+def _library_bf16_ms(rk, args, crop, bands) -> float:
+    """One bf16 torch.einsum of the resample's products (and the blur's
+    with blur), operands converted outside the timing, in turns with the
+    fast kernel; a yardstick the port never calls."""
+    flags, fill, box, av, ah, x, bv, bh = args
+    bf = torch.bfloat16
+    xb = x.to(bf)
+    oh, ow = crop
+    avb, ahb = av[:oh].to(bf), ah[:ow].to(bf)
+    if bv is None:
+        lib = lambda: torch.einsum("oh,bchw,vw->bcov", avb, xb, ahb)
+    else:
+        bvb, bhb = bv[:oh, :oh].to(bf), bh[:ow, :ow].to(bf)
+        lib = lambda: torch.einsum("po,oh,bchw,vw,qv->bcpq", bvb, avb, xb,
+                                   ahb, bhb)
+    t = _time_turns({"library": lib, "kernel": lambda: rk.resample_uniform(
+        *args, crop=crop, bands=bands, fast=True)}, reps=10, launches=1)
+    blur = "with" if bv is not None else "without"
+    print(f"phase10d library bf16 einsum {blur} blur: library_ms="
+          f"{t['library']:.4f} kernel_ms={t['kernel']:.4f}", flush=True)
+    return t["library"]
+
+
+def phase10_kernels(dev: torch.device) -> dict:
+    """(a) the fast form of the resample kernel against its plain version
+    (resample_uniform_ref(fast=True)) on FAST_SHAPES, within 1 LSB and
+    0.5 % (tests/test_torch_fast.py's tolerance); (d) at each, in turns
+    with the split form: event ms, device ms and kernels per call
+    (torch.profiler), host enqueue ms, the bound and share, the plain
+    fast form's ms, and at README and blur B=16 a bf16 torch.einsum of
+    the same products (library ms)."""
+    from fanlin_tpu_torch.ops import resample_kernels as rk
+
+    rng = np.random.default_rng(20261020)
+    results = {}
+    for name, sw, sh, qs, batch in FAST_SHAPES:
+        c = _checked_call(dev, name, sw, sh, qs, batch, rng, fast=True)
+        args, crop, bands = c["args"], c["crop"], c["bands"]
+        fns = {"split": lambda: rk.resample_uniform(*args, crop=crop,
+                                                    bands=bands),
+               "fast": lambda: rk.resample_uniform(*args, crop=crop,
+                                                   bands=bands, fast=True)}
+        big = name.startswith("12mp")
+        ev = _time_turns(fns, reps=5 if big else 10,
+                         launches=10 if big else 50)
+        dms = {k: _device_ms_all(f, 10 if big else 20)
+               for k, f in fns.items()}
+        enq = {k: _enqueue_ms(f) for k, f in fns.items()}
+        plain = _time_turns({"plain": lambda: rk.resample_uniform_ref(
+            *args, crop=crop, fast=True)}, reps=3, launches=1)["plain"]
+        work = c["work"]
+        bound = {k: resample_bound(work, fast=k == "fast") for k in fns}
+        res = dict(c["result"], ms=ev["fast"], split_ms=ev["split"],
+                   plain_ms=plain, device_ms=dms["fast"][0],
+                   split_device_ms=dms["split"][0], enqueue_ms=enq["fast"],
+                   bound_ms=bound["fast"][0], bound_by=bound["fast"][1])
+        for k in fns:
+            print(f"phase10d {name} {k}: event_ms={ev[k]:.4f} device_ms="
+                  f"{dms[k][0]:.4f} kernels per call {dms[k][1]:.1f} "
+                  f"enqueue_ms={enq[k]:.4f} bound_ms={bound[k][0]:.4f} "
+                  f"({bound[k][1]}), {bound[k][0] / dms[k][0] * 100:.1f} % "
+                  f"of it on device time, {bound[k][0] / ev[k] * 100:.1f} % "
+                  "on event time", flush=True)
+        print(f"phase10d {name}: fast/split event {ev['fast'] / ev['split']:.3f}"
+              f", device {dms['fast'][0] / dms['split'][0]:.3f}; plain fast "
+              f"form {plain:.4f} ms; {work['bf16_flop'] / 1e9:.3f} bf16 "
+              f"GFLOP + {work['blur_tf32_flop'] / 1e9:.3f} split-TF32 GFLOP "
+              f"(blur), {work['nbytes']} B", flush=True)
+        if name in ("readme_b16", "blur_b16"):
+            res["library_ms"] = _library_bf16_ms(rk, args, crop, bands)
+        results[name] = res
+    return results
+
+
+def phase10_k11(dev: torch.device) -> dict:
+    """(d) K11 with its AC pairs in bf16 (tpu.fast with fast_decode)
+    against its f32 form from the same wire, in turns: event and device
+    ms, and the two outputs' dB; the bf16 form on the card against the
+    same code on the CPU (<= 1 LSB, <= 0.5 %)."""
+    from fanlin_tpu_torch.ops import fused, plan as plan_mod
+    from fanlin_tpu_torch.spec.query import parse_query
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(20261021)
+    out = {}
+    for name, kind, images in (("lenna444_b16", "lenna", 16),
+                               ("12mp420_b2", "12mp", 2)):
+        meta, _ = _decode_source(kind, rng)
+        plan = plan_mod.plan_image(meta["w"], meta["h"],
+                                   parse_query("w=1200&h=800" if kind == "12mp"
+                                               else "w=300&h=200"),
+                                   opaque=True)
+        mk = lambda d, fast: fused.CoefBatchAssembly(
+            [plan] * images, [meta] * images, d, fold=True, fast=fast)
+        f32, bf = mk(dev, False), mk(dev, True)
+        wire = f32.device_wire()
+        got = bf.folded(wire)
+        torch.cuda.synchronize()
+        ref = mk(cpu, True)
+        want = ref.folded(ref.device_wire())
+        d = (got[:images].cpu() - want[:images]).abs()
+        err, frac = int(d.max()), float((d > 0).float().mean())
+        check(err <= MAX_LSB and frac <= MAX_FRAC,
+              f"phase10d K11 {name}: bf16 form card vs CPU max {err} "
+              f"frac {frac}")
+        exact = f32.folded(wire)
+        db = psnr(got[:images].cpu().numpy(), exact[:images].cpu().numpy())
+        fns = {"f32": lambda: f32.folded(wire), "bf16": lambda: bf.folded(wire)}
+        big = kind == "12mp"
+        ev = _time_turns(fns, reps=5 if big else 10, launches=10)
+        dms = {k: _device_ms_all(f, 5 if big else 20) for k, f in fns.items()}
+        print(f"phase10d K11 {name}: bf16 card vs CPU max {err} frac "
+              f"{frac:.2e}; bf16 vs f32 {db:.2f} dB; event_ms f32 "
+              f"{ev['f32']:.4f} bf16 {ev['bf16']:.4f}; device_ms f32 "
+              f"{dms['f32'][0]:.4f} bf16 {dms['bf16'][0]:.4f}; kernels per "
+              f"call {dms['f32'][1]:.1f} / {dms['bf16'][1]:.1f}", flush=True)
+        out[name] = {"err": err, "ms": ev["bf16"], "f32_ms": ev["f32"],
+                     "device_ms": dms["bf16"][0], "db": db}
+    return out
+
+
+def phase10_engine(dev: torch.device):
+    """(b) The golden corpus through Engine(dev, fast=True) against
+    Engine(dev): >= 48 dB on the device result before the host encode
+    (the encoded bodies' dB printed beside it); each request launches one
+    jpeg_decode_rgb and one fast resample, no split one. Returns (engine,
+    launch window)."""
+    from PIL import Image
+
+    from fanlin_tpu_torch.engine import Engine
+    from fanlin_tpu_torch.spec.content import Format
+
+    fast = Engine(dev, fast=True)
+    fast.runner = _Captured(fast.runner)
+    runs = []
+    _reset_counts()
+    for src, data, cfg, q in _golden_sources():
+        before = _counts()
+        _, body = fast.process_image(data, q, Format())
+        added = {k: v - before[k] for k, v in _counts().items()}
+        check(sum(added[k] for k in FAST_KEYS) == 1
+              and sum(added[k] for k in SPLIT_KEYS) == 0
+              and added["jpeg_decode_rgb"] == 1,
+              f"phase10b {src}/{cfg}: launches {added}")
+        runs.append((src, cfg, q, data, body,
+                     _result_arrays(fast.runner.last), added))
+    window = _counts()
+    exact = Engine(dev)
+    exact.runner = _Captured(exact.runner)
+    for src, cfg, q, data, body, got_px, added in runs:
+        want = exact.process_image(data, q, Format())[1]
+        ref_px = _result_arrays(exact.runner.last)
+        d_px = psnr(got_px, ref_px)
+        with Image.open(io.BytesIO(body)) as im:
+            got = np.asarray(im.convert("RGB"), dtype=np.int32)
+        with Image.open(io.BytesIO(want)) as im:
+            ref = np.asarray(im.convert("RGB"), dtype=np.int32)
+        print(f"phase10b {src}/{cfg} fast vs exact: device result "
+              f"{d_px:.2f} dB, max |diff| {int(np.abs(got_px - ref_px).max())}"
+              f"; encoded bodies {psnr(got, ref):.2f} dB; launches {added}",
+              flush=True)
+        check(d_px >= FAST_DB, f"phase10b {src}/{cfg}: {d_px:.2f} dB")
+    return fast, window
+
+
+def _gen_alpha_png(folder: str) -> None:
+    """(c)'s alpha source, from a seed: a 400x300 RGBA PNG."""
+    from PIL import Image
+
+    rng = np.random.default_rng(20261022)
+    rgba = np.dstack([_photo(400, 300, rng),
+                      np.linspace(0, 255, 400 * 300).reshape(300, 400)
+                      .astype(np.uint8)])
+    Image.fromarray(rgba, "RGBA").save(os.path.join(folder, "alpha.png"))
+
+
+async def _phase10_inproc(dev: torch.device, folder: str, urls, trace_dir=None,
+                          **tpu) -> dict:
+    """`urls` through the single-process server (build_state on the card
+    in this process) with phase 8's deployment and "fast": true plus
+    `tpu`: every body 200, the launch window of the requests, the batches
+    that took the kernel and those that folded; with `trace_dir`
+    (tpu.profile_dir), (e): GET /profile?seconds=2 during 16 README
+    requests, a second GET answering 409, and one answering 409 while
+    another capture of the port runs. Returns {"bodies", "window",
+    "kernel_batches", "folded", "kinds", "trace"}."""
+    from aiohttp import web
+
+    from fanlin_tpu_torch.config import Config
+    from fanlin_tpu_torch.server.app import build_state, create_app
+
+    raw = _cli_config(folder, 0, fast=True, **tpu)
+    if trace_dir:
+        raw["tpu"]["profile_dir"] = trace_dir
+    cfg = Config.from_obj(raw)
+    state = await build_state(cfg, device=dev)
+    check(state.engine.fast and state.engine.runner.fast,
+          "phase10: the server's engine is not fast")
+    runner = web.AppRunner(create_app(cfg, state), access_log=None)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", 0).start()
+    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+    out = {"bodies": {}}
+    try:
+        async with _fresh_session() as s:
+            with _BatchLog() as log:
+                _reset_counts()
+                for url, headers in urls:
+                    status, body, _, _ = await _get(s, base, url, headers)
+                    check(status == 200, f"phase10 {tpu} {url}: {status}")
+                    out["bodies"][url] = body
+                out["window"] = _counts()
+            out.update(kernel_batches=sum(r[3] for r in log.rows),
+                       folded=log.folded, kinds=log.kinds)
+            if trace_dir:
+                out["trace"] = await _phase10_profile(s, base, trace_dir)
+    finally:
+        await runner.cleanup()
+    return out
+
+
+async def _phase10_profile(s, base: str, trace_dir: str) -> dict:
+    """(e) on a server with tpu.profile_dir: a 2 s capture during 16
+    README requests, a second GET meanwhile (409), then a GET while a
+    capture of the port held by another thread runs (409). The trace
+    must hold gemm_kernel and decode_rgb_kernel records; counts its
+    host ops by thread."""
+    from fanlin_tpu_torch.utils import profiling
+
+    cap = asyncio.ensure_future(_get(s, base, "/profile?seconds=2"))
+    await asyncio.sleep(0.3)
+    status2, text2, _, _ = await _get(s, base, "/profile?seconds=0.1")
+    before = (await _get_stats(s, base))["batcher"]["batches"]
+    _, wall = await _burst(s, base, [README] * 16)
+    batches = (await _get_stats(s, base))["batcher"]["batches"] - before
+    status, body, _, _ = await cap
+    check(status == 200 and status2 == 409,
+          f"phase10e: /profile {status}, the concurrent one {status2} "
+          f"{text2!r}")
+    res = json.loads(body)
+    with open(res["trace_file"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {e["name"] for e in kernels}
+    gemm = sum("gemm_kernel" in e["name"] for e in kernels)
+    dec = sum("decode_rgb_kernel" in e["name"] for e in kernels)
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    threads = {}
+    for e in ops:
+        threads[e.get("tid")] = threads.get(e.get("tid"), 0) + 1
+    print(f"phase10e /profile 2 s during 16 README requests ({wall * 1000:.1f}"
+          f" ms, {batches} batches): {os.path.getsize(res['trace_file'])} "
+          "B trace, "
+          f"{len(kernels)} kernel records ({gemm} gemm_kernel, {dec} "
+          f"decode_rgb_kernel; {sorted(names)[:6]}), host ops by thread "
+          f"{threads}; the concurrent GET: {status2} {text2!r}", flush=True)
+    check(gemm >= 2 and dec >= 1, "phase10e: the trace lacks the port's "
+          f"kernels: {sorted(names)}")
+    opened, release = threading.Event(), threading.Event()
+
+    def hold():
+        with profiling.exclusive(cuda=True):
+            opened.set()
+            release.wait(REQUEST_S)
+
+    holder = threading.Thread(target=hold)
+    holder.start()
+    try:
+        check(opened.wait(REQUEST_S), "phase10e: no capture opened")
+        status3, text3, _, _ = await _get(s, base, "/profile?seconds=0.1")
+    finally:
+        release.set()
+        holder.join(REQUEST_S)
+    print(f"phase10e /profile while another capture runs: {status3} "
+          f"{text3!r}", flush=True)
+    check(status3 == 409, f"phase10e: /profile during a capture {status3}")
+    return {"burst_batches": batches, "kernel_records": len(kernels),
+            "gemm": gemm, "decode": dec, "host_ops_by_thread": threads}
+
+
+async def _phase10_servers(dev: torch.device, folder: str) -> dict:
+    """(c) the fast server over FAST_URLS in one process and at workers
+    4: every body 200 and byte-equal between the two; every batch that
+    took the kernel launched a fast key and none a split one (at workers
+    4 over the service's life, warmup included); with device_icc the
+    print asset rides jpeg_decode_cmyk_rgb then the fast kernel; with
+    fast_decode the README request folds (no kernel) with a serial
+    Engine's bytes. (e) profile_dir in one process (the card's kernels
+    in the trace, 409s) and at workers 4 (the route answers, no worker
+    opens the card). Returns the launch windows and the folded
+    batches."""
+    from fanlin_tpu_torch.engine import Engine, warmup
+    from fanlin_tpu_torch.engine.icc import CMYK2RGB
+    from fanlin_tpu_torch.spec.content import Format
+    from fanlin_tpu_torch.spec.query import parse_query
+
+    _gen_alpha_png(folder)
+    trace_dir = os.path.join(folder, "traces")
+    one = await _phase10_inproc(dev, folder, FAST_URLS, trace_dir=trace_dir)
+    w = one["window"]
+    print(f"phase10c fast server, one process: {len(FAST_URLS)} requests, "
+          f"{one['kernel_batches']} kernel batches, launches {w}, kinds "
+          f"{one['kinds']}", flush=True)
+    check(sum(w[k] for k in FAST_KEYS) == one["kernel_batches"] > 0
+          and sum(w[k] for k in SPLIT_KEYS) == 0,
+          f"phase10c: launches {w} for {one['kernel_batches']} kernel "
+          "batches")
+    windows = {"fast server": w}
+    icc = await _phase10_inproc(
+        dev, folder, [("/gen/print_cmyk.jpg?w=300&h=200", None)],
+        device_icc=True)
+    w = icc["window"]
+    print(f"phase10c fast server with device_icc: the print asset, kinds "
+          f"{icc['kinds']}, launches {w}", flush=True)
+    check(w["jpeg_decode_cmyk_rgb"] == 1 and w["resample_fast"] == 1
+          and sum(w[k] for k in SPLIT_KEYS) == 0
+          and icc["kinds"][0].startswith("cmyk444"),
+          f"phase10c device_icc: {icc['kinds']}, launches {w}")
+    windows["fast icc server"] = w
+    fold_urls = [(README, None), ("/baz/synth_src.jpg?w=300&h=200", None)]
+    fold = await _phase10_inproc(dev, folder, fold_urls, fast_decode=True)
+    w = fold["window"]
+    serial = Engine(dev, fast=True, fast_decode=True,
+                    cmyk2rgb=CMYK2RGB.with_icc_profile(
+                        open(os.path.join(folder, "default.icc"),
+                             "rb").read()))
+    for url, _ in fold_urls:
+        path, _, qs = url.partition("?")
+        with open(os.path.join(GOLDEN, os.path.basename(path)), "rb") as f:
+            want = serial.process_image(f.read(), parse_query(qs),
+                                        Format())[1]
+        check(fold["bodies"][url] == want,
+              f"phase10c fast_decode {url}: the body differs from the "
+              "serial Engine's")
+    print(f"phase10c fast + fast_decode server: {fold['folded']} folded "
+          f"batches, kinds {fold['kinds']}, launches {w}", flush=True)
+    check(fold["folded"] == len(fold_urls) and not any(w.values()),
+          f"phase10c fast_decode: {fold['folded']} folded, launches {w}")
+    windows["fast fold server"] = w
+    kinds = len(warmup._kinds(True, False, False))
+    srv = _CliServer(folder, workers=4, fast=True, profile_dir=trace_dir)
+    try:
+        srv.wait_banners()
+        await _wait_warm(srv, len(warmup.DEFAULT_SHAPES) * 2 * kinds)
+        async with _fresh_session() as s:
+            before = await _get_stats(s, srv.base)
+            for url, headers in FAST_URLS:
+                status, body, _, _ = await _get(s, srv.base, url, headers)
+                check(status == 200 and body == one["bodies"][url],
+                      f"phase10c workers 4 {url}: status {status}, or a "
+                      "body that differs from the single process's")
+            after = await _get_stats(s, srv.base)
+            w = _diff(after["kernel_launches"], before["kernel_launches"])
+            life = after["kernel_launches"]
+            print(f"phase10c fast workers 4: {len(FAST_URLS)} bodies "
+                  f"byte-equal to the single process's; service launches "
+                  f"{w}; over its life (warmup included) {life}", flush=True)
+            check(sum(life[k] for k in FAST_KEYS) > 0
+                  and sum(life[k] for k in SPLIT_KEYS) == 0,
+                  f"phase10c workers 4: the service launched {life}")
+            windows["phase10c workers"] = w
+            status, body, _, _ = await _get(s, srv.base,
+                                            "/profile?seconds=0.5")
+            check(status == 200, f"phase10e workers 4: /profile {status}")
+            res = json.loads(body)
+            check(os.path.isfile(res["trace_file"]),
+                  f"phase10e workers 4: no trace file {res}")
+            print(f"phase10e workers 4: /profile 200, a worker's trace "
+                  f"{os.path.getsize(res['trace_file'])} B", flush=True)
+        _card_clients(srv)
+        print(f"phase10 workers 4 fast: SIGTERM to exit 0 in "
+              f"{srv.terminate():.3f} s", flush=True)
+    finally:
+        srv.kill()
+    return windows, fold["folded"], one["trace"]
+
+
 def main() -> int:
     smi = phase0()
     from fanlin_tpu_torch import device as device_mod
@@ -2967,6 +3417,14 @@ def main() -> int:
     fold_engine, n_folded, windows["fold engine"] = phase9_engine(dev)
     w9, burst_folded = asyncio.run(_phase9_workers(dev, cmyk_dir))
     windows.update(w9)
+    # phase 10: tpu.fast (the resample kernel's bf16 form, the chain's,
+    # K11's) and tpu.profile_dir
+    fast_bench = phase10_kernels(dev)
+    k11_fast = phase10_k11(dev)
+    split_windows = list(windows)
+    fast_engine, windows["fast engine"] = phase10_engine(dev)
+    w10, n_fast_folded, trace = asyncio.run(_phase10_servers(dev, cmyk_dir))
+    windows.update(w10)
     for name, c in windows.items():
         print(f"launch counts ({name}): {c}", flush=True)
     for name in earlier:
@@ -2990,6 +3448,16 @@ def main() -> int:
         for path in paths:
             check(windows[path][name] > 0,
                   f"kernel {name} was never launched by the {path} run")
+    # the fast form only where tpu.fast is on, and the split form never
+    # there
+    for name in windows:
+        keys = FAST_KEYS if name in split_windows else SPLIT_KEYS
+        check(all(windows[name][k] == 0 for k in keys),
+              f"the {name} run launched {keys}: {windows[name]}")
+    for key in FAST_KEYS:
+        for path in ("fast engine", "fast server", "phase10c workers"):
+            check(windows[path][key] > 0,
+                  f"kernel {key} was never launched by the {path} run")
     for path, n in (("coef engine", n_coef), ("coef jpegdct engine",
                                                n_dct_coef)):
         w = windows[path]
@@ -3026,6 +3494,13 @@ def main() -> int:
                           ("fast_decode", fold_engine),
                           ("coefficient", coef_engine)):
         readme_stage_times(engine, label)
+    # phase 10 (d): the fast route and the default one in turns
+    for label, engine in (("coefficient", coef_engine),
+                          ("fast coefficient", fast_engine),
+                          ("fast coefficient", fast_engine),
+                          ("coefficient", coef_engine)):
+        readme_stage_times(engine, label)
+    print("phase10e trace summary " + json.dumps(trace), flush=True)
     print("phase6e K9 tail summary " + json.dumps(k9), flush=True)
     check("jax" not in sys.modules, "jax was imported")
     check("fanlin_tpu" not in sys.modules, "fanlin_tpu was imported")
@@ -3088,8 +3563,26 @@ def main() -> int:
         if key == "k12a":
             entry["checked_launches"] = checked[name]
         kernels.append(entry)
+    # the resample kernel's bf16 form (tpu.fast), at README and blur B=16
+    for name, key, shape, line in (
+            ("resample_uniform_fast", "resample_fast", "readme_b16", 86),
+            ("resample_uniform_blur_fast", "resample_blur_fast", "blur_b16",
+             91)):
+        r = fast_bench[shape]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fanlin_tpu_torch/csrc/resample.cu",
+            "replaces": f"fanlin_tpu/ops/pallas_kernels.py:{line}",
+            "launches": launches[key],
+            "max_abs_err": max(x["max_abs_err"] for x in fast_bench.values()
+                               if x["blur"] == r["blur"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+            "split_ms": r["split_ms"]})
     # K11 is torch code, not a kernel: its figures on a line of their own
-    # (README B=16; launches: the folded batches of (b) and (c)'s burst)
+    # (README B=16; launches: the folded batches of (b) and (c)'s burst;
+    # its bf16 form's, those of phase 10 (c))
     t = k11["lenna444_b16"]
     print(json.dumps({"torch_programs": [{
         "name": "folded_decode_resample", "route": "torch",
@@ -3100,7 +3593,16 @@ def main() -> int:
         "ms": t["ms"], "device_ms": t["device_ms"],
         "kernels_per_call": t["kernels_per_call"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound"]["bound_ms"], "bound_by": t["bound"]["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "folded_decode_resample_fast", "route": "torch",
+        "source": "fanlin_tpu_torch/ops/jpeg_decode.py",
+        "replaces": "fanlin_tpu/ops/jpeg_decode.py:543",
+        "launches": n_fast_folded,
+        "max_abs_err": max(r["err"] for r in k11_fast.values()),
+        "ms": k11_fast["lenna444_b16"]["ms"],
+        "device_ms": k11_fast["lenna444_b16"]["device_ms"],
+        "f32_ms": k11_fast["lenna444_b16"]["f32_ms"],
+        "db_against_f32": k11_fast["lenna444_b16"]["db"]}]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

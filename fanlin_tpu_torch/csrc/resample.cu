@@ -12,6 +12,14 @@
 //   blur variant: F = floor(clip(Bv @ F @ Bh^T, 0, 255) + 0.5)
 //   u8 store of the store_h x store_w rect
 //
+// The fast form (`tpu.fast`, the reference's bf16 resample products,
+// fanlin_tpu/ops/fused.py:186-194, :343-349) computes
+// bf16(Av) @ P, then bf16(Ah) @ bf16(T): each weight and the
+// intermediate T rounded to bf16 (round to nearest even) and the
+// products accumulated in f32, vertical pass first as in the
+// reference. The blur pair stays full f32 (the split below), as the
+// reference's _post_resample does.
+//
 // What bounds it. The weights are banded: a Lanczos3 row of Av/Ah has
 // ~6*scale non-zeros, a Gaussian row of Bv/Bh ~6*sigma, out of SH/SW.
 // Dense, a pass multiplies zeros: 191.7 GFLOP at 12 MP (3072x4096 ->
@@ -70,6 +78,16 @@
 //   rect the caller asks for; blur runs over the padded intermediate
 //   like the TPU kernel.
 //
+// The fast form rounds each f32 operand of passes 1-2 in registers,
+// where the split form splits it: to bf16 (__float2bfloat16_rn), then
+// back to f32 bits. A bf16 value is exact in TF32 and the product of two
+// 8-bit mantissas is exact in f32, so ONE m16n8k8 TF32 product per
+// fragment pair gives the reference's bf16 products with f32
+// accumulation. Rounding T as pass 2 loads it equals rounding it at
+// pass 1's store; pass 1's pixel operand (integers 0..255) is exact and
+// not rounded. A native m16n8k16 bf16 or wgmma form with T stored as
+// bf16 is later work: K1 runs far from its tensor-core rate.
+//
 // Numerics: built WITHOUT --use_fast_math. The luma floor is taken in
 // integers, which equals the f32 floor((...) / 10000) the reference
 // computes. The split products drop only lo*lo (~2^-22 relative) and sum
@@ -79,6 +97,7 @@
 // The launch uses the caller's stream, does not synchronise and
 // allocates nothing. The C entry returns a cudaError_t (0 = launched).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -176,6 +195,11 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32(x);
   lo = tf32(x - __uint_as_float(hi));
 }
+// x rounded to bf16 (nearest even), as f32 bits: exact in TF32
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)))
+         << 16;
+}
 
 // d += a * b, m16n8k8, TF32 in, f32 accumulate.
 __device__ __forceinline__ void mma(float* d, const uint32_t* a,
@@ -258,7 +282,9 @@ __device__ __forceinline__ float pixel(const unsigned char* bs, int k, int n,
   return static_cast<float>(v);
 }
 
-template <int BMODE, int EPI>
+// FAST: the operands rounded to bf16, one product (passes 1-2 of the
+// fast form); else split TF32
+template <int BMODE, int EPI, bool FAST>
 __global__ void __launch_bounds__(NT) gemm_kernel(Args p) {
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -318,38 +344,49 @@ __global__ void __launch_bounds__(NT) gemm_kernel(Args p) {
 #pragma unroll
       for (int i = 0; i < MI; ++i) {
         const float* a = As + (wm0 + i * 16 + g) * A_PITCH + kk + t;
-        split(a[0], ahi[i][0], alo[i][0]);
-        split(a[8 * A_PITCH], ahi[i][1], alo[i][1]);
-        split(a[4], ahi[i][2], alo[i][2]);
-        split(a[8 * A_PITCH + 4], ahi[i][3], alo[i][3]);
+        const float ax[4] = {a[0], a[8 * A_PITCH], a[4], a[8 * A_PITCH + 4]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (FAST) ahi[i][e] = bf16_bits(ax[e]);
+          else split(ax[e], ahi[i][e], alo[i][e]);
+        }
       }
       uint32_t bhi[NI][2], blo[NI][2];
 #pragma unroll
       for (int j = 0; j < NI; ++j) {
         const int n = wn0 + j * 8 + g;
         if (BMODE == B_PIXEL) {
-          // integers 0..255: exact in TF32, no lo part
+          // integers 0..255: exact in TF32 (and bf16), no lo part
           bhi[j][0] = __float_as_uint(pixel(bs, kk + t, n, gray, inv));
           bhi[j][1] = __float_as_uint(pixel(bs, kk + t + 4, n, gray, inv));
-        } else if (BMODE == B_TRANS) {
-          const float* b = reinterpret_cast<const float*>(bs) +
-                           n * BT_PITCH + kk + t;
-          split(b[0], bhi[j][0], blo[j][0]);
-          split(b[4], bhi[j][1], blo[j][1]);
         } else {
-          const float* b = reinterpret_cast<const float*>(bs) +
-                           (kk + t) * BR_PITCH + n;
-          split(b[0], bhi[j][0], blo[j][0]);
-          split(b[4 * BR_PITCH], bhi[j][1], blo[j][1]);
+          const float* b = reinterpret_cast<const float*>(bs);
+          float bx[2];
+          if (BMODE == B_TRANS) {
+            bx[0] = b[n * BT_PITCH + kk + t];
+            bx[1] = b[n * BT_PITCH + kk + t + 4];
+          } else {
+            bx[0] = b[(kk + t) * BR_PITCH + n];
+            bx[1] = b[(kk + t + 4) * BR_PITCH + n];
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if constexpr (FAST) bhi[j][e] = bf16_bits(bx[e]);
+            else split(bx[e], bhi[j][e], blo[j][e]);
+          }
         }
       }
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NI; ++j) {
-          mma(acc[i][j], alo[i], bhi[j]);
-          if (BMODE != B_PIXEL) mma(acc[i][j], ahi[i], blo[j]);
-          mma(acc[i][j], ahi[i], bhi[j]);
+          if constexpr (FAST) {
+            mma(acc[i][j], ahi[i], bhi[j]);
+          } else {
+            mma(acc[i][j], alo[i], bhi[j]);
+            if (BMODE != B_PIXEL) mma(acc[i][j], ahi[i], blo[j]);
+            mma(acc[i][j], ahi[i], bhi[j]);
+          }
         }
     }
   }
@@ -401,37 +438,25 @@ __global__ void __launch_bounds__(NT) gemm_kernel(Args p) {
       }
 }
 
-template <int BMODE, int EPI>
+template <int BMODE, int EPI, bool FAST = false>
 cudaError_t launch(const Args& p, int planes, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      gemm_kernel<BMODE, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      gemm_kernel<BMODE, EPI, FAST>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, planes);
-  gemm_kernel<BMODE, EPI><<<grid, NT, SMEM_BYTES, stream>>>(p);
+  gemm_kernel<BMODE, EPI, FAST><<<grid, NT, SMEM_BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// x (B, 3, SH, SW) u8; av (OH, SH), ah (OW, SW) f32; bv (OH, OH) and
-// bh (OW, OW) f32 or both null; flags/fill (B, 3) f32; box (B, 4) i32;
-// bands: int32 [k_lo, k_hi) pairs for the ceil(OH/BM) row tiles of Av,
-// the ceil(OW/BN) row tiles of Ah, then (blur only) those of Bv and Bh,
-// computed for tile_m x tile_n tiles and k_slice-deep slices;
-// out (B, 3, store_h, store_w) u8 with store_h <= OH, store_w <= OW.
-// Scratch: t_buf (B*3, OH, SW) f32; g_buf and u_buf (B*3, OH, OW) f32,
-// used only with blur. SH, OH and OW are multiples of 4, SW of 16, and
-// every pointer is 16-byte aligned. Returns a cudaError_t (0 = launched).
-extern "C" int fanlin_resample_uniform(
-    const uint8_t* x, const float* av, const float* ah, const float* bv,
-    const float* bh, const float* flags, const float* fill, const int* box,
-    const int* bands, uint8_t* out, float* t_buf, float* g_buf, float* u_buf,
-    int batch, int sh, int sw, int oh, int ow, int store_h, int store_w,
-    int tile_m, int tile_n, int k_slice, void* stream) {
-  if (tile_m != BM || tile_n != BN || k_slice != BK)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The chain's launches; FAST selects the bf16 form of passes 1-2.
+template <bool FAST>
+cudaError_t run_chain(const uint8_t* x, const float* av, const float* ah,
+                      const float* bv, const float* bh, const float* flags,
+                      const float* fill, const int* box, const int* bands,
+                      uint8_t* out, float* t_buf, float* g_buf, float* u_buf,
+                      int batch, int sh, int sw, int oh, int ow, int store_h,
+                      int store_w, cudaStream_t s) {
   const int planes = batch * 3;
   const int m_tiles = (oh + BM - 1) / BM, n_tiles = (ow + BN - 1) / BN;
   const int* band_av = bands;
@@ -452,8 +477,8 @@ extern "C" int fanlin_resample_uniform(
   p.X = x; p.plane = (long long)sh * sw; p.ldb = sw;
   p.C = t_buf; p.c_z = (long long)oh * sw; p.ldc = sw;
   p.band = band_av;
-  cudaError_t e = launch<B_PIXEL, E_F32>(p, planes, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaError_t e = launch<B_PIXEL, E_F32, FAST>(p, planes, s);
+  if (e != cudaSuccess) return e;
 
   // pass 2: F = T @ Ah^T, round, composite   (M = OH, N = OW, K = SW)
   p = base;
@@ -463,12 +488,13 @@ extern "C" int fanlin_resample_uniform(
   p.band = band_ah;
   if (bv == nullptr) {
     p.C = out; p.c_z = (long long)store_h * store_w; p.ldc = store_w;
-    return static_cast<int>(launch<B_TRANS, E_COMPOSE_U8>(p, planes, s));
+    return launch<B_TRANS, E_COMPOSE_U8, FAST>(p, planes, s);
   }
   p.C = g_buf; p.c_z = (long long)oh * ow; p.ldc = ow;
-  e = launch<B_TRANS, E_COMPOSE_F32>(p, planes, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  e = launch<B_TRANS, E_COMPOSE_F32, FAST>(p, planes, s);
+  if (e != cudaSuccess) return e;
 
+  // passes 3-4, the blur pair, split TF32 in both forms
   // pass 3: U = Bv @ F   (M = OH, N = OW, K = OH)
   p = base;
   p.M = oh; p.N = ow; p.K = oh;
@@ -477,7 +503,7 @@ extern "C" int fanlin_resample_uniform(
   p.C = u_buf; p.c_z = (long long)oh * ow; p.ldc = ow;
   p.band = band_bv;
   e = launch<B_ROW, E_F32>(p, planes, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess) return e;
 
   // pass 4: V = U @ Bh^T, round   (M = OH, N = OW, K = OW)
   p = base;
@@ -486,5 +512,36 @@ extern "C" int fanlin_resample_uniform(
   p.B = bh; p.b_z = 0; p.ldb = ow;
   p.C = out; p.c_z = (long long)store_h * store_w; p.ldc = store_w;
   p.band = band_bh;
-  return static_cast<int>(launch<B_TRANS, E_ROUND_U8>(p, planes, s));
+  return launch<B_TRANS, E_ROUND_U8>(p, planes, s);
+}
+
+}  // namespace
+
+// x (B, 3, SH, SW) u8; av (OH, SH), ah (OW, SW) f32; bv (OH, OH) and
+// bh (OW, OW) f32 or both null; flags/fill (B, 3) f32; box (B, 4) i32;
+// bands: int32 [k_lo, k_hi) pairs for the ceil(OH/BM) row tiles of Av,
+// the ceil(OW/BN) row tiles of Ah, then (blur only) those of Bv and Bh,
+// computed for tile_m x tile_n tiles and k_slice-deep slices;
+// out (B, 3, store_h, store_w) u8 with store_h <= OH, store_w <= OW.
+// Scratch: t_buf (B*3, OH, SW) f32; g_buf and u_buf (B*3, OH, OW) f32,
+// used only with blur. SH, OH and OW are multiples of 4, SW of 16, and
+// every pointer is 16-byte aligned. fast != 0 runs the bf16 form.
+// Returns a cudaError_t (0 = launched).
+extern "C" int fanlin_resample_uniform(
+    const uint8_t* x, const float* av, const float* ah, const float* bv,
+    const float* bh, const float* flags, const float* fill, const int* box,
+    const int* bands, uint8_t* out, float* t_buf, float* g_buf, float* u_buf,
+    int batch, int sh, int sw, int oh, int ow, int store_h, int store_w,
+    int tile_m, int tile_n, int k_slice, int fast, void* stream) {
+  if (tile_m != BM || tile_n != BN || k_slice != BK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      fast ? run_chain<true>(x, av, ah, bv, bh, flags, fill, box, bands, out,
+                             t_buf, g_buf, u_buf, batch, sh, sw, oh, ow,
+                             store_h, store_w, s)
+           : run_chain<false>(x, av, ah, bv, bh, flags, fill, box, bands, out,
+                              t_buf, g_buf, u_buf, batch, sh, sw, oh, ow,
+                              store_h, store_w, s);
+  return static_cast<int>(e);
 }

@@ -150,11 +150,14 @@ class MicroBatcher:
 
     def __init__(self, max_batch: int, window_ms: float,
                  device: torch.device, pipeline_depth: int = 2,
-                 max_queue: int = 0):
+                 max_queue: int = 0, fast: bool = False):
         """device: where batches run. pipeline_depth: batches allowed
         between submit and collect. max_queue: per-group cap on admitted
-        entries not yet picked up by the device thread (0 = unlimited)."""
+        entries not yet picked up by the device thread (0 = unlimited).
+        fast: every batch's resample products in bf16 (`tpu.fast`), the
+        warmup's too."""
         self.device = device
+        self.fast = bool(fast)
         self.max_batch = max_batch
         self.window_s = window_ms / 1000.0
         self.max_queue = max_queue
@@ -304,7 +307,8 @@ class MicroBatcher:
         batch of that kind would. The future resolves to the batch's
         results."""
         def run():
-            asm = fused.make_assembly(plans, payloads, kinds, self.device)
+            asm = fused.make_assembly(plans, payloads, kinds, self.device,
+                                      fast=self.fast)
             with self._on_stream():
                 out = asm.submit()
             results = asm.collect(out)
@@ -373,7 +377,8 @@ class MicroBatcher:
             futures = [g[2] for g in group]
             asm = fused.make_assembly([g[0] for g in group],
                                       [g[1] for g in group],
-                                      [g[3] for g in group], self.device)
+                                      [g[3] for g in group], self.device,
+                                      fast=self.fast)
             # bound submit-ahead to the pipeline depth
             self._inflight.acquire()
             releaser = _PermitOnce(self._inflight)
@@ -442,6 +447,10 @@ class BatchingRunner:
     @property
     def device(self) -> torch.device:
         return self.batcher.device
+
+    @property
+    def fast(self) -> bool:
+        return self.batcher.fast
 
     def run(self, plans: List[ImagePlan], images: List[np.ndarray],
             kinds: List[str] = None):

@@ -35,7 +35,10 @@ coefficients with the port's own encoder (`jpeg_encode`). With
 `fast_decode` a YCbCr coefficient source without grayscale or invert
 takes the folded decode-resize (`jpeg_decode.folded_decode_resample`)
 in place of the decode and resample kernels: a few LSB from the exact
-decode (>= 45 dB), the opt-in fast path of the reference.
+decode (>= 45 dB), the opt-in fast path of the reference. With `fast`
+the runner's batches take the resample products in bf16 with f32 sums
+(the reference's `tpu.fast`: the resample kernel's bf16 form, the torch
+chain's and K11's AC pairs), >= 48 dB from the exact route.
 
 A CMYK or YCCK JPEG takes the reference's colour management when a
 profile is configured (`cmyk2rgb`) or embedded profiles are used: host
@@ -86,13 +89,16 @@ class SyncDeviceRunner:
     caller's thread, a lock serializing the device work. The server
     serves through batcher.BatchingRunner instead."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, fast: bool = False):
+        """fast: every batch's resample products in bf16 (`tpu.fast`)."""
         self.device = device
+        self.fast = bool(fast)
         self._lock = threading.Lock()
 
     def run(self, plans: List[plan_mod.ImagePlan], images: List[np.ndarray],
             kinds: List[str] = None):
-        asm = fused.make_assembly(plans, images, kinds or ["rgb"], self.device)
+        asm = fused.make_assembly(plans, images, kinds or ["rgb"], self.device,
+                                  fast=self.fast)
         with self._lock:
             return asm.run()
 
@@ -101,7 +107,7 @@ class Engine:
     def __init__(self, device: Optional[torch.device] = None, runner=None,
                  device_decode: bool = True, device_dct: bool = False,
                  cmyk2rgb=None, use_embedded_profile: bool = False,
-                 fast_decode: bool = False):
+                 fast_decode: bool = False, fast: bool = False):
         """device: where the transform runs (torch.device("cuda") to
         serve, torch.device("cpu") for the plain versions); None only
         with a runner that owns its device elsewhere (a gateway
@@ -116,13 +122,23 @@ class Engine:
         invert take the folded decode-resize (their kind gains
         fused.FOLD_SUFFIX): within a few LSB of the exact decode, not
         equal to it.
+        fast: the resample products in bf16 (`tpu.fast`). The runner
+        computes the batches, so it holds the switch: SyncDeviceRunner(
+        device, fast) when no runner is given; a given runner must have
+        been made with the same `fast` (a ValueError otherwise).
         cmyk2rgb: the default profile's icc.CMYK2RGB, or None
         (reference handler.rs:19-20); use_embedded_profile: prefer a
         CMYK JPEG's own profile."""
         if runner is None and device is None:
             raise ValueError("Engine needs a device or a runner")
         self.device = device
-        self.runner = runner if runner is not None else SyncDeviceRunner(device)
+        if runner is None:
+            runner = SyncDeviceRunner(device, fast=fast)
+        elif getattr(runner, "fast", False) != fast:
+            raise ValueError(f"Engine(fast={fast}) given a runner made with "
+                             f"fast={getattr(runner, 'fast', False)}")
+        self.runner = runner
+        self.fast = fast
         self.device_decode = device_decode
         self.device_dct = device_dct
         self.fast_decode = fast_decode

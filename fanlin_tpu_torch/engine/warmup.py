@@ -14,6 +14,8 @@ kind the Engine routes that shape to: pixel and coefficient sources
 `tpu.device_dct`); with `tpu.fast_decode` the coefficient kinds are the
 folded ones (their matrices and device copies, as the JAX package
 compiles its folded programs at startup, fanlin_tpu/engine/warmup.py:202).
+A batcher made with `tpu.fast` runs every warm batch in its bf16 form,
+so the resample kernel's fast instances are the ones loaded.
 
 The host side of a first request is cold too: PIL loads its format
 plugins at the first open (tens of ms), the host JPEG reader's library

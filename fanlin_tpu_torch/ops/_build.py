@@ -179,7 +179,7 @@ def load_host() -> ctypes.CDLL:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, argtypes in (
-            ("fanlin_resample_uniform", [p] * 13 + [i] * 10 + [p]),
+            ("fanlin_resample_uniform", [p] * 13 + [i] * 11 + [p]),
             ("fanlin_jpeg_decode_rgb", [p] * 5 + [i] * 13 + [p]),
             ("fanlin_jpeg_decode_cmyk", [p] * 6 + [i] * 14 + [p]),
             ("fanlin_jpeg_decode_cmyk_rgb", [p] * 6 + [i] * 14

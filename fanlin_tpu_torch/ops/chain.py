@@ -10,6 +10,12 @@ program; here the steps run eagerly on the inputs' device.
 Rounding semantics match the `image` crate: resize and blur outputs
 round half away from zero after clamping to [0, 255]; the fixed-point
 Rec.709 luma floors; alpha blending truncates.
+
+`fast=True` is the reference's bf16 resample (`tpu.fast`,
+fanlin_tpu/ops/fused.py:186-194, :343-349): the weights and the
+intermediate of the resample pair are rounded to bf16 (round to nearest
+even) before each product, which sums in f32 (`bf16_round`); the pixel
+operand holds integers 0..255, exact in bf16. The blur pair stays f32.
 """
 
 from __future__ import annotations
@@ -26,10 +32,18 @@ def _true_div(a: torch.Tensor, d: float) -> torch.Tensor:
     return a / a.new_full((), d)
 
 
-def _chain(x_u8, av, ah, flags, fill, box, bv=None, bh=None, uniform=False):
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to bf16 (nearest even), as f32: the operand of
+    a bf16 product whose f32 products are exact."""
+    return t.to(torch.bfloat16).to(_F32)
+
+
+def _chain(x_u8, av, ah, flags, fill, box, bv=None, bh=None, uniform=False,
+           fast=False):
     """The transform chain over a (B, C, SH, SW) u8 batch (C == 3 means
     opaque). uniform=True: one matrix set for the whole batch, av
-    (OH, SH); else per-image stacks, av (B, OH, SH).
+    (OH, SH); else per-image stacks, av (B, OH, SH). fast: the resample
+    pair's weights and intermediate rounded to bf16.
 
     Op order == reference src/handler.rs steps 8-11: grayscale ELSE-IF
     invert -> separable resample (crop/canvas folded into the
@@ -52,11 +66,15 @@ def _chain(x_u8, av, ah, flags, fill, box, bv=None, bh=None, uniform=False):
         planes.append(x[:, 3])
     y = torch.stack(planes, dim=1)  # (B, C, SH, SW)
 
+    # vertical first, as the reference: rounding the intermediate of the
+    # other order gives other bytes
+    rnd = bf16_round if fast else (lambda t: t)
     if uniform:
-        t = torch.matmul(torch.matmul(av, y), ah.transpose(0, 1))
+        t = torch.matmul(rnd(torch.matmul(rnd(av), y)),
+                         rnd(ah).transpose(0, 1))
     else:
-        t = torch.matmul(torch.matmul(av[:, None], y),
-                         ah.transpose(1, 2)[:, None])
+        t = torch.matmul(rnd(torch.matmul(rnd(av)[:, None], y)),
+                         rnd(ah).transpose(1, 2)[:, None])
     fg = torch.floor(torch.clamp(t, 0.0, 255.0) + 0.5)  # (B, C, OH, OW)
     return _post_resample(fg, flags, fill, box, bv, bh, uniform, opaque_in)
 
@@ -101,15 +119,18 @@ def _post_resample(fg, flags, fill, box, bv=None, bh=None, uniform=False,
     return out.to(torch.uint8)
 
 
-def _transform_kernel(x_u8, av, ah, flags, fill, box, bv=None, bh=None):
+def _transform_kernel(x_u8, av, ah, flags, fill, box, bv=None, bh=None,
+                      fast=False):
     """Per-image matrices: x (B, C, SH, SW) u8, av (B, OH, SH), ah
     (B, OW, SW), flags (B, 3), fill (B, 3), box (B, 4) int32, bv
     (B, OH, OH) | None, bh (B, OW, OW) | None."""
-    return _chain(x_u8, av, ah, flags, fill, box, bv, bh, uniform=False)
+    return _chain(x_u8, av, ah, flags, fill, box, bv, bh, uniform=False,
+                  fast=fast)
 
 
 def _transform_kernel_uniform(x_u8, av, ah, flags, fill, box, bv=None,
-                              bh=None):
+                              bh=None, fast=False):
     """Shared matrices: av (OH, SH), ah (OW, SW), bv (OH, OH), bh
     (OW, OW) — the common production batch (one site, one target)."""
-    return _chain(x_u8, av, ah, flags, fill, box, bv, bh, uniform=True)
+    return _chain(x_u8, av, ah, flags, fill, box, bv, bh, uniform=True,
+                  fast=fast)

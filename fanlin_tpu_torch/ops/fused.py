@@ -33,6 +33,11 @@ for the fold (`tpu.fast_decode`) takes neither kernel: its decode and
 resample run as the folded matrix products of
 `jpeg_decode.folded_decode_resample` (K11, fanlin_tpu/ops/fused.py
 :759-828), then the chain's composite and blur.
+
+`fast` (`tpu.fast`): every assembly made with it runs the resample
+products in bf16 with f32 sums, the reference's `_mm_dtype` (fused.py
+:298, :343-349): the resample kernel's bf16 form, the chain's, and K11's
+AC pairs. The Engine's runner holds it; nothing here is process-wide.
 """
 
 from __future__ import annotations
@@ -301,7 +306,8 @@ class BatchAssembly:
     the batcher submits the next batch while another thread collects
     this one."""
 
-    def __init__(self, plans, images, device: torch.device, jpeg420=False):
+    def __init__(self, plans, images, device: torch.device, jpeg420=False,
+                 fast=False):
         """plans: list[ImagePlan]; images: list[(H, W, 3|4) uint8].
 
         jpeg420: False (pixels out), True (JPEG YCbCr 4:2:0 front-end),
@@ -309,11 +315,12 @@ class BatchAssembly:
         front-end, N channels) or ("jpegdct", Q) (the front-end, DCT and
         quantisation at quality Q: coefficient planes out). The sinks
         need one true output geometry per batch; a batch without it
-        downloads pixels."""
+        downloads pixels. fast: the resample products in bf16."""
         if len(plans) != len(images) or not plans:
             raise ValueError("one plan per image, at least one image")
         self.plans = plans
         self.device = device
+        self.fast = bool(fast)
         self._io = _Transfer(device)
         n = len(plans)
         self.b = bucket_b(n)
@@ -378,15 +385,17 @@ class BatchAssembly:
                     flags, fill, box, av, ah, x, bv, bh,
                     crop=(p0.out_h, p0.out_w),
                     bands=_device_cached(_uniform_bands(p0), dev),
+                    fast=self.fast,
                 )
             else:
                 out = _transform_kernel_uniform(x, av, ah, flags, fill, box,
-                                                bv, bh)
+                                                bv, bh, fast=self.fast)
                 out = out[:, :, : p0.out_h, : p0.out_w]
         else:
             up = self._io.upload
             out = _transform_kernel(x, up(self.av), up(self.ah), flags, fill,
-                                    box, up(self.bv), up(self.bh))
+                                    box, up(self.bv), up(self.bh),
+                                    fast=self.fast)
             if self.jpeg420:
                 out = out[:, :, : p0.out_h, : p0.out_w]
         return self._io.download(_tail(out, self.c_out, self.jpeg420))
@@ -441,12 +450,13 @@ class CoefBatchAssembly(BatchAssembly):
     PLANES = ("y", "cb", "cr")  # the meta's block grids, in wire order
 
     def __init__(self, plans, metas, device: torch.device, jpeg420=False,
-                 fold=False):
+                 fold=False, fast=False):
         """metas: read_jpeg_coeffs dicts (either package's), all of one
         (w, h) and subsamp. jpeg420: as for BatchAssembly. fold: take the
         folded decode-resize (`tpu.fast_decode`) where the batch allows
         it: uniform, with no grayscale or invert, which need the decoded
-        pixels (the gate of fanlin_tpu/ops/fused.py:1737-1744)."""
+        pixels (the gate of fanlin_tpu/ops/fused.py:1737-1744). fast: as
+        for BatchAssembly, K11's AC pairs included."""
         if len(plans) != len(metas) or not plans:
             raise ValueError("one plan per source, at least one source")
         m0 = metas[0]
@@ -457,6 +467,7 @@ class CoefBatchAssembly(BatchAssembly):
                              "and subsampling layout")
         self.plans = plans
         self.device = device
+        self.fast = bool(fast)
         self._io = _Transfer(device)
         self.b = bucket_b(len(plans))
         # the decode writes the pixel batch's layout, so the resample
@@ -539,7 +550,8 @@ class CoefBatchAssembly(BatchAssembly):
         (ydc, yac), (cbdc, cbac), (crdc, crac) = (
             jpeg_decode.blocks_to_planar(g) for g in (y, cb, cr))
         return jpeg_decode.folded_decode_resample(
-            ydc, yac, cbdc, cbac, crdc, crac, q[:, 0], q[:, 1], mats)
+            ydc, yac, cbdc, cbac, crdc, crac, q[:, 0], q[:, 1], mats,
+            fast=self.fast)
 
     def folded_pixels(self, wire, flags, fill, box):
         """The folded route on the device: K11 on the uploaded wire, then
@@ -581,7 +593,8 @@ class CmykCoefBatchAssembly(CoefBatchAssembly):
 
     PLANES = ("y", "cb", "cr", "k")
 
-    def __init__(self, plans, metas, device: torch.device, jpeg420=False):
+    def __init__(self, plans, metas, device: torch.device, jpeg420=False,
+                 fast=False):
         """metas: read_jpeg_coeffs4 dicts (either package's) with a LUT
         attached, all of one geometry, layout and colour transform."""
         if not metas or not all(isinstance(m, dict) and m.get("cmyk")
@@ -598,7 +611,7 @@ class CmykCoefBatchAssembly(CoefBatchAssembly):
         self.ycck = bool(m0["ycck"])
         if any(bool(m["ycck"]) != self.ycck for m in metas):
             raise ValueError("a CMYK batch holds one colour transform")
-        super().__init__(plans, metas, device, jpeg420)
+        super().__init__(plans, metas, device, jpeg420, fast=fast)
 
     def _device_x(self):
         """Upload the block grids, then decode them and convert them
@@ -641,7 +654,8 @@ def _sink_arg(sink: str):
     return "webp" if sink == "webp420" else (sink == "jpeg420")
 
 
-def make_assembly(plans, payloads, kinds, device: torch.device):
+def make_assembly(plans, payloads, kinds, device: torch.device, *,
+                  fast: bool = False):
     """The assembly for a homogeneous batch. Kinds: "rgb" (pixels out),
     "jpeg420", "webp420", "png:N", "jpegdct:Q" for pixel sources
     (payloads are (H, W, C) u8 arrays); "coef", "coef444", "coef422",
@@ -650,7 +664,8 @@ def make_assembly(plans, payloads, kinds, device: torch.device):
     "+jpegdct:Q", for coefficient sources (payloads are read_jpeg_coeffs
     dicts); "cmyk444", "cmyk420" (+ "y" for YCCK, + "@<key>" for an
     embedded profile's LUT), with the same sinks, for 4-component sources
-    (read_jpeg_coeffs4 dicts carrying their LUT)."""
+    (read_jpeg_coeffs4 dicts carrying their LUT). fast: the resample
+    products in bf16 (`tpu.fast`), whatever the kind."""
     k0 = kinds[0] if kinds else "rgb"
     base, _, sink = k0.partition("+")
     cmyk = _CMYK_KIND.fullmatch(base)
@@ -662,19 +677,20 @@ def make_assembly(plans, payloads, kinds, device: torch.device):
             raise ValueError(f"batch kind {k0!r} takes read_jpeg_coeffs4 "
                              f"dicts of subsamp {subsamp}, ycck {ycck}")
         return CmykCoefBatchAssembly(plans, payloads, device,
-                                     _sink_arg(sink or "rgb"))
+                                     _sink_arg(sink or "rgb"), fast=fast)
     fold = base.endswith(FOLD_SUFFIX)
     if fold:
         base = base[: -len(FOLD_SUFFIX)]
     if base in _COEF_KINDS:
         return CoefBatchAssembly(plans, payloads, device,
-                                 _sink_arg(sink or "rgb"), fold=fold)
+                                 _sink_arg(sink or "rgb"), fold=fold,
+                                 fast=fast)
     if fold:
         raise ValueError(f"batch kind {k0!r}: only coefficient kinds fold")
     if sink:
         raise NotImplementedError(
             f"batch kind {k0!r} is not yet in the PyTorch port")
-    return BatchAssembly(plans, payloads, device, _sink_arg(k0))
+    return BatchAssembly(plans, payloads, device, _sink_arg(k0), fast=fast)
 
 
 def transform_single(image: np.ndarray, params, device: torch.device,

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .chain import bf16_round
 from .dct import _dct_matrix
 
 _I32 = torch.int32
@@ -393,11 +394,16 @@ _CB_G = 22554.0 / 65536.0
 _CR_G = 46802.0 / 65536.0
 
 
-def folded_decode_resample(ydc, yac, cbdc, cbac, crdc, crac, lq, cq, mats):
+def folded_decode_resample(ydc, yac, cbdc, cbac, crdc, crac, lq, cq, mats,
+                           fast=False):
     """The device side of the folded path (K11): dequantise, one matmul
     pair per plane (luma at the grid's size, chroma at its subsampled
     size) plus a block-constant DC pair, then the colour conversion on
-    the resampled planes. All products in full f32.
+    the resampled planes. All products in full f32, but with `fast`
+    (`tpu.fast`, the reference's mm_dtype=bfloat16) the AC pairs': their
+    operands and intermediate rounded to bf16, the sums in f32, as
+    fanlin_tpu/ops/jpeg_decode.py:571-575. The DC pairs stay f32 there
+    too (:594-597).
 
     ydc (B, GH/8, SW/8) DC grid and yac (B, GH, SW) planar AC with the DC
     slots zero (`blocks_to_planar`), chroma likewise at its grid's size;
@@ -407,14 +413,18 @@ def folded_decode_resample(ydc, yac, cbdc, cbac, crdc, crac, lq, cq, mats):
     ay, ahy, acv, ach, dyv, dyh, dcv, dch = mats
     b = ydc.shape[0]
 
-    def pair(x, mv, mh):
-        return torch.matmul(torch.matmul(mv, x), mh.transpose(0, 1))
+    def same(t):
+        return t
+
+    def pair(x, mv, mh, rnd=same):
+        return torch.matmul(rnd(torch.matmul(rnd(mv), rnd(x))),
+                            rnd(mh).transpose(0, 1))
 
     def plane(ac, q, mv, mh):
         _, h, w = ac.shape
         qt = q.to(_F32).reshape(b, 8, 8)[:, None, :, None, :].expand(
             b, h // 8, 8, w // 8, 8).reshape(b, h, w)
-        return pair(ac.to(_F32) * qt, mv, mh)
+        return pair(ac.to(_F32) * qt, mv, mh, bf16_round if fast else same)
 
     def dc_plane(dc, q, mv, mh, shift):
         v = dc.to(_F32) * (q[:, 0].to(_F32) / 8.0)[:, None, None] + shift

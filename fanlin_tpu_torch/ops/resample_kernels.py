@@ -14,6 +14,11 @@ use_canvas], fill (B, 3) f32, box (B, 4) int32 [x0, y0, fw, fh],
 optional blur matrices bv (OH, OH), bh (OW, OW). The output is
 (B, 3, OH, OW) u8, or only its top-left `crop=(h, w)` rect.
 
+`fast=True` selects the kernel's bf16 form (`tpu.fast`, the
+reference's bf16 resample products): Av, Ah and the intermediate T
+rounded to bf16, the products accumulated in f32; the blur pair stays
+f32. Its plain version rounds at the same three points.
+
 The kernel walks only the band of each weight matrix: `band_ranges`
 gives, per output tile, the K range that holds the tile's non-zero
 weights. The caller computes it once per matrix set (ops.plan caches
@@ -36,11 +41,12 @@ _F32 = torch.float32
 _I32 = torch.int32
 _U8 = torch.uint8
 
-# Launches of the CUDA kernel, by variant (K1 without blur, K2 with).
-# Incremented only where the kernel is launched; the CPU path and the
-# plain version never count.
+# Launches of the CUDA kernel, by variant (K1 without blur, K2 with,
+# each in its f32 and its bf16 "fast" form). Incremented only where the
+# kernel is launched; the CPU path and the plain version never count.
 _COUNT_LOCK = threading.Lock()
-_LAUNCHES = {"resample": 0, "resample_blur": 0}
+_LAUNCHES = {"resample": 0, "resample_blur": 0, "resample_fast": 0,
+             "resample_blur_fast": 0}
 
 
 def launch_counts() -> dict:
@@ -151,15 +157,22 @@ def _validate(flags, fill, box, av, ah, x, bv, bh, crop, bands):
     return oh, ow, int(store_h), int(store_w)
 
 
+def launch_key(blur: bool, fast: bool) -> str:
+    """The launch count a call of this variant adds to."""
+    return ("resample_blur" if blur else "resample") + ("_fast" if fast
+                                                         else "")
+
+
 def resample_uniform(flags, fill, box, av, ah, x, bv=None, bh=None,
-                     crop=None, bands=None) -> torch.Tensor:
+                     crop=None, bands=None, fast=False) -> torch.Tensor:
     """Run the uniform resample chain; (B, 3, h, w) u8 on x's device.
     `bands`: band_ranges(av, ah, bv, bh) as an int32 tensor on x's
-    device; required on CUDA."""
+    device; required on CUDA. `fast`: the bf16 form."""
     oh, ow, store_h, store_w = _validate(flags, fill, box, av, ah, x, bv,
                                          bh, crop, bands)
     if x.device.type == "cpu":
-        return resample_uniform_ref(flags, fill, box, av, ah, x, bv, bh, crop)
+        return resample_uniform_ref(flags, fill, box, av, ah, x, bv, bh, crop,
+                                    fast)
     if x.device.type != "cuda":
         raise ValueError(f"resample_uniform: unsupported device {x.device}")
     if bands is None:
@@ -190,19 +203,21 @@ def resample_uniform(flags, fill, box, av, ah, x, bv=None, bh=None,
         rc = lib.fanlin_resample_uniform(
             *map(ptr, args), ptr(out), ptr(t_buf), ptr(g_buf), ptr(u_buf),
             b, sh, sw, oh, ow, store_h, store_w, TILE_M, TILE_N, K_SLICE,
-            stream,
+            int(bool(fast)), stream,
         )
     if rc != 0:
         raise RuntimeError(f"resample kernel launch failed: CUDA error {rc}")
     with _COUNT_LOCK:
-        _LAUNCHES["resample_blur" if bv is not None else "resample"] += 1
+        _LAUNCHES[launch_key(bv is not None, fast)] += 1
     return out
 
 
 def resample_uniform_ref(flags, fill, box, av, ah, x, bv=None, bh=None,
-                         crop=None) -> torch.Tensor:
+                         crop=None, fast=False) -> torch.Tensor:
     """Plain torch version of the kernel, on any device: the port's
-    uniform transform chain (ops.chain) for opaque sources, cropped."""
-    out = _transform_kernel_uniform(x, av, ah, flags, fill, box, bv, bh)
+    uniform transform chain (ops.chain) for opaque sources, cropped;
+    with `fast` its bf16 form."""
+    out = _transform_kernel_uniform(x, av, ah, flags, fill, box, bv, bh,
+                                    fast=fast)
     h, w = (out.shape[2], out.shape[3]) if crop is None else crop
     return out[:, :, :h, :w].contiguous()

@@ -15,7 +15,10 @@ request semantics:
   middleware publishes the request's deadline and cancel event to the
   micro-batcher, which sheds abandoned requests before device work;
 * response headers: Content-Type, Vary: Accept when webp/avif was
-  requested, Server-Timing with f_fetch / f_process marks.
+  requested, Server-Timing with f_fetch / f_process marks;
+* with ``tpu.profile_dir``, ``GET /profile?seconds=N``: a torch.profiler
+  capture of this process into that directory (`make_profile_handler`),
+  exempt from the request timeout.
 
 One device. The engine serves through the micro-batcher
 (`engine.batcher`, `tpu.max_batch`, `batch_window_ms`,
@@ -25,7 +28,8 @@ worker processes around one device service (`server.workers`); the
 CLI warms the kernels and caches at startup (`tpu.warmup`,
 `engine.warmup`); `tpu.source_cache_mb` caches decoded sources
 (`engine.source_cache`); `tpu.fast_decode` routes YCbCr coefficient
-sources through the folded decode-resize. There is no mesh:
+sources through the folded decode-resize; `tpu.fast` runs the resample
+products in bf16 (the batcher and the Engine hold it). There is no mesh:
 `tpu.data_parallel` serves unsharded on one device, as the reference
 does there, and is refused where more than one is visible
 (`check_data_parallel`). Config options whose code is not in the port
@@ -59,6 +63,7 @@ from ..infra import Client
 from ..ops import cmyk_lut_kernels, jpeg_decode_kernels, resample_kernels
 from ..spec import content as content_mod
 from ..spec import query as query_mod
+from ..utils import profiling
 from ..utils.bytelru import ByteLRU
 from .state import State
 from .timing import HEADER_KEY as TIMING_HEADER
@@ -77,8 +82,6 @@ REQUEST_TIMEOUT_SECS = 10.0  # tower TimeoutLayer (main.rs:105-107)
 # thinning (lossy upload thinning of folded batches) rides the
 # narrow-link pack modes, which the port's dense wire lacks.
 _UNPORTED = (
-    ("tpu.fast", lambda c: c.tpu.fast),
-    ("tpu.profile_dir", lambda c: bool(c.tpu.profile_dir)),
     ("tpu.spectral_db with tpu.fast_decode",
      lambda c: c.tpu.fast_decode and c.tpu.spectral_db > 0),
 )
@@ -285,9 +288,53 @@ async def trace_middleware(request: web.Request, handler):
     return response
 
 
-def make_timeout_middleware(timeout: float):
+def make_profile_handler(profile_dir: str, cuda: bool):
+    """GET /profile?seconds=N (`tpu.profile_dir`; fanlin_tpu/server/
+    app.py:237-276 captures with jax.profiler): a torch.profiler capture
+    of N seconds (clamped to 0.1-60; 400 when N is no number) of this
+    process, written into profile_dir as a Chrome trace. `cuda`: record
+    the card's activity too (CUPTI, process-wide); a gateway worker
+    passes False, as it must never initialise CUDA, so its trace holds
+    only its own host activity. One capture at a time: a second request
+    gets 409, as does one while another capture of the port runs in the
+    process (`utils.profiling.exclusive`); a capture that fails answers
+    500 with the reason. Call it on the thread that imported torch
+    (`utils.profiling.prepare`): create_app does, on the main thread."""
+    # captures run on worker threads; Kineto must start on this one
+    profiling.prepare(cuda)
+
+    async def profile_handler(request: web.Request) -> web.Response:
+        try:
+            seconds = min(max(float(request.query.get("seconds", 3)), 0.1),
+                          60.0)
+        except ValueError:
+            return web.Response(status=400, text="bad seconds")
+        try:
+            path = await asyncio.to_thread(profiling.capture_trace,
+                                           profile_dir, seconds, cuda)
+        except profiling.ProfilerBusy as e:
+            return web.Response(status=409, text=str(e))
+        except Exception as e:
+            log.error("profile capture failed; %r", e)
+            return web.Response(status=500, text=f"profile failed: {e!r}")
+        return web.Response(
+            text=json.dumps({"trace_dir": profile_dir, "seconds": seconds,
+                             "trace_file": path}),
+            content_type="application/json")
+
+    return profile_handler
+
+
+def make_timeout_middleware(timeout: float, profile_route: bool = False):
     @web.middleware
     async def timeout_middleware(request: web.Request, handler):
+        if (profile_route and request.path == "/profile"
+                and request.method == "GET"):
+            # a capture runs up to 60 s and cannot be interrupted: a 408
+            # would answer while it still runs. Only where the route is
+            # registered and for GET: otherwise /profile is an image
+            # path like any other
+            return await handler(request)
         # the engine's worker thread inherits both through
         # asyncio.to_thread's context copy: the batcher sheds an entry
         # whose deadline passed or whose event fired before it pays
@@ -324,7 +371,8 @@ def create_app(cfg: config_mod.Config, state: State) -> web.Application:
     app = web.Application(
         middlewares=[
             trace_middleware,
-            make_timeout_middleware(REQUEST_TIMEOUT_SECS),
+            make_timeout_middleware(REQUEST_TIMEOUT_SECS,
+                                    profile_route=bool(cfg.tpu.profile_dir)),
             make_concurrency_middleware(cfg.max_clients),
         ],
         client_max_size=1024**3,
@@ -332,6 +380,12 @@ def create_app(cfg: config_mod.Config, state: State) -> web.Application:
     app[STATE_KEY] = state
     app.router.add_route("*", "/ping", ping_handler)
     app.router.add_get("/stats", stats_handler)
+    if cfg.tpu.profile_dir:
+        # a gateway worker's engine has no device: host activity only
+        device = state.engine.device
+        app.router.add_get("/profile", make_profile_handler(
+            cfg.tpu.profile_dir,
+            cuda=device is not None and device.type == "cuda"))
     # axum's .fallback() catches every method (main.rs:90)
     app.router.add_route("*", "/{tail:.*}", generic_handler)
 
@@ -374,7 +428,7 @@ async def build_state(cfg: config_mod.Config,
         runner = BatchingRunner(MicroBatcher(
             cfg.tpu.max_batch, cfg.tpu.batch_window_ms, device=device,
             pipeline_depth=cfg.tpu.pipeline_depth,
-            max_queue=cfg.tpu.max_queue))
+            max_queue=cfg.tpu.max_queue, fast=cfg.tpu.fast))
     if device_decode is None:
         device_decode = cfg.tpu.device_decode
     native_codecs.set_webp_method(cfg.tpu.webp_method)
@@ -385,7 +439,7 @@ async def build_state(cfg: config_mod.Config,
                     "activate")
     engine = Engine(device, runner=runner, device_decode=device_decode,
                     device_dct=cfg.tpu.device_dct,
-                    fast_decode=cfg.tpu.fast_decode)
+                    fast_decode=cfg.tpu.fast_decode, fast=cfg.tpu.fast)
     if cfg.tpu.source_cache_mb:
         engine.source_cache = SourceCache(cfg.tpu.source_cache_mb)
     if cfg.tpu.codec_threads:

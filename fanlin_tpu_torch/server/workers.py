@@ -200,8 +200,11 @@ class RemoteRunner:
     connection per run() call (a unix connect is ~10 us); callers block
     in worker threads, so plain blocking sockets."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, fast: bool = False):
+        """fast: the service's `tpu.fast` (from the hello), which the
+        worker's Engine checks against its own."""
         self.path = path
+        self.fast = bool(fast)
 
     def run(self, plans, images, kinds=None):
         cancel_ev = REQUEST_CANCEL.get()
@@ -339,7 +342,7 @@ class DeviceService:
         self.batcher = MicroBatcher(
             cfg.tpu.max_batch, cfg.tpu.batch_window_ms, device=device,
             pipeline_depth=cfg.tpu.pipeline_depth,
-            max_queue=cfg.tpu.max_queue)
+            max_queue=cfg.tpu.max_queue, fast=cfg.tpu.fast)
         self.runner = BatchingRunner(self.batcher)
         # the socket's share of a worker's f_device: per "run" message,
         # the ms from the handler's start to the request decoded (recv),
@@ -350,7 +353,8 @@ class DeviceService:
         # what the workers must know of the device they cannot see: the
         # port's own rule (build_state), not the JAX package's backend
         # test
-        self.worker_cfg = {"device_decode": cfg.tpu.device_decode}
+        self.worker_cfg = {"device_decode": cfg.tpu.device_decode,
+                           "fast": bool(cfg.tpu.fast)}
         self._warmup_on = bool(cfg.tpu.warmup)
         self._device_decode = bool(cfg.tpu.device_decode)
         self._device_dct = bool(cfg.tpu.device_dct)
@@ -418,7 +422,7 @@ async def _serve_worker_async(cfg, uds_path: str) -> None:
                 log.warning("device service still starting after %.0f s; "
                             "waiting", time.monotonic() - start)
             await asyncio.sleep(0.05)
-    runner = RemoteRunner(uds_path)
+    runner = RemoteRunner(uds_path, fast=worker_cfg["fast"])
     state = await build_state(cfg, runner=runner,
                               device_decode=worker_cfg["device_decode"])
     if cfg.tpu.warmup:
@@ -453,6 +457,10 @@ async def _serve_worker_async(cfg, uds_path: str) -> None:
 
 
 def _worker_main(cfg, uds_path: str) -> int:
+    # a worker never touches the card: hide it, so that nothing which
+    # initialises the CUDA driver in passing (torch.profiler does, even
+    # for the host-only capture of tpu.profile_dir) opens it here
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
     _die_with_parent()
     asyncio.run(_serve_worker_async(cfg, uds_path))
     return 0

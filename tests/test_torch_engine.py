@@ -243,7 +243,8 @@ def test_engine_counts_and_never_launches_on_cpu(engines):
     n = port.stats["pixel_src"]
     port.process_image(_src("synth"), parse_query("w=30&h=20"), Format())
     assert port.stats["pixel_src"] == n + 1
-    assert rk.launch_counts() == {"resample": 0, "resample_blur": 0}
+    assert rk.launch_counts() == {"resample": 0, "resample_blur": 0,
+                                 "resample_fast": 0, "resample_blur_fast": 0}
 
 
 def test_engine_serves_coefficient_path_and_device_dct():

@@ -395,8 +395,8 @@ def test_warmup_warms_the_folded_kinds(monkeypatch):
     seen = []
     real = tfused.make_assembly
 
-    def make(plans, payloads, kinds, device):
-        asm = real(plans, payloads, kinds, device)
+    def make(plans, payloads, kinds, device, **kw):
+        asm = real(plans, payloads, kinds, device, **kw)
         seen.append((kinds[0], getattr(asm, "fold", False)))
         return asm
 

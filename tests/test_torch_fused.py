@@ -227,4 +227,5 @@ def test_cpu_assemblies_never_launch_the_kernel():
     rk.reset_launch_counts()
     tp, _, imgs = _batch(UNIFORM_BLUR)
     tfused.make_assembly(tp, imgs, ["jpeg420"], CPU).run()
-    assert rk.launch_counts() == {"resample": 0, "resample_blur": 0}
+    assert rk.launch_counts() == {"resample": 0, "resample_blur": 0,
+                                 "resample_fast": 0, "resample_blur_fast": 0}

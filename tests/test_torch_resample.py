@@ -95,7 +95,8 @@ def test_launch_counts_stay_zero_on_cpu():
     args = rk.params_from_numpy(asm.flags, asm.fill, asm.box, av, ah, bv, bh,
                                 device=CPU)
     rk.resample_uniform(*args[:5], torch.from_numpy(asm.x), *args[5:])
-    assert rk.launch_counts() == {"resample": 0, "resample_blur": 0}
+    assert rk.launch_counts() == {"resample": 0, "resample_blur": 0,
+                                 "resample_fast": 0, "resample_blur_fast": 0}
 
 
 def test_params_from_numpy_types():

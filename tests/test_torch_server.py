@@ -101,7 +101,8 @@ def test_gateway_requests():
             assert stats["engine"] == {"pixel_src": 0, "coef_src": 3}
             # the CPU runs the plain versions: no kernel launches
             assert stats["kernel_launches"] == {
-                "resample": 0, "resample_blur": 0, "jpeg_decode_rgb": 0,
+                "resample": 0, "resample_blur": 0, "resample_fast": 0,
+                "resample_blur_fast": 0, "jpeg_decode_rgb": 0,
                 "jpeg_decode_cmyk": 0, "jpeg_decode_cmyk_rgb": 0,
                 "cmyk_lut": 0}
         finally:
@@ -111,8 +112,7 @@ def test_gateway_requests():
 
 
 @pytest.mark.parametrize("tpu,extra", [
-    ('{"fast": true}', ""),
-    ('{"profile_dir": "fanlin-profile"}', ""),
+    ('{"fast_decode": true, "spectral_db": 30}', ""),
 ])
 def test_unported_options_refused_at_startup(tpu, extra):
     cfg = _config(tpu, extra)
@@ -121,6 +121,27 @@ def test_unported_options_refused_at_startup(tpu, extra):
     with pytest.raises(ConfigError):
         asyncio.run(build_state(cfg, device=CPU))
     assert cli.main(["-j", json.dumps(_raw(tpu, extra))]) == 1
+
+
+@pytest.mark.parametrize("tpu", [
+    '{"fast": true}',
+    '{"profile_dir": "fanlin-profile"}',
+])
+def test_fast_and_profile_dir_accepted_at_startup(tpu):
+    """tpu.fast and tpu.profile_dir are ported (tests/test_torch_fast.py,
+    tests/test_torch_profile.py): they pass the option check and build a
+    state; fast reaches the batcher and the Engine, profile_dir adds the
+    /profile route."""
+    cfg = _config(tpu)
+    check_ported(cfg)
+    state = asyncio.run(build_state(cfg, device=CPU))
+    try:
+        assert state.engine.fast == state.engine.runner.fast == cfg.tpu.fast
+        routes = {r.resource.canonical for r in
+                  create_app(cfg, state).router.routes()}
+        assert ("/profile" in routes) == bool(cfg.tpu.profile_dir)
+    finally:
+        assert state.engine.runner.batcher.close()
 
 
 @pytest.mark.parametrize("tpu", [

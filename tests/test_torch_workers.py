@@ -226,7 +226,8 @@ def test_workers_ping_and_stats():
         assert full["batcher"]["images"] == 2
         assert full["batcher"]["batches"] >= 1
         assert full["kernel_launches"] == {
-            "resample": 0, "resample_blur": 0, "jpeg_decode_rgb": 0,
+            "resample": 0, "resample_blur": 0, "resample_fast": 0,
+            "resample_blur_fast": 0, "jpeg_decode_rgb": 0,
             "jpeg_decode_cmyk": 0, "jpeg_decode_cmyk_rgb": 0,
             "cmyk_lut": 0}  # the CPU runs the plain versions
         # the engine and the caches are the answering worker's own
@@ -443,8 +444,9 @@ def test_service_stats_payload():
                                   "run_ms_total": 0.0, "send_ms_total": 0.0}
     assert payload["kernel_launches"] == app_mod.kernel_launches()
     assert set(payload["kernel_launches"]) == {
-        "resample", "resample_blur", "jpeg_decode_rgb", "jpeg_decode_cmyk",
-        "jpeg_decode_cmyk_rgb", "cmyk_lut"}
+        "resample", "resample_blur", "resample_fast", "resample_blur_fast",
+        "jpeg_decode_rgb", "jpeg_decode_cmyk", "jpeg_decode_cmyk_rgb",
+        "cmyk_lut"}
 
 
 def _service_cfg(**tpu):
@@ -504,8 +506,8 @@ def test_plans_reinterned_to_one_object(device_service, monkeypatch):
     rows = []
     real = fused.make_assembly
 
-    def make(plans, payloads, kinds, device):
-        asm = real(plans, payloads, kinds, device)
+    def make(plans, payloads, kinds, device, **kw):
+        asm = real(plans, payloads, kinds, device, **kw)
         rows.append((len(plans), len({id(p) for p in plans}), asm.uniform))
         return asm
 
@@ -699,6 +701,30 @@ def test_workers_serve_fast_decode_and_data_parallel():
         srv.kill()
 
 
+def test_workers_serve_fast_and_profile(tmp_path):
+    """tpu.fast in worker mode: the device service's batcher holds it and
+    its hello tells the workers, whose Engines check it; every body
+    equals the single-process server's with fast (and the README body
+    differs from the exact one's). With tpu.profile_dir a worker answers
+    GET /profile with a trace of its own host activity."""
+    tpu = {"fast": True, "profile_dir": str(tmp_path / "traces")}
+    srv = _Server("wk-fast", workers=2, **tpu)
+    try:
+        got = [srv.get(u, h)[1] for u, h in URLS]
+        want = asyncio.run(_single_process_bodies("wk-fast", URLS, tpu))
+        assert got == want, "worker-mode bytes != single-process bytes"
+        exact = asyncio.run(_single_process_bodies("wk-fast", URLS[:1]))
+        assert got[0] != exact[0]
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/profile?seconds=0.2",
+                timeout=60) as r:
+            body = json.loads(r.read())
+        assert r.status == 200 and os.path.isfile(body["trace_file"])
+        assert srv.terminate() == 0
+    finally:
+        srv.kill()
+
+
 # the CLI as BOOT runs it, with two devices visible to the device count
 BOOT_TWO_DEVICES = BOOT.replace(
     "from fanlin_tpu_torch.cli import main; ",
@@ -742,9 +768,9 @@ def test_warm_runs_on_the_device_thread(monkeypatch):
     threads = []
     real = fused.make_assembly
 
-    def make(plans, payloads, kinds, device):
+    def make(plans, payloads, kinds, device, **kw):
         threads.append((threading.current_thread().name, len(plans)))
-        return real(plans, payloads, kinds, device)
+        return real(plans, payloads, kinds, device, **kw)
 
     monkeypatch.setattr(fused, "make_assembly", make)
     batcher = batcher_mod.MicroBatcher(4, 2.0, device=CPU)
