@@ -174,12 +174,49 @@ Phases (each failure exits non-zero; nothing is caught):
      second GET meanwhile answers 409, and so does one while another
      capture of the port (utils.profiling.exclusive) runs; at workers 4
      a worker answers /profile and no worker opens the card
+     After phase 10, on a healthy card: every micro-batcher this process
+     made and every CLI server (its /stats read before the SIGTERM: the
+     device service's in worker mode) counted no host-mirror batch, stall,
+     device error or wedge (host_fallbacks, device_stalls, device_errors,
+     device_wedged, probe_threads all 0), and no HTTP response of phases
+     4-10 carried
+     X-Cache-Warmth: cold (an aiohttp trace on every client session)
+ 11. the host mirror and device failover (P7), faults injected in-process
+     by wrapping BatchAssembly.submit: (a) the mirror (ops.hostexec)
+     against the card's path on the same staged batches (README 4:4:4
+     coefficients B=8 with the default, PNG, WebP and jpegdct sinks,
+     synth 4:2:0 B=8, README pixels B=8, the alpha PNG on a fill canvas
+     B=4, the 2048x2048 CMYK print asset with the device ICC LUT B=1):
+     <= 1 LSB and <= 0.5 % of bytes differing (jpegdct coefficients <= 2
+     steps), the decoded planes of the coefficient and CMYK batches
+     equal to jpeg_decode_rgb's / jpeg_decode_cmyk_rgb's; (b) the server
+     in-process with "tpu": {"device_stall_s": 1.5}: a real stall (a
+     torch.cuda._sleep enqueued on the batch's stream until 5 s after
+     its start, probes included) wedges the batcher, the README request
+     and its PNG form are answered cold (Cache-Control: no-store) from
+     the mirror, the PNG within 1 LSB of the card's pixels, the counters
+     rise with one WARNING per mirror batch, the stall's end recovers it
+     and resample and jpeg_decode_rgb launch again; (c) one RuntimeError
+     from submit: the request fails (500, not cold, device_errors 1, no
+     mirror, no wedge), then the kernels again; one KernelBuildError:
+     the same; (d) tpu.workers
+     2 with the stall in the device service (the CLI started through a
+     wrapper that sleeps while a file names a time to come): cold bodies
+     through both gateways, byte-equal to (b)'s, the service wedged and
+     a worker's engine on the pixel source, then recovery, the card's
+     bodies, and resample and jpeg_decode_rgb launched again (the
+     workers back on the coefficient source); (e) the mirror's host ms per batch (README B=1/8/16
+     coefficients and pixels, synth B=8, the print asset), the time from
+     a stall's start to its first mirror-served response and from its
+     end to the first device-served one. They print as the
+     {"failover": ...} line before the kernels line.
 Launch counts are set to 0 just before each main-path run (the pixel
 Engine, the coefficient Engine, the server, each phase-5 burst, the two
 jpegdct engines and the jpegdct server burst of phase 6, the CMYK engine
 and the CMYK server burst of phase 7, the fast_decode engine and the
 fast_decode server burst of phase 9, the fast engine and the three
-one-process fast servers of phase 10) and read just after it; phase 8's,
+one-process fast servers of phase 10, the post-recovery and post-error
+requests of phase 11) and read just after it; phase 8's,
 9's and 10's worker-mode counts live in the device service, and their
 windows are the differences of a worker's /stats read just before and
 just after each. The fast keys (resample_fast, resample_blur_fast) must
@@ -211,6 +248,7 @@ import asyncio
 import importlib.util
 import io
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -2165,6 +2203,10 @@ class _CliServer:
     its own (on CUDA: the CLI is given no device); a thread keeps reading
     its output."""
 
+    # a server of phase 11's faults: its failover counters are not held
+    # at 0 when it stops
+    faults = False
+
     def __init__(self, folder: str, **tpu):
         self.workers = tpu.get("workers", 0)
         self.port = _free_port()
@@ -2221,7 +2263,18 @@ class _CliServer:
         return time.perf_counter() - self.t_spawn
 
     def terminate(self) -> float:
-        """(h) SIGTERM: exit 0 within DRAIN_S, no worker left."""
+        """(h) SIGTERM: exit 0 within DRAIN_S, no worker left. Before it,
+        the batcher's failover counters (the device service's in worker
+        mode) must be 0 (not for a server of phase 11's faults)."""
+        if not self.faults:
+            import urllib.request
+
+            with urllib.request.urlopen(self.base + "/stats",
+                                        timeout=REQUEST_S) as r:
+                stats = json.loads(r.read())
+            _check_failover_zero(stats["batcher"], f"CLI server workers "
+                                 f"{self.workers} {self.proc.args[-1][:80]}")
+            _CLI_CHECKED.append(self.base)
         pids = self.worker_pids()
         t0 = time.perf_counter()
         self.proc.send_signal(15)
@@ -3364,12 +3417,612 @@ async def _phase10_servers(dev: torch.device, folder: str) -> dict:
     return windows, fold["folded"], one["trace"]
 
 
+# ---------------------------------------------------------------------------
+# The failover counters on a healthy card, and phase 11: the host mirror
+# and device failover (P7), with faults injected in-process
+
+# the batcher's counters of mirror-served work and of a failing device:
+# all 0 on a healthy card
+FAILOVER_KEYS = ("host_fallbacks", "device_stalls", "device_errors",
+                 "device_wedged", "probe_threads")
+_BATCHERS = []  # every MicroBatcher made in this process
+_COLD = []  # every HTTP response this process read marked cold
+_CLI_CHECKED = []  # the CLI servers whose batcher counters were read
+
+
+def _watch_failover() -> None:
+    """Register every MicroBatcher this process makes, and every HTTP
+    response it reads that carries X-Cache-Warmth: cold (an aiohttp trace
+    on every client session)."""
+    import aiohttp
+
+    from fanlin_tpu_torch.engine import batcher as batcher_mod
+
+    real_init = batcher_mod.MicroBatcher.__init__
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        _BATCHERS.append(self)
+
+    batcher_mod.MicroBatcher.__init__ = init
+    trace = aiohttp.TraceConfig()
+
+    async def on_end(session, ctx, params):
+        if params.response.headers.get("X-Cache-Warmth") == "cold":
+            _COLD.append(str(params.url))
+
+    trace.on_request_end.append(on_end)
+    real_session = aiohttp.ClientSession.__init__
+
+    def session(self, *a, **kw):
+        kw["trace_configs"] = [*(kw.get("trace_configs") or ()), trace]
+        real_session(self, *a, **kw)
+
+    aiohttp.ClientSession.__init__ = session
+
+
+def _check_failover_zero(stats: dict, where: str) -> None:
+    bad = {k: stats.get(k) for k in FAILOVER_KEYS if stats.get(k)}
+    check(not bad, f"{where}: failover counters on a healthy card: {bad}")
+
+
+def check_healthy_phases() -> dict:
+    """Every batcher of phases 4-10 and every CLI server (read before its
+    SIGTERM) counted no host-served batch, no stall, no device error
+    and no wedge; no response was marked cold."""
+    for i, b in enumerate(_BATCHERS):
+        _check_failover_zero(b.stats, f"in-process batcher {i}")
+    check(not _COLD, f"responses marked cold on a healthy card: {_COLD[:5]}")
+    # the longest a request waited for the device thread
+    out = {"batchers": len(_BATCHERS), "cli_servers": len(_CLI_CHECKED),
+           "cold_responses": len(_COLD), "queue_wait_ms_peak": max(
+               (b.stats["queue_wait_ms_peak"] for b in _BATCHERS),
+               default=0.0)}
+    print("healthy phases: failover counters 0 " + json.dumps(out),
+          flush=True)
+    check(_BATCHERS and _CLI_CHECKED, "no batcher was checked")
+    return out
+
+
+def _sleep_rate() -> float:
+    """torch.cuda._sleep cycles per second on this card (CUDA events)."""
+    torch.cuda._sleep(int(1e6))  # load the kernel
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(int(2e8))
+    end.record()
+    end.synchronize()
+    return 2e8 / (start.elapsed_time(end) / 1000.0)
+
+
+class _Stall:
+    """While active, every device submit of a batch first enqueues a
+    sleep kernel on its stream lasting until `until` (time.monotonic()),
+    so the batch's event completes only after it: a stalled device for
+    everything submitted before `until`, probes included."""
+
+    def __init__(self, rate: float):
+        from fanlin_tpu_torch.ops import fused
+
+        self.rate = rate
+        self.until = 0.0
+        self._fused = fused
+        self._real = fused.BatchAssembly.submit
+
+    def __enter__(self):
+        real, stall = self._real, self
+
+        def submit(asm):
+            left = stall.until - time.monotonic()
+            if left > 0 and asm.device.type == "cuda":
+                torch.cuda._sleep(int(left * stall.rate))
+            return real(asm)
+
+        self._fused.BatchAssembly.submit = submit
+        return self
+
+    def __exit__(self, *exc):
+        self._fused.BatchAssembly.submit = self._real
+
+
+class _RaiseOnce:
+    """The next device submit raises `exc` (then submits are real)."""
+
+    def __init__(self, exc: Exception):
+        from fanlin_tpu_torch.ops import fused
+
+        self.exc = exc
+        self.left = 1
+        self._fused = fused
+        self._real = fused.BatchAssembly.submit
+
+    def __enter__(self):
+        real, fault = self._real, self
+
+        def submit(asm):
+            if fault.left > 0:
+                fault.left -= 1
+                raise fault.exc
+            return real(asm)
+
+        self._fused.BatchAssembly.submit = submit
+        return self
+
+    def __exit__(self, *exc):
+        self._fused.BatchAssembly.submit = self._real
+
+
+class _MirrorLog(logging.Handler):
+    """The fanlin.batcher records of the WARNING level and above."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records = []
+        self._logger = logging.getLogger("fanlin.batcher")
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def __enter__(self):
+        self._logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+
+    async def __aenter__(self):
+        return self.__enter__()
+
+    async def __aexit__(self, *exc):
+        self.__exit__(*exc)
+
+    def mirror_warnings(self) -> int:
+        return sum(r.levelno == logging.WARNING
+                   and "host mirror serving" in r.getMessage()
+                   for r in self.records)
+
+
+def _diff_stats(a: np.ndarray, b: np.ndarray) -> tuple:
+    """(max |a - b|, share of differing bytes) of two u8/int arrays."""
+    check(a.shape == b.shape, f"shapes {a.shape} and {b.shape}")
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return int(d.max(initial=0)), float((d > 0).mean())
+
+
+def _mirror_arrays(res) -> list:
+    """The arrays of one collect() result; PNG filter rows as the pixels
+    they encode (a pixel 1 LSB apart changes its filtered byte by 255 mod
+    256, and may change its row's filter)."""
+    if not isinstance(res, tuple):
+        return [res]
+    if res[0] == "pngrows":
+        from fanlin_tpu_torch.engine.png_writer import write_png
+
+        return [_decoded(write_png(res[1], res[2], res[3], res[4], 75))]
+    return [x for x in res[1:] if isinstance(x, np.ndarray)]
+
+
+def _result_diffs(card: list, mirror: list) -> tuple:
+    """Worst max |diff| and share over every array of two collect()
+    results."""
+    worst, share = 0, 0.0
+    for c, m in zip(card, mirror):
+        for a, b in zip(_mirror_arrays(c), _mirror_arrays(m)):
+            mx, sh = _diff_stats(a, b)
+            worst, share = max(worst, mx), max(share, sh)
+    return worst, share
+
+
+def _phase11_sources(folder: str) -> dict:
+    """name -> (plan, payload, kind) of phase 11 (a)'s batches: the
+    README request (lenna, 4:4:4 coefficients) with the default, PNG,
+    WebP and jpegdct sinks, synth 4:2:0, the README source as pixels,
+    the alpha PNG of phase 10 on a fill canvas, and the 2048x2048 CMYK
+    print asset with the device ICC LUT."""
+    from fanlin_tpu_torch.engine import codecs
+    from fanlin_tpu_torch.engine.jpeg_coeffs import (read_jpeg_coeffs,
+                                                     read_jpeg_coeffs4)
+    from fanlin_tpu_torch.ops import plan as plan_mod
+    from fanlin_tpu_torch.spec.query import parse_query
+
+    q = parse_query("w=300&h=200")
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    lenna = read(os.path.join(GOLDEN, "lenna_src.jpg"))
+    meta = read_jpeg_coeffs(lenna)
+    plan = plan_mod.plan_image(meta["w"], meta["h"], q, opaque=True)
+    base = COEF_KIND[meta["subsamp"]]
+    out = {name: (plan, meta, base + sink)
+           for name, sink in (("readme444", ""), ("readme444_png", "+png:3"),
+                              ("readme444_webp", "+webp420"),
+                              ("readme444_jpegdct", "+jpegdct:75"))}
+    smeta = read_jpeg_coeffs(read(os.path.join(GOLDEN, "synth_src.jpg")))
+    out["synth420"] = (plan_mod.plan_image(smeta["w"], smeta["h"], q,
+                                           opaque=True),
+                       smeta, COEF_KIND[smeta["subsamp"]])
+    img, _, _ = codecs.decode(lenna)
+    out["readme_pixels"] = (plan, img, "rgb")
+    img, has_alpha, _ = codecs.decode(read(os.path.join(folder, "alpha.png")))
+    check(has_alpha, "phase11a: the alpha PNG decoded opaque")
+    out["alpha_canvas"] = (plan_mod.plan_image(
+        img.shape[1], img.shape[0], parse_query("w=300&h=200&rgb=9,8,7")),
+        img, "rgb")
+    cmeta = read_jpeg_coeffs4(read(os.path.join(folder, "print_cmyk.jpg")))
+    lut = _phase7_lut(folder)
+    cmeta["lut_flat"] = np.ascontiguousarray(
+        lut.reshape(-1, 3).astype(np.float32))
+    cmeta["lut_n"], cmeta["lut_key"] = lut.shape[0], ""
+    out["print_cmyk444"] = (plan_mod.plan_image(cmeta["w"], cmeta["h"], q,
+                                                opaque=True),
+                            cmeta, "cmyk444")
+    return out
+
+
+# (name, images) of phase 11 (a)
+MIRROR_CHECKS = [("readme444", 8), ("readme444_png", 8),
+                 ("readme444_webp", 8), ("readme444_jpegdct", 8),
+                 ("synth420", 8), ("readme_pixels", 8), ("alpha_canvas", 4),
+                 ("print_cmyk444", 1)]
+# (name, images) timed in phase 11 (e), beside (a)'s batches (the print
+# asset's one mirror run of (a), seconds of host work, is its time)
+MIRROR_TIMED = [("readme444", 1), ("readme444", 8), ("readme444", 16),
+                ("readme_pixels", 1), ("readme_pixels", 8),
+                ("readme_pixels", 16), ("synth420", 8)]
+
+
+def phase11_mirror(dev: torch.device, folder: str) -> dict:
+    """(a) The mirror (ops.hostexec) against the card's path on the same
+    staged assemblies: max |diff| and share of differing bytes (<= 1 LSB
+    and <= 0.5 % for pixels and encode planes; jpegdct coefficients <= 2
+    steps and <= 0.5 %: a plane 1 LSB apart moves a coefficient by about
+    one step at most, and the mirror's DCT rounds quantisation ties in
+    numpy's order); the decoded planes of the coefficient and CMYK
+    batches equal to jpeg_decode_rgb's / jpeg_decode_cmyk_rgb's on the
+    card. (e) The mirror's host ms per batch (median of 3 after one
+    run) and per output megapixel."""
+    from fanlin_tpu_torch.ops import fused, hostexec
+
+    sources = _phase11_sources(folder)
+
+    def assembly(name, b):
+        plan, payload, kind = sources[name]
+        return fused.make_assembly([plan] * b, [payload] * b, [kind] * b, dev)
+
+    rows = {}
+    for name, b in MIRROR_CHECKS:
+        asm = assembly(name, b)
+        card = asm.run()
+        t0 = time.perf_counter()
+        mirror = hostexec.run_host(asm)
+        ms = (time.perf_counter() - t0) * 1000.0
+        worst, share = _result_diffs(card, mirror)
+        row = {"images": b, "max_abs_err": worst, "share_differing": share,
+               "mirror_ms_first_run": ms}
+        if isinstance(asm, fused.CoefBatchAssembly) and not asm.fold:
+            planes = asm._device_x()[:b].cpu().numpy()
+            row["decode_bytes_differing"] = int(
+                (planes != hostexec.decode_coef(asm)).sum())
+            check(row["decode_bytes_differing"] == 0,
+                  f"phase11a {name}: the mirror's decode differs from the "
+                  "card's kernel")
+        lsb = 2 if "jpegdct" in name else MAX_LSB
+        check(worst <= lsb and share <= MAX_FRAC,
+              f"phase11a {name}: mirror against the card {row}")
+        rows[name] = row
+        print(f"phase11a {name}: mirror vs card {row}", flush=True)
+    timings = {}
+    for name, b in MIRROR_TIMED:
+        asm = assembly(name, b)
+        hostexec.run_host(asm)
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            hostexec.run_host(asm)
+            runs.append((time.perf_counter() - t0) * 1000.0)
+        ms = statistics.median(runs)
+        mpx = sum(p.out_h * p.out_w for p in asm.plans) / 1e6
+        timings[f"{name}_b{b}"] = {"ms": ms, "ms_per_mpx": ms / mpx}
+    p = sources["print_cmyk444"][0]
+    timings["print_cmyk444_b1"] = {
+        "ms": rows["print_cmyk444"]["mirror_ms_first_run"],
+        "ms_per_mpx": rows["print_cmyk444"]["mirror_ms_first_run"]
+        / (p.out_h * p.out_w / 1e6), "runs": 1}
+    timings["coef_over_pixel_b8"] = (timings["readme444_b8"]["ms"]
+                                     / timings["readme_pixels_b8"]["ms"])
+    print("phase11e mirror host ms per batch " + json.dumps(timings),
+          flush=True)
+    return {"mirror_vs_card": rows, "mirror_ms": timings}
+
+
+# the stall bound of phase 11's servers (tpu.device_stall_s, seconds) and
+# how long each injected stall lasts
+STALL_BOUND_S = 1.5
+STALL_S = 5.0
+PNG_README = "/gen/lenna.png?w=300&h=200"
+
+
+def _phase11_config(folder: str):
+    from fanlin_tpu_torch.config import Config
+
+    return Config.from_obj(_cli_config(folder, 0,
+                                       device_stall_s=STALL_BOUND_S))
+
+
+async def _fetch(s, base: str, url: str) -> tuple:
+    """(status, body, cold?) of one GET, checking the cold headers go
+    together."""
+    async with s.get(base + url) as r:
+        body = await r.read()
+        cold = r.headers.get("X-Cache-Warmth") == "cold"
+        check(cold == (r.headers.get("Cache-Control") == "no-store"),
+              f"{url}: X-Cache-Warmth without Cache-Control: no-store")
+        return r.status, body, cold
+
+
+async def _phase11_inproc(dev: torch.device, folder: str,
+                          rate: float) -> dict:
+    """(b) A real device stall and (c) a raised device error, on the
+    server in-process (build_state, tpu.device_stall_s STALL_BOUND_S):
+    (b) README and README-as-PNG requests answered from the mirror with
+    the cold headers (the PNG within 1 LSB of the card's pixels), the
+    counters and a WARNING per mirror batch, recovery, and the kernels
+    launched again after it; (c) a RuntimeError, then a KernelBuildError,
+    from submit: each fails its request (500, not cold), counted in
+    device_errors, never mirrored, no wedge, and the kernels launch
+    again. Returns the timings, the launch windows and the mirror's
+    README body."""
+    import aiohttp
+    from aiohttp import web
+
+    from fanlin_tpu_torch.ops._build import KernelBuildError
+    from fanlin_tpu_torch.server.app import build_state, create_app
+
+    cfg = _phase11_config(folder)
+    state = await build_state(cfg)
+    batcher = state.engine.runner.batcher
+    runner = web.AppRunner(create_app(cfg, state), access_log=None)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+    out, windows = {}, {}
+    try:
+        async with aiohttp.ClientSession() as s, _MirrorLog() as log:
+            healthy = {}
+            for url in (README, PNG_README):
+                status, body, cold = await _fetch(s, base, url)
+                check(status == 200 and not cold, f"phase11b healthy {url}")
+                healthy[url] = body
+            # (b) the stall: every batch submitted before its end sleeps
+            # on its stream until then
+            with _Stall(rate) as stall:
+                t0 = time.monotonic()
+                stall.until = t0 + STALL_S
+                status, mirror_readme, cold = await _fetch(s, base, README)
+                out["stall_to_first_mirror_s"] = time.monotonic() - t0
+                check(status == 200 and cold, "phase11b: the stalled README "
+                      f"request answered {status}, cold {cold}")
+                st = dict(batcher.stats)
+                check(st["device_wedged"] == 1 and st["device_stalls"] >= 1,
+                      f"phase11b: not wedged after the stall: {st}")
+                status, png, cold = await _fetch(s, base, PNG_README)
+                check(status == 200 and cold, "phase11b: README PNG while "
+                      "wedged was not served cold")
+                mx, share = _diff_stats(_decoded(png),
+                                        _decoded(healthy[PNG_README]))
+                check(mx <= MAX_LSB, f"phase11b: PNG body {mx} LSB from "
+                      "the card's")
+                out["png_max_abs_err"], out["png_share_differing"] = mx, share
+                status, again, cold = await _fetch(s, base, README)
+                check(status == 200 and cold and again == mirror_readme,
+                      "phase11b: the README request while wedged (pixel "
+                      "source) differs from the stalled one's mirror body")
+                out["readme_db"] = psnr(_decoded(mirror_readme),
+                                        _decoded(healthy[README]))
+                check(out["readme_db"] >= 45.0, "phase11b: mirror README "
+                      f"{out['readme_db']:.2f} dB from the card's")
+                st = dict(batcher.stats)
+                check(st["host_fallbacks"] >= 3 and log.mirror_warnings()
+                      >= st["host_fallbacks"],
+                      f"phase11b: counters {st}, {log.mirror_warnings()} "
+                      "mirror warnings")
+                out["wedged_stats"] = {k: st[k] for k in FAILOVER_KEYS}
+                # the end of the stall: the first device-served batch
+                await asyncio.sleep(max(stall.until - time.monotonic(), 0.0))
+                t_end = stall.until
+                while True:
+                    status, body, cold = await _fetch(s, base, README)
+                    if not cold:
+                        break
+                    check(time.monotonic() - t_end < 30.0,
+                          "phase11b: no recovery 30 s after the stall")
+                    await asyncio.sleep(0.02)
+                out["stall_end_to_device_s"] = time.monotonic() - t_end
+            check(body == healthy[README], "phase11b: the README body after "
+                  "recovery differs from the card's before the stall")
+            check(batcher.stats["device_wedged"] == 0, "phase11b: still "
+                  "wedged")
+            _reset_counts()
+            for url in (README, PNG_README):
+                status, body, cold = await _fetch(s, base, url)
+                check(status == 200 and not cold and body == healthy[url],
+                      f"phase11b: {url} after recovery")
+            windows["phase11b recovered"] = _counts()
+            # (c) a raised device error, then a kernel build failure:
+            # each fails its request, never reaches the mirror
+            for label, exc in (
+                    ("error", RuntimeError("injected device error")),
+                    ("build failure",
+                     KernelBuildError("injected build failure"))):
+                before = dict(batcher.stats)
+                warned = log.mirror_warnings()
+                with _RaiseOnce(exc):
+                    status, body, cold = await _fetch(s, base, README)
+                st = dict(batcher.stats)
+                check(status == 500 and not cold,
+                      f"phase11c: a device {label} answered {status}, cold "
+                      f"{cold}")
+                check(st["device_errors"] == before["device_errors"] + 1
+                      and st["host_fallbacks"] == before["host_fallbacks"]
+                      and log.mirror_warnings() == warned
+                      and st["device_wedged"] == 0,
+                      f"phase11c: a device {label}: counters {before} -> "
+                      f"{st}")
+                _reset_counts()
+                status, body, cold = await _fetch(s, base, README)
+                check(status == 200 and not cold and body == healthy[README],
+                      f"phase11c: README after the device {label}")
+                windows[f"phase11c after {label}"] = _counts()
+            after = dict(batcher.stats)
+            out["mirror_warnings"] = log.mirror_warnings()
+            out["stats"] = {k: after[k] for k in FAILOVER_KEYS}
+    finally:
+        await runner.cleanup()
+    for name, w in windows.items():
+        check(w["resample"] > 0 and w["jpeg_decode_rgb"] > 0,
+              f"{name}: launches {w}")
+    print("phase11b/c in-process " + json.dumps(out), flush=True)
+    return out, windows, mirror_readme
+
+
+# the device service of phase 11 (d): the CLI with BatchAssembly.submit
+# wrapped to sleep on the batch's stream while a file names a wall-clock
+# time still to come (time.time() and sleep cycles per second)
+FAULT_BOOT = r"""
+import sys, time
+import torch
+from fanlin_tpu_torch import cli
+from fanlin_tpu_torch.ops import fused
+_real = fused.BatchAssembly.submit
+def submit(self):
+    try:
+        with open(%r) as f:
+            until, rate = map(float, f.read().split())
+    except (OSError, ValueError):
+        until = 0.0
+    left = until - time.time()
+    if left > 0 and self.device.type == "cuda":
+        torch.cuda._sleep(int(left * rate))
+    return _real(self)
+fused.BatchAssembly.submit = submit
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+class _FaultCliServer(_CliServer):
+    """The CLI whose device service stalls while `trigger` names a time
+    to come; its counters are not held at 0."""
+
+    def __init__(self, folder: str, trigger: str, **tpu):
+        self.trigger = trigger
+        self.faults = True
+        super().__init__(folder, **tpu)
+
+    def command(self, cfg_json: str) -> list:
+        return [sys.executable, "-c", FAULT_BOOT % self.trigger, "-j",
+                cfg_json]
+
+
+async def _phase11_workers(dev: torch.device, folder: str, rate: float,
+                           mirror_readme: bytes) -> dict:
+    """(d) Worker mode, tpu.workers 2: a stall injected in the device
+    service gives README bodies through both gateways that are cold and
+    byte-equal to (b)'s mirror body; the service's wedge gauge turns 1
+    and the workers' device_available with it (their engines switch
+    README to the pixel source), then 0 again, the bodies return to the
+    card's, and the workers' engines go back to the coefficient source
+    (jpeg_decode_rgb launches again)."""
+    trigger = os.path.join(folder, "phase11_stall")
+    if os.path.exists(trigger):
+        os.remove(trigger)
+    srv = _FaultCliServer(folder, trigger, workers=2, warmup=False,
+                          device_stall_s=STALL_BOUND_S)
+    out = {}
+    try:
+        srv.wait_banners()
+        async with _fresh_session() as s:
+            status, healthy, cold = await _fetch(s, srv.base, README)
+            check(status == 200 and not cold, "phase11d: healthy README")
+            with open(trigger + ".tmp", "w") as f:
+                f.write(f"{time.time() + STALL_S!r} {rate!r}")
+            os.replace(trigger + ".tmp", trigger)
+            t0 = time.monotonic()
+            got = await asyncio.gather(*(_fetch(s, srv.base, README)
+                                         for _ in range(2)))
+            out["stall_to_first_mirror_s"] = time.monotonic() - t0
+            wedged = (await _get_stats(s, srv.base))["batcher"]
+            check(wedged["device_wedged"] == 1, "phase11d: the service is "
+                  f"not wedged: {wedged}")
+            await asyncio.sleep(1.2)  # past the workers' gauge cache
+            got += await asyncio.gather(*(_fetch(s, srv.base, README)
+                                          for _ in range(4)))
+            check(all(g[0] == 200 and g[2] and g[1] == mirror_readme
+                      for g in got), "phase11d: a README body through the "
+                  "gateways was not cold or differs from (b)'s mirror body")
+            # each /stats on a fresh connection: some worker's engine
+            engines = [(await _get_stats(s, srv.base))["engine"]
+                       for _ in range(8)]
+            pixel = max(e["pixel_src"] for e in engines)
+            check(pixel > 0, "phase11d: no worker switched README to the "
+                  "pixel source while the service was wedged")
+            os.remove(trigger)
+            deadline = time.monotonic() + STALL_S + 30.0
+            while (await _get_stats(s, srv.base))["batcher"]["device_wedged"]:
+                check(time.monotonic() < deadline,
+                      "phase11d: the service never recovered")
+                await asyncio.sleep(0.1)
+            out["recovered_after_s"] = time.monotonic() - t0
+            await asyncio.sleep(1.2)  # past the workers' gauge cache
+            mid = await _get_stats(s, srv.base)
+            got = await asyncio.gather(*(_fetch(s, srv.base, README)
+                                         for _ in range(4)))
+            check(all(g[0] == 200 and not g[2] and g[1] == healthy
+                      for g in got), "phase11d: README after recovery")
+            after = await _get_stats(s, srv.base)
+            # the workers are back on the coefficient source
+            w = _diff(after["kernel_launches"], mid["kernel_launches"])
+            out["after_recovery_launches"] = w
+            out["service"] = {k: after["batcher"][k] for k in FAILOVER_KEYS}
+            out["worker_pixel_src"] = pixel
+        check(w["resample"] > 0 and w["jpeg_decode_rgb"] > 0,
+              f"phase11d: launches {w} after recovery")
+        out["drain_s"] = srv.terminate()
+    finally:
+        srv.kill()
+    print("phase11d workers 2 " + json.dumps(out), flush=True)
+    return out
+
+
+def phase11(dev: torch.device, folder: str) -> tuple:
+    """Phase 11: the mirror against the card, a stall and an error in
+    the single process, a stall in worker mode. Returns the failover
+    line's figures and the launch-count windows of (b) and (c)."""
+    from PIL import Image
+
+    with open(os.path.join(GOLDEN, "lenna_src.jpg"), "rb") as f:
+        Image.open(io.BytesIO(f.read())).convert("RGB").save(
+            os.path.join(folder, "lenna.png"))
+    rate = _sleep_rate()
+    out = {"sleep_cycles_per_s": rate}
+    out.update(phase11_mirror(dev, folder))
+    inproc, windows, mirror_readme = asyncio.run(
+        _phase11_inproc(dev, folder, rate))
+    out["inproc"] = inproc
+    out["workers2"] = asyncio.run(_phase11_workers(dev, folder, rate,
+                                                   mirror_readme))
+    return out, windows
+
+
 def main() -> int:
     smi = phase0()
     from fanlin_tpu_torch import device as device_mod
 
     device_mod.configure()
     dev = device_mod.cuda_device()
+    _watch_failover()
     build_s = phase1()
     bench = phase2(dev)
     decode = phase2b(dev)
@@ -3425,6 +4078,14 @@ def main() -> int:
     fast_engine, windows["fast engine"] = phase10_engine(dev)
     w10, n_fast_folded, trace = asyncio.run(_phase10_servers(dev, cmyk_dir))
     windows.update(w10)
+    # every phase so far ran on a healthy card: nothing was served by the
+    # host mirror
+    healthy = check_healthy_phases()
+    # phase 11: the host mirror and device failover, faults injected
+    failover, w11 = phase11(dev, cmyk_dir)
+    failover["healthy_phases"] = healthy
+    windows.update(w11)
+    split_windows += list(w11)
     for name, c in windows.items():
         print(f"launch counts ({name}): {c}", flush=True)
     for name in earlier:
@@ -3603,6 +4264,7 @@ def main() -> int:
         "device_ms": k11_fast["lenna444_b16"]["device_ms"],
         "f32_ms": k11_fast["lenna444_b16"]["f32_ms"],
         "db_against_f32": k11_fast["lenna444_b16"]["db"]}]}))
+    print(json.dumps({"failover": failover}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -186,13 +186,10 @@ class TpuConfig:
     # (a dropped TPU relay/PCIe link otherwise bricks the pipeline;
     # warm executes are milliseconds). Needs host_fallback; 0 = off.
     device_stall_s: float = 30.0
-    # queue-pressure spillover: a warm batch whose oldest request
-    # waited this long (ms) between submit and device dispatch serves
-    # from the host mirror instead of queueing further — load SHARING
-    # for the regime where the device is alive but slower than the
-    # arrival rate without tripping the 3x soft-degrade flip
-    # (engine/batcher.py module constants tell the measured story).
-    # Needs host_fallback; 0 = off.
+    # the reference's queue-pressure spillover (a batch whose oldest
+    # request waited this long, in ms, for the device rides the host
+    # mirror). Accepted and inert in the port: no measured load on the
+    # card has a batch the mirror finishes sooner (engine/batcher.py).
     spill_wait_ms: float = 500.0
     # extra (src_w, src_h, "query") warmup shapes precompiled at
     # startup alongside the defaults, as "WxH:query" strings, e.g.

@@ -1,9 +1,9 @@
 """Request micro-batcher: concurrent requests become one device batch
-per shape group, pipelined on a CUDA stream.
+per shape group, pipelined on a CUDA stream, with the host mirror as
+the failover lane.
 
-Port of fanlin_tpu/engine/batcher.py (:116-239, :572-697, :920-1231,
-:1261-1351) without its TPU-relay failover lanes. HTTP gives one image
-at a time; the batcher
+Port of fanlin_tpu/engine/batcher.py. HTTP gives one image at a time;
+the batcher
 
 * groups each request by `_group_key` (the reference's keys: source and
   output buckets, blur, and for coefficient sources and device encode
@@ -26,11 +26,48 @@ at a time; the batcher
 * optionally caps each group's queue (``max_queue``), rejecting at
   admission with `BatcherOverload`.
 
-A batch whose submit or collect raises fails its requests' futures:
-nothing is served from the CPU instead. The reference's host mirror,
-stall watchdog, soft-degrade, spillover, cold-compile warm threads and
-mesh are not in the port (`tpu.host_fallback`, `device_stall_s` and
-`spill_wait_ms` do nothing yet).
+The failover side (`host_fallback`, `device_stall_s`) serves a batch
+from the numpy host mirror (`ops.hostexec`), on a small pool of host
+threads, only while the card does not answer:
+
+* stall: a watchdog scans the submit timestamps of the batches in
+  flight; one past ``device_stall_s`` wedges the batcher. A kernel
+  cannot be cancelled, so the stuck collect thread is abandoned (its
+  pipeline permit is released once, by whichever side comes first), the
+  device and collect threads are replaced by fresh ones (the device
+  thread with a fresh CUDA stream), and the stalled batch, the batches
+  queued behind it and every batch while wedged go to the mirror;
+* recovery: the stuck call returning, or a probe (the stalled batch run
+  again on a stream of its own) finishing, clears the wedge; probes that
+  hang back off up to `_PROBE_MAX_INTERVAL_S`. A probe that raises ends
+  the wedge as well: the card answers, with an error, so batches go back
+  to it and fail there.
+
+A device call that raises is not a stall: its batch fails (counted in
+`device_errors`, logged at ERROR, answered 500 by the gateway), with or
+without `host_fallback`, and never reaches the mirror. So a kernel that
+fails to launch, or fails to build (`ops._build.KernelBuildError`),
+shows on every batch it touches. A sticky CUDA error (an illegal
+address, a failed launch) poisons the context: every later CUDA call of
+the process raises, so every batch fails until the process is restarted
+(the reference has no restart either). The stall is the one case the
+mirror takes, because there the card gives no answer at all, right or
+wrong, and the request would otherwise wait out its deadline.
+
+Every mirror-served batch is counted (`host_fallbacks`, and
+`device_stalls` for the stall), logged at WARNING, and its futures carry
+the mirror flag (`BatchingRunner.consume_host_mirror_flag`), which the
+gateway answers with `X-Cache-Warmth: cold` and `Cache-Control:
+no-store`. What never reaches the mirror: a device call that raised,
+warmup batches (`warm_batch`), and anything before the batcher exists:
+its kernels are built when it is made, outside any watched call, and the
+port without CUDA refuses to start, so there is no boot-time wedge. The
+reference's cold-compile lane (a bucket served from the mirror while
+its XLA program compiles) has no counterpart: nothing compiles per
+shape on the card. Nor have its soft-degrade (a device priced slower
+than the mirror) and queue-pressure spillover (`tpu.spill_wait_ms`,
+accepted and inert): no measured load on the card has a batch that the
+mirror finishes sooner than the card would.
 
 The port defines its own contextvars and exceptions: it imports
 nothing of the JAX package.
@@ -40,6 +77,8 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import logging
+import os
 import threading
 import time
 from concurrent.futures import Future, InvalidStateError, ThreadPoolExecutor
@@ -49,10 +88,21 @@ import numpy as np
 import torch
 
 from ..ops import fused
+from ..ops import _build
 from ..ops.plan import ImagePlan, bucket_h, bucket_w
 
-# How long close() waits for the device and collect threads to drain.
+_logger = logging.getLogger("fanlin.batcher")
+
+_CPU = torch.device("cpu")
+
+# How long close() waits for the threads to drain when the stall
+# watchdog is off.
 _CLOSE_BUDGET_S = 60.0
+
+# Recovery-probe backoff ceiling while a wedge persists: a probe that
+# hangs abandons a thread stuck in a device call, so a long outage must
+# not probe at the stall cadence forever.
+_PROBE_MAX_INTERVAL_S = 300.0
 
 # Absolute time.monotonic() deadline of the current request, set by the
 # gateway's timeout middleware and carried into the engine's worker
@@ -78,12 +128,21 @@ class RequestExpired(Exception):
     dispatch; the gateway answers 408."""
 
 
-def _safe_result(fut: Future, result) -> None:
+class DeviceStalled(RuntimeError):
+    """A warm batch that the stall watchdog gave up on, or that a wedge
+    cancelled before it ran: warmup batches are never mirror-served."""
+
+
+def _safe_result(fut: Future, result, mirror: bool = False) -> None:
     """set_result tolerant of a future resolved (or cancelled)
-    elsewhere."""
+    elsewhere: after a stall the batch is mirror-served while the stuck
+    device call may still complete; whichever side comes second is
+    dropped. mirror: mark the future as served by the host mirror."""
     if fut.cancelled():
         return
     try:
+        if mirror:
+            fut.fanlin_host_mirror = True
         fut.set_result(result)
     except InvalidStateError:
         pass
@@ -99,9 +158,10 @@ def _safe_fail(fut: Future, exc: BaseException) -> None:
 
 
 class _PermitOnce:
-    """Exactly-once release of one pipeline permit (BoundedSemaphore
-    raises on over-release; the submit and collect error paths may
-    both try)."""
+    """Exactly-once release of one pipeline permit: the watchdog frees
+    a stalled batch's permit when it fails the batch over, and the stuck
+    collect's own release, if it ever returns, is then a no-op
+    (BoundedSemaphore raises on over-release)."""
 
     __slots__ = ("_sem", "_done", "_lock")
 
@@ -116,6 +176,34 @@ class _PermitOnce:
                 return
             self._done = True
         self._sem.release()
+
+
+class _Watch:
+    """One device call in flight, as the stall watchdog sees it. It
+    holds the assembly (and so its pinned buffers) until both the
+    abandoned call and the mirror are done with it."""
+
+    __slots__ = ("t0", "token", "asm", "futures", "stale", "releaser",
+                 "warm")
+
+    def __init__(self, token, asm, futures, releaser, warm):
+        self.t0 = time.monotonic()
+        self.token = token
+        self.asm = asm
+        self.futures = futures
+        self.stale = False
+        self.releaser = releaser
+        self.warm = warm
+
+
+def _load_kernels(device: torch.device) -> None:
+    """Build and load the CUDA kernel library now (a no-op on the CPU),
+    before any device call is watched: a build that takes longer than
+    the stall bound, or fails, must never look like a stalled device
+    and send batches to the mirror. A failed build raises
+    KernelBuildError here, and the server does not start."""
+    if device.type == "cuda":
+        _build.load()
 
 
 def _group_key(plan: ImagePlan, kind: str) -> Tuple:
@@ -146,21 +234,36 @@ def _group_key(plan: ImagePlan, kind: str) -> Tuple:
 
 class MicroBatcher:
     """Shape-grouped batching queue with adaptive flush, feeding one
-    device through a two-stage (submit / collect) pipeline."""
+    device through a two-stage (submit / collect) pipeline, with the
+    host mirror as the failover lane."""
 
     def __init__(self, max_batch: int, window_ms: float,
                  device: torch.device, pipeline_depth: int = 2,
-                 max_queue: int = 0, fast: bool = False):
+                 max_queue: int = 0, fast: bool = False,
+                 host_fallback: bool = False, device_stall_s: float = 30.0):
         """device: where batches run. pipeline_depth: batches allowed
         between submit and collect. max_queue: per-group cap on admitted
         entries not yet picked up by the device thread (0 = unlimited).
         fast: every batch's resample products in bf16 (`tpu.fast`), the
-        warmup's too."""
+        warmup's too.
+
+        host_fallback: arm the failover lane (`tpu.host_fallback`);
+        without it nothing is watched and a stalled batch waits for the
+        device. device_stall_s: a device call in flight longer than this
+        wedges the batcher (0 = no watchdog). A device call that raises
+        fails its batch either way.
+
+        Builds the kernels first (`_load_kernels`): raises
+        KernelBuildError when they do not build."""
+        _load_kernels(device)
         self.device = device
         self.fast = bool(fast)
         self.max_batch = max_batch
         self.window_s = window_ms / 1000.0
         self.max_queue = max_queue
+        self._host_fallback = bool(host_fallback)
+        self.device_stall_s = max(float(device_stall_s), 0.0)
+        self._armed = self._host_fallback and self.device_stall_s > 0
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
         # key -> (flush deadline, [(plan, image, future, kind,
@@ -172,15 +275,34 @@ class MicroBatcher:
         # key -> a flushed batch, not full, that the device thread has
         # not picked up yet: new entries of the group join it
         self._queued: Dict[Tuple, list] = {}
-        self._stream = None
-        self._device = ThreadPoolExecutor(
-            1, thread_name_prefix="fanlin-device",
-            initializer=self._init_device_thread)
+        # each device thread's CUDA stream
+        self._tls = threading.local()
+        self._device = self._new_device_executor()
         self._collector = ThreadPoolExecutor(
             1, thread_name_prefix="fanlin-collect")
+        # the mirror lane: hostexec is per-assembly numpy, so batches run
+        # side by side (capped: each holds full f32 intermediates)
+        self._host = ThreadPoolExecutor(
+            max(1, min(4, os.cpu_count() or 1)),
+            thread_name_prefix="fanlin-hostexec")
         self.pipeline_depth = max(int(pipeline_depth), 1)
         self._inflight = threading.BoundedSemaphore(self.pipeline_depth)
         self._closed = False
+        # failover state, guarded by self._lock
+        self._wedged = False
+        self._watch: Dict[int, _Watch] = {}
+        self._watch_token = 0
+        self._probe_asm = None  # the last stalled batch, run as the probe
+        self._probing = False
+        self._last_probe = 0.0
+        self._probe_interval = max(self.device_stall_s, 2.0)
+        self._probe_threads = 0
+        # tasks queued on the device executor and not started: a wedge
+        # cancels them and hands them on (their thread is stuck)
+        self._pending_device: Dict[int, tuple] = {}
+        self._pending_token = 0
+        # executors replaced by past wedges; close() joins them
+        self._abandoned: list = []
         # observability counters (the gateway's /stats)
         self.stats = {"batches": 0, "images": 0, "full_flushes": 0,
                       "timer_flushes": 0, "queued_joins": 0,
@@ -197,21 +319,60 @@ class MicroBatcher:
                       "queue_wait_ms_total": 0.0,
                       "queue_wait_ms_peak": 0.0,
                       # startup batches run by engine.warmup
-                      "warm_batches": 0}
+                      "warm_batches": 0,
+                      # batches served by the host mirror (a stalled
+                      # batch, and every batch while wedged)
+                      "host_fallbacks": 0,
+                      # device calls past device_stall_s (watchdog, or
+                      # pipeline permits held past it)
+                      "device_stalls": 0,
+                      # served batches whose device call raised: failed,
+                      # never mirror-served
+                      "device_errors": 0,
+                      # 0/1 gauge: the device is wedged, every batch
+                      # rides the mirror
+                      "device_wedged": 0,
+                      # abandoned recovery probes still in a device call
+                      "probe_threads": 0}
         self._scheduler = threading.Thread(
             target=self._flush_loop, name="fanlin-batch-flush", daemon=True)
         self._scheduler.start()
+        if self._armed:
+            threading.Thread(target=self._stall_watchdog,
+                             name="fanlin-stallwatch", daemon=True).start()
+
+    def _new_device_executor(self) -> ThreadPoolExecutor:
+        return ThreadPoolExecutor(1, thread_name_prefix="fanlin-device",
+                                  initializer=self._init_device_thread)
 
     def _init_device_thread(self) -> None:
-        """The device thread's own device and CUDA stream."""
+        """The device thread's own device and CUDA stream (a thread that
+        replaces a stuck one gets a stream of its own)."""
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
-            self._stream = torch.cuda.Stream(self.device)
+            self._tls.stream = torch.cuda.Stream(self.device)
 
     def _on_stream(self):
-        if self._stream is None:
+        stream = getattr(self._tls, "stream", None)
+        if stream is None:
             return contextlib.nullcontext()
-        return torch.cuda.stream(self._stream)
+        return torch.cuda.stream(stream)
+
+    @property
+    def closed(self) -> bool:
+        with self._lock:
+            return self._closed
+
+    # -- gauges ------------------------------------------------------------
+
+    def device_available(self) -> bool:
+        """False while the device is wedged: the engine then feeds pixel
+        sources and converts CMYK pixels on the host. (The reference has
+        a second gauge, prefer_pixel_source, that also steers to pixels
+        after a streak of coefficient batches mirrored without a wedge;
+        here a batch reaches the mirror only while wedged.)"""
+        with self._lock:
+            return not self._wedged
 
     # -- submission --------------------------------------------------------
 
@@ -257,22 +418,72 @@ class MicroBatcher:
         return fut
 
     def _dispatch(self, group) -> None:
-        """Queue a batch on the device thread; if that executor is shut
-        down already (close), fail the batch's futures."""
+        """Queue a batch on its lane: the mirror while wedged, else the
+        device thread, tracked until it starts so that a wedge declared
+        meanwhile hands it to the mirror (the stuck thread would never
+        run it)."""
+        with self._lock:
+            wedged = self._wedged
+            if not wedged:
+                self._pending_token += 1
+                tok = self._pending_token
+                dev = self._device
+        if wedged:
+            self._submit_host(group, "device wedged")
+            return
         try:
-            self._device.submit(self._run_batch, group)
+            fut = dev.submit(self._run_batch, group)
         except RuntimeError as e:
+            # the executor is shut down: close(), or a wedge between the
+            # check and the submit (then the mirror takes the batch)
+            with self._lock:
+                wedged = self._wedged
+            if wedged:
+                self._submit_host(group, "device wedged")
+                return
             with self._lock:
                 self._claim(group)
             for entry in group:
                 _safe_fail(entry[2], e)
+            return
+        self._track(tok, dev, fut,
+                    lambda: self._submit_host(group, "device wedged"))
+
+    def _track(self, tok: int, dev, fut, on_wedge) -> None:
+        """Record a device-executor task until it starts; `on_wedge`
+        takes it over if a wedge cancels it."""
+        with self._lock:
+            raced = self._wedged and dev is not self._device
+            if not raced:
+                self._pending_device[tok] = (fut, on_wedge)
+        if raced:
+            # wedged between the check and the submit: the task sits on
+            # the quarantined executor's queue
+            if fut.cancel():
+                on_wedge()
+            return
+        fut.add_done_callback(
+            lambda _f, tok=tok: self._pending_device.pop(tok, None))
 
     def _claim(self, group) -> None:
-        """Close `group` to new entries (the device thread takes it, or
-        it failed). Called with the lock held."""
+        """Close `group` to new entries (a lane takes it, or it failed).
+        Called with the lock held."""
         key = _group_key(group[0][0], group[0][3])
         if self._queued.get(key) is group:
             del self._queued[key]
+
+    def _take(self, group) -> None:
+        """A lane picks `group` up: no entry joins it from here on, and
+        its entries leave the backlog."""
+        key0 = _group_key(group[0][0], group[0][3])
+        with self._lock:
+            self._claim(group)
+            left = self._backlog.get(key0, 0) - len(group)
+            if left > 0:
+                self._backlog[key0] = left
+            else:
+                self._backlog.pop(key0, None)
+            self.stats["backlog"] = max(self.stats["backlog"] - len(group), 0)
 
     def _flush_loop(self) -> None:
         """Single scheduler: sleep until the earliest group deadline,
@@ -305,20 +516,228 @@ class MicroBatcher:
         the counters of served traffic (engine.warmup): it loads the
         kernels' modules and grows the pinned staging pool as a served
         batch of that kind would. The future resolves to the batch's
-        results."""
+        results. A warm batch never reaches the mirror: one that raises
+        fails its future, one that stalls (or that a wedge cancels)
+        fails it with DeviceStalled. Raises RuntimeError once the
+        batcher is closed."""
+        wf: Future = Future()
+
         def run():
-            asm = fused.make_assembly(plans, payloads, kinds, self.device,
-                                      fast=self.fast)
-            with self._on_stream():
-                out = asm.submit()
-            results = asm.collect(out)
+            watch = None
+            try:
+                asm = fused.make_assembly(plans, payloads, kinds,
+                                          self.device, fast=self.fast)
+                if self._armed:
+                    watch = self._watch_add(asm, [wf], None, warm=True)
+                with self._on_stream():
+                    out = asm.submit()
+                results = asm.collect(out)
+            except BaseException as e:
+                if watch is not None:
+                    self._watch_done(watch, roundtrip_ok=False)
+                _safe_fail(wf, e)
+                if not isinstance(e, Exception):
+                    raise
+                return
+            if watch is not None:
+                self._watch_done(watch, roundtrip_ok=True)
             with self._lock:
                 self.stats["warm_batches"] += 1
-            return results
+            _safe_result(wf, results)
 
-        return self._device.submit(run)
+        with self._lock:
+            if self._wedged:
+                wf.set_exception(DeviceStalled("device wedged: warmup "
+                                               "batch not run"))
+                return wf
+            self._pending_token += 1
+            tok = self._pending_token
+            dev = self._device
+        try:
+            fut = dev.submit(run)
+        except RuntimeError as e:
+            _safe_fail(wf, e)
+            raise
+        self._track(tok, dev, fut, lambda: _safe_fail(wf, DeviceStalled(
+            "device wedged before the warmup batch ran")))
+        return wf
 
-    # -- device execution --------------------------------------------------
+    # -- device-stall failover ----------------------------------------------
+
+    def _declare_wedged(self, probe_asm=None) -> None:
+        """Mark the device wedged and quarantine the device-side
+        executors: each has one thread, and a wedge means it is stuck in
+        a device call, so tasks queued behind it would never start.
+        Fresh executors (a fresh CUDA stream on the device thread) serve
+        once recovery is signalled; tasks still queued on the old device
+        executor are handed over here; close() joins the old ones within
+        its budget. Caller must NOT hold self._lock."""
+        with self._lock:
+            if probe_asm is not None:
+                self._probe_asm = probe_asm
+            pending, old = [], []
+            if not self._wedged:
+                self._wedged = True
+                self.stats["device_wedged"] = 1
+                # a fresh outage probes fast again; only consecutive
+                # hung probes within one wedge back the interval off
+                self._probe_interval = max(self.device_stall_s, 2.0)
+                old = [self._device, self._collector]
+                self._abandoned += old
+                self._device = self._new_device_executor()
+                self._collector = ThreadPoolExecutor(
+                    1, thread_name_prefix="fanlin-collect")
+                pending = list(self._pending_device.values())
+                self._pending_device.clear()
+        for fut, on_wedge in pending:
+            if fut.cancel():
+                on_wedge()
+        for ex in old:
+            # the worker exits when its stuck call returns, instead of
+            # idling forever
+            ex.shutdown(wait=False)
+
+    def _watch_add(self, asm, futures, releaser, warm: bool = False) -> _Watch:
+        with self._lock:
+            self._watch_token += 1
+            watch = _Watch(self._watch_token, asm, futures, releaser, warm)
+            self._watch[watch.token] = watch
+        return watch
+
+    def _mark_recovered_locked(self) -> bool:
+        """Clear the wedge; caller holds self._lock. True when this call
+        cleared it (the caller logs, outside the lock)."""
+        if not self._wedged:
+            return False
+        self._wedged = False
+        self.stats["device_wedged"] = 0
+        self._probe_interval = max(self.device_stall_s, 2.0)
+        return True
+
+    def _watch_done(self, watch: _Watch, roundtrip_ok: bool) -> None:
+        """Unregister a device call; a completed round trip while wedged
+        means the device came back."""
+        with self._lock:
+            self._watch.pop(watch.token, None)
+            recovered = roundtrip_ok and self._mark_recovered_locked()
+        if recovered:
+            _logger.warning("device recovered after a stall; serving from "
+                            "the device")
+
+    def _stall_watchdog(self) -> None:
+        """Scan the device calls in flight: one past device_stall_s
+        (counted from its submit) wedges the batcher and its batch is
+        served from the mirror; while wedged, one bounded probe runs
+        per probe interval. The stuck call itself cannot be interrupted:
+        its return is a recovery signal (_watch_done)."""
+        period = min(self.device_stall_s / 4.0, 1.0)
+        while True:
+            time.sleep(period)
+            stale = []
+            with self._lock:
+                if self._closed:
+                    return
+                now = time.monotonic()
+                for watch in self._watch.values():
+                    if watch.stale or now - watch.t0 < self.device_stall_s:
+                        continue
+                    watch.stale = True
+                    stale.append(watch)
+                    self.stats["device_stalls"] += 1
+            if stale:
+                self._declare_wedged(probe_asm=stale[-1].asm)
+            probe = None
+            with self._lock:
+                if (self._wedged and not self._probing
+                        and self._probe_asm is not None
+                        and now - self._last_probe >= self._probe_interval):
+                    self._probing = True
+                    self._last_probe = now
+                    probe = self._probe_asm
+            if probe is not None:
+                threading.Thread(target=self._probe_device, args=(probe,),
+                                 name="fanlin-deviceprobe",
+                                 daemon=True).start()
+            for watch in stale:
+                _logger.error(
+                    "device call stalled > %.1f s (%s batch of %d); "
+                    "serving from the host mirror until the device "
+                    "answers again", self.device_stall_s,
+                    "warmup" if watch.warm else "served",
+                    len(watch.asm.plans))
+                if watch.warm:
+                    for f in watch.futures:
+                        _safe_fail(f, DeviceStalled(
+                            f"warmup batch stalled > {self.device_stall_s} s"))
+                    continue
+                # the stuck call holds a pipeline permit: free it for the
+                # fresh pipeline (its own release becomes a no-op)
+                watch.releaser.release()
+                with self._lock:
+                    self.stats["host_fallbacks"] += 1
+                self._mirror_async(watch.asm, watch.futures, "device stall")
+
+    def _probe_run(self, asm) -> None:
+        """The probe's device work: the stalled batch run again, on a
+        stream of its own, from its staged host arrays."""
+        twin = asm.replica()
+        if self.device.type != "cuda":
+            twin.run()
+            return
+        torch.cuda.set_device(self.device)
+        with torch.cuda.stream(torch.cuda.Stream(self.device)):
+            twin.run()
+
+    def _probe_device(self, asm) -> None:
+        """One bounded recovery attempt. The device call runs on a daemon
+        thread of its own; if it hangs past the stall budget it is
+        abandoned, but it still clears the wedge if it ever completes.
+        Consecutive hung probes back the interval off up to
+        _PROBE_MAX_INTERVAL_S. A probe that raises clears the wedge too:
+        the device answered, so the mirror stops serving and batches go
+        back to the device, where the error (a sticky CUDA error, a
+        kernel that fails to launch) fails them, counted and logged."""
+        done = threading.Event()
+
+        def _run():
+            err = None
+            try:
+                self._probe_run(asm)
+            except Exception as e:
+                err = e
+            finally:
+                with self._lock:
+                    self._probe_threads -= 1
+                    self.stats["probe_threads"] = self._probe_threads
+                    recovered = self._mark_recovered_locked()
+                done.set()
+            if err is not None:
+                _logger.error("device recovery probe raised (%s): the "
+                              "device answers, so the host mirror stops "
+                              "serving and batches go back to it", err)
+            elif recovered:
+                _logger.warning("device probe succeeded; serving from the "
+                                "device")
+
+        with self._lock:
+            self._probe_threads += 1
+            self.stats["probe_threads"] = self._probe_threads
+        threading.Thread(target=_run, name="fanlin-deviceprobe-run",
+                         daemon=True).start()
+        budget = max(self.device_stall_s, 2.0)
+        finished = done.wait(budget)
+        with self._lock:
+            self._probing = False
+            if not finished:
+                self._probe_interval = min(self._probe_interval * 2.0,
+                                           _PROBE_MAX_INTERVAL_S)
+                nxt = self._probe_interval
+        if not finished:
+            _logger.error("device recovery probe not answering after %.0f s; "
+                          "abandoned (it still clears the wedge if it "
+                          "completes), next probe in %.0f s", budget, nxt)
+
+    # -- the lanes ----------------------------------------------------------
 
     def _live_entries(self, group) -> list:
         """Drop entries whose request is dead: cancel the future when
@@ -347,77 +766,204 @@ class MicroBatcher:
                 self.stats["shed_expired"] += expired
         return live
 
-    def _run_batch(self, group) -> None:
-        """Submit half, on the device thread: stage the batch, submit
-        it on the thread's stream and hand it to the collect thread."""
-        key0 = _group_key(group[0][0], group[0][3])
+    def _count_batch(self, group) -> None:
+        """Count a dispatched batch and its entries' queue wait."""
+        now = time.monotonic()
         with self._lock:
-            self._claim(group)  # no entry joins it from here on
-            left = self._backlog.get(key0, 0) - len(group)
-            if left > 0:
-                self._backlog[key0] = left
-            else:
-                self._backlog.pop(key0, None)
-            self.stats["backlog"] = max(self.stats["backlog"] - len(group), 0)
+            self.stats["batches"] += 1
+            self.stats["images"] += len(group)
+            for g in group:
+                wait_ms = (now - g[6]) * 1000.0
+                self.stats["queue_wait_ms_total"] += wait_ms
+                if wait_ms > self.stats["queue_wait_ms_peak"]:
+                    self.stats["queue_wait_ms_peak"] = wait_ms
+
+    def _make_host_assembly(self, group):
+        """The batch staged for the mirror alone: on the CPU, so the
+        mirror lane never calls into CUDA (no pinned allocation on a
+        card that may be failing)."""
+        return fused.make_assembly([g[0] for g in group],
+                                   [g[1] for g in group],
+                                   [g[3] for g in group], _CPU,
+                                   fast=self.fast)
+
+    def _submit_host(self, group, reason: str) -> None:
+        """Mirror-lane submit that cannot kill its caller: if the host
+        executor is shut down too (close), fail the group's futures."""
+        try:
+            self._host.submit(self._run_host_batch, group, reason)
+        except RuntimeError:
+            with self._lock:
+                self._claim(group)
+            for entry in group:
+                _safe_fail(entry[2], RuntimeError("batcher closed"))
+
+    def _run_host_batch(self, group, reason: str) -> None:
+        """A batch routed straight to the mirror (the device wedged), on
+        the host pool."""
+        self._take(group)
         futures = [g[2] for g in group]
-        releaser = None
         try:
             group = self._live_entries(group)
             if not group:
                 return
-            now = time.monotonic()
-            with self._lock:
-                self.stats["batches"] += 1
-                self.stats["images"] += len(group)
-                for g in group:
-                    wait_ms = (now - g[6]) * 1000.0
-                    self.stats["queue_wait_ms_total"] += wait_ms
-                    if wait_ms > self.stats["queue_wait_ms_peak"]:
-                        self.stats["queue_wait_ms_peak"] = wait_ms
+            self._count_batch(group)
             futures = [g[2] for g in group]
+            asm = self._make_host_assembly(group)
+        except Exception as e:
+            for f in futures:
+                _safe_fail(f, e)
+            return
+        with self._lock:
+            self.stats["host_fallbacks"] += 1
+        self._run_host(asm, futures, reason)
+
+    def _mirror_async(self, asm, futures, reason: str) -> None:
+        """Serve an assembled batch from the mirror on the host pool,
+        never inline on the device thread (that would serialize the
+        mirror on one core and stall the device lane); inline only if
+        the pool is shut down (close), so futures never strand."""
+        try:
+            self._host.submit(self._run_host, asm, futures, reason)
+        except RuntimeError:
+            self._run_host(asm, futures, reason)
+
+    def _run_host(self, asm, futures, reason: str) -> None:
+        from ..ops import hostexec
+
+        _logger.warning("host mirror serving a batch of %d (%s)",
+                        len(asm.plans), reason)
+        try:
+            results = hostexec.run_host(asm)
+        except Exception as e:
+            for f in futures:
+                _safe_fail(f, e)
+            return
+        for f, r in zip(futures, results):
+            _safe_result(f, r, mirror=True)
+
+    def _device_failed(self, exc: Exception, futures, where: str) -> None:
+        """A device call of a served batch raised: fail its futures,
+        count it and log it. Never mirror-served: a kernel that fails to
+        launch or to build must show, not hide behind the host."""
+        with self._lock:
+            self.stats["device_errors"] += 1
+        _logger.error("device %s failed (%s): failing a batch of %d", where,
+                      exc, len(futures))
+        for f in futures:
+            _safe_fail(f, exc)
+
+    def _run_batch(self, group) -> None:
+        """Submit half, on the device thread: stage the batch, submit
+        it on the thread's stream and hand it to the collect thread; or,
+        while the device is wedged, hand it to the mirror."""
+        self._take(group)
+        futures = [g[2] for g in group]
+        asm = releaser = watch = None
+        try:
+            group = self._live_entries(group)
+            if not group:
+                return
+            self._count_batch(group)
+            futures = [g[2] for g in group]
+            with self._lock:
+                wedged = self._wedged
+                if wedged:
+                    self.stats["host_fallbacks"] += 1
+            if wedged:
+                self._mirror_async(self._make_host_assembly(group), futures,
+                                   "device wedged")
+                return
             asm = fused.make_assembly([g[0] for g in group],
                                       [g[1] for g in group],
                                       [g[3] for g in group], self.device,
                                       fast=self.fast)
-            # bound submit-ahead to the pipeline depth
-            self._inflight.acquire()
+            # bound submit-ahead to the pipeline depth; permits held by
+            # stuck collects must not block the device thread forever
+            if not self._inflight.acquire(
+                    timeout=self.device_stall_s if self._armed else None):
+                with self._lock:
+                    self.stats["device_stalls"] += 1
+                    self.stats["host_fallbacks"] += 1
+                self._declare_wedged(probe_asm=asm)
+                _logger.error("pipeline permits held > %.1f s (collects not "
+                              "returning); serving from the host mirror",
+                              self.device_stall_s)
+                self._mirror_async(asm, futures, "device stall")
+                return
             releaser = _PermitOnce(self._inflight)
+            if self._armed:
+                watch = self._watch_add(asm, futures, releaser)
             with self._on_stream():
                 out = asm.submit()
             with self._lock:
                 self.stats["upload_bytes"] += asm.upload_bytes
             self._collector.submit(self._collect_batch, asm, out, futures,
-                                   releaser)
+                                   watch, releaser)
         except BaseException as e:
+            # idempotent: a raising collector.submit (a wedge's
+            # quarantine) reaches here holding both
+            if watch is not None:
+                self._watch_done(watch, roundtrip_ok=False)
             if releaser is not None:
                 releaser.release()
+            if watch is not None and watch.stale and isinstance(e, Exception):
+                return  # the watchdog served it already
+            if isinstance(e, Exception) and asm is not None:
+                with self._lock:
+                    wedged = self._wedged
+                    if wedged:
+                        self.stats["host_fallbacks"] += 1
+                if wedged:
+                    # a wedge declared meanwhile quarantined the collect
+                    # thread: the batch is the wedge's, as if queued
+                    self._mirror_async(asm, futures, "device wedged")
+                else:
+                    self._device_failed(e, futures, "submit")
+                return
             for f in futures:
                 _safe_fail(f, e)
             if not isinstance(e, Exception):
                 raise
 
-    def _collect_batch(self, asm, out, futures, releaser) -> None:
+    def _collect_batch(self, asm, out, futures, watch, releaser) -> None:
         """Collect half: wait for the batch's event and resolve its
-        futures, while the device thread submits the next batch."""
+        futures, while the device thread submits the next batch. A
+        stalled batch keeps this thread (and the assembly) until the
+        device lets the wait return."""
         try:
             results = asm.collect(out)
         except Exception as e:
-            for f in futures:
-                _safe_fail(f, e)
-            return
-        finally:
             releaser.release()
+            if watch is not None:
+                self._watch_done(watch, roundtrip_ok=False)
+                if watch.stale:
+                    return  # the watchdog served it already
+            self._device_failed(e, futures, "collect")
+            return
+        releaser.release()
+        stale = watch is not None and watch.stale
+        if watch is not None:
+            self._watch_done(watch, roundtrip_ok=True)
+        if stale:
+            return  # mirror-served already; the late result is dropped
         for f, r in zip(futures, results):
             _safe_result(f, r)
 
     def close(self) -> bool:
-        """Drain and shut down: queued groups are dispatched, then the
-        device and collect threads finish. Returns True when every
-        thread finished within the close budget."""
+        """Drain and shut down: queued groups are dispatched (to the
+        mirror while wedged), then every thread finishes. Returns True
+        when all finished within the budget: the stall bound (5 s at
+        most while wedged: those threads are not coming back), or
+        _CLOSE_BUDGET_S without a watchdog."""
         with self._lock:
             self._closed = True
             self._wake.notify()
-        deadline = time.monotonic() + _CLOSE_BUDGET_S
+            wedged = self._wedged
+        budget = self.device_stall_s if self._armed else _CLOSE_BUDGET_S
+        if wedged:
+            budget = min(budget, 5.0)
+        deadline = time.monotonic() + budget
         # the scheduler may hold popped groups it is about to dispatch
         self._scheduler.join(timeout=5)
         with self._lock:
@@ -426,13 +972,19 @@ class MicroBatcher:
         for group in pending:
             self._dispatch(group)
         clean = True
-        # device first: its queued batches still hand off to the
-        # collector, which shuts down after it
-        for ex in (self._device, self._collector):
+        with self._lock:
+            # device first: its batches still hand off to the collector
+            # and the mirror, which shut down after it
+            executors = [self._device, self._collector, self._host]
+            executors += self._abandoned
+        for ex in executors:
             ex.shutdown(wait=False)
             for t in list(getattr(ex, "_threads", ())):
                 t.join(timeout=max(deadline - time.monotonic(), 0.1))
                 clean = clean and not t.is_alive()
+        if not clean:
+            _logger.error("batcher close timed out after %.0f s: device "
+                          "threads still stuck", budget)
         return clean
 
 
@@ -443,6 +995,7 @@ class BatchingRunner:
 
     def __init__(self, batcher: MicroBatcher):
         self.batcher = batcher
+        self._tls = threading.local()
 
     @property
     def device(self) -> torch.device:
@@ -458,13 +1011,19 @@ class BatchingRunner:
             kinds = ["rgb"] * len(plans)
         futures = [self.batcher.submit(p, i, k)
                    for p, i, k in zip(plans, images, kinds)]
-        return [f.result() for f in futures]
+        results = [f.result() for f in futures]
+        # sticky per thread, consumed by the engine at the end of the
+        # request (a GIF makes several run() calls)
+        if any(getattr(f, "fanlin_host_mirror", False) for f in futures):
+            self._tls.host_mirror = True
+        return results
+
+    def consume_host_mirror_flag(self) -> bool:
+        """True when a run() on this thread since the last consume was
+        served by the host mirror."""
+        v = getattr(self._tls, "host_mirror", False)
+        self._tls.host_mirror = False
+        return v
 
     def device_available(self) -> bool:
-        """Always True: the port has no wedge detection yet."""
-        return True
-
-    def prefer_pixel_source(self) -> bool:
-        """Always False: the port has no host mirror to steer away
-        from."""
-        return False
+        return self.batcher.device_available()

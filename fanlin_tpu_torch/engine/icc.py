@@ -177,20 +177,17 @@ def convert_jpeg_color_if_needed(
     carries the same LUT. Without device_icc, embedded profiles run
     exact host lcms2.
 
-    device_up is the JAX package's flag for a wedged accelerator link,
-    where it evaluates the LUT through a host twin. The port has no such
-    state and no host twin (its host mirror, P7, is not ported): its
-    Engine leaves the flag at True, and False raises.
+    device_up=False (the micro-batcher has wedged the device): the
+    LUT-bearing conversions do not touch the card; the same LUT is
+    evaluated by its host twin (`DeviceCmykTransform.convert_host`, the
+    host mirror's numpy LUT, the kernel's bytes), and the request's batch
+    is mirror-served, which tags the response cold.
 
     Only the open and load of the stream are guarded: a stream that
     Pillow cannot open or decode gives None, and the normal decode path
     reports it. A failure of the transform itself (the K12b kernel, the
     LUT upload, lcms2) raises: it is never answered with Pillow's plain
     CMYK->RGB, which gives other bytes."""
-    if not device_up:
-        raise NotImplementedError(
-            "device_up=False needs the host mirror, which the port does "
-            "not have")
     if not use_embedded_profile and default is None:
         return None
     if jpeg_num_components(data) != 4:
@@ -218,13 +215,21 @@ def convert_jpeg_color_if_needed(
             if device_transform is not None:
                 lut = embedded_device_lut(embedded)
                 if lut is not None:
+                    px = np.asarray(im, dtype=np.uint8)
+                    if not device_up:
+                        # no transform: making one uploads its LUT
+                        from ..ops.cmyk_lut import convert_host
+
+                        return convert_host(px, lut[0], lut[1])
                     t = _device_transform_for(lut, device_transform.device)
-                    return t.convert(np.asarray(im, dtype=np.uint8))
+                    return t.convert(px)
             conv = CMYK2RGB.with_icc_profile(embedded)
         if conv is None:
             conv = default
             if conv is not None and device_transform is not None:
-                return device_transform.convert(np.asarray(im, dtype=np.uint8))
+                px = np.asarray(im, dtype=np.uint8)
+                return (device_transform.convert(px) if device_up
+                        else device_transform.convert_host(px))
         if conv is None:
             return None
         return conv.convert(im)

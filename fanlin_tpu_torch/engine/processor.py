@@ -53,6 +53,18 @@ LUT (`icc.embedded_device_lut`, kind "...@<hash>"). Every other CMYK
 source converts its pixels through the same LUT
 (`ops.cmyk_lut.DeviceCmykTransform`).
 
+Under the micro-batcher a batch may be served by the host mirror
+(`ops.hostexec`, within 1 LSB of the card) while the device is stalled
+or wedged (`engine.batcher`). The runner flags such a request and
+`process_image` appends `COLD_MARK` to its marks, which the gateway
+answers with `X-Cache-Warmth: cold` and `Cache-Control: no-store` and
+keeps out of its response cache. While the runner reports its device
+unavailable (wedged), a YCbCr JPEG takes the pixel path: the same bytes
+at a lower host cost. CMYK keeps its coefficient route (the mirror
+decodes it from the staged grids); a CMYK source on the pixel route
+converts through the LUT's host twin while the device is wedged
+(`icc.convert_jpeg_color_if_needed(device_up=False)`).
+
 With a `source_cache.SourceCache` (`tpu.source_cache_mb`) every decode
 result (coefficient metas after their EXIF rotation, decoded and
 colour-managed pixels, GIF frames) is kept by the source's content hash,
@@ -78,6 +90,12 @@ from . import (codecs, icc, jpeg_coeffs, jpeg_encode, native_codecs,
 
 # read_jpeg_coeffs' subsampling layout -> the coefficient batch kind
 _COEF_KIND = {420: "coef", 422: "coef422", 440: "coef440", 444: "coef444"}
+
+# The mark appended to a request's Server-Timing marks when a batch of
+# it was served by the host mirror: the gateway strips it and answers
+# X-Cache-Warmth: cold and Cache-Control: no-store, so no cache keeps
+# bytes that may differ from the card's by 1 LSB.
+COLD_MARK = "__host_mirror__"
 
 
 class ProcessError(Exception):
@@ -206,13 +224,34 @@ class Engine:
         meta["lut_flat"], meta["lut_n"], meta["lut_key"] = lut
         return meta
 
-    def _convert_jpeg_color_if_needed(self, data: bytes) -> Optional[np.ndarray]:
+    def _convert_jpeg_color_if_needed(self, data: bytes,
+                                      device_up: bool = True
+                                      ) -> Optional[np.ndarray]:
         """CMYK/YCCK JPEG -> (H, W, 3) u8 RGB through ICC (reference
-        handler.rs:398-466), or None when it does not apply."""
+        handler.rs:398-466), or None when it does not apply. device_up
+        False (a wedged device) converts through the LUT's host twin."""
         if not self.use_embedded_profile and self.cmyk2rgb is None:
             return None
         return icc.convert_jpeg_color_if_needed(
-            data, self.cmyk2rgb, self.use_embedded_profile, self.device_cmyk)
+            data, self.cmyk2rgb, self.use_embedded_profile, self.device_cmyk,
+            device_up)
+
+    def _consume_cold(self) -> bool:
+        fn = getattr(self.runner, "consume_host_mirror_flag", None)
+        return bool(fn()) if fn is not None else False
+
+    def _mark_cold(self, marks) -> None:
+        if self._consume_cold() and marks is not None:
+            marks.append((COLD_MARK, 0.0))
+
+    def _device_up(self) -> bool:
+        """Whether the runner's device is serving. False while it is
+        wedged: its batches then ride the host mirror, whose numpy
+        coefficient decode costs 2.6-5.9x a pixel batch's host time at
+        README B=8 on an H100's host (chip_smoke.py phase 11 (e)), so a
+        YCbCr JPEG decodes to pixels instead (the same bytes)."""
+        avail = getattr(self.runner, "device_available", None)
+        return avail() if avail is not None else True
 
     def process_image(
         self, data: bytes, params: query_mod.Query, accepted: content_mod.Format,
@@ -228,15 +267,20 @@ class Engine:
                 raise ProcessError(str(e)) from e
         if params.as_is():
             return (codecs.MIME[fmt], data)
+        self._consume_cold()  # a stale flag of this thread
         if fmt == codecs.GIF:
-            return self.process_gif(data, params)
+            result = self.process_gif(data, params)
+            self._mark_cold(marks)
+            return result
 
         t0 = time.perf_counter()
         orientation = codecs.read_orientation(data)
         meta = converted = None
         scache = self.source_cache
         skey = source_cache.content_key(data) if scache is not None else None
+        device_up = True
         if fmt == codecs.JPEG:
+            device_up = self._device_up()
             # 4-component sources: the device decode and LUT, else the
             # colour-managed pixels (handler.rs:398-466)
             meta = self._try_cmyk_coef(data, orientation, skey)
@@ -250,7 +294,8 @@ class Engine:
                     converted = hit[0]
                 else:
                     try:
-                        converted = self._convert_jpeg_color_if_needed(data)
+                        converted = self._convert_jpeg_color_if_needed(
+                            data, device_up)
                     except codecs.CodecError as e:
                         # the decode-alloc gate fires inside the ICC load
                         raise ProcessError(str(e)) from e
@@ -258,7 +303,7 @@ class Engine:
                         scache.put_pixels("icc", skey, converted, False,
                                           False)
         if (meta is None and converted is None and self.device_decode
-                and fmt == codecs.JPEG):
+                and device_up and fmt == codecs.JPEG):
             # the kind carries the orientation: a hot EXIF-rotated source
             # is cached after its rotation. A rotation that is not
             # grid-exact caches a pixel-only sentinel, so the reader does
@@ -345,6 +390,7 @@ class Engine:
             raise ProcessError(str(e)) from e
         if marks is not None:
             marks.append(("f_encode", (time.perf_counter() - t2) * 1000.0))
+        self._mark_cold(marks)
         return (codecs.MIME[out_fmt], payload)
 
     def _sink(self, params, plan, out_fmt: str, mode: str) -> str:

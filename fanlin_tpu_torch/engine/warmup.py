@@ -28,11 +28,18 @@ Every batch runs through `MicroBatcher.warm_batch`: on the batcher's
 device thread and stream, where the port touches device tensors, one
 batch at a time, so served batches interleave with warmup.
 
+Every device touch is gated on `device_ok` (the batcher's
+`device_available`), as fanlin_tpu/engine/warmup.py:110-130 gates its
+compiles: while the batcher has the device wedged, warmup defers,
+polling every _DEFER_POLL_S, and resumes where it stopped once a probe
+recovers the device; a batch that failed while the device went down is
+run again after the recovery (at most _WARM_ATTEMPTS times). A warm
+batch is never served from the host mirror.
+
 Left out of the JAX package's warmup, having no counterpart in the
 port: the spectral-thinning flavours and the jpegdct pack-rung ladder
-(the narrow-link wire rungs, not ported), the wedge defer-and-resume
-loop (no failover: the port's batcher has no wedge gauge) and the
-eight compile threads (there is nothing to compile in parallel).
+(the narrow-link wire rungs, not ported) and the eight compile threads
+(there is nothing to compile in parallel).
 """
 
 from __future__ import annotations
@@ -64,6 +71,11 @@ MAX_DERIVED_GEOMETRIES = 4
 # the coefficient kinds warmed, by read_jpeg_coeffs subsampling: 4:2:0
 # (camera and web JPEGs) and 4:4:4 (the README source)
 _COEF_KINDS = ((2, "coef"), (0, "coef444"))
+
+# how often deferred warmup checks device_ok while the device is wedged,
+# and how often one batch is tried when the device goes down under it
+_DEFER_POLL_S = 5.0
+_WARM_ATTEMPTS = 3
 
 
 def shapes_from_state(state, configured: Tuple = ()) -> Tuple:
@@ -140,39 +152,75 @@ def warm_host(shapes=DEFAULT_SHAPES) -> None:
                    opaque=True)
 
 
+class _Closed(Exception):
+    """The batcher closed: warmup ends."""
+
+
+def _await_device(batcher, device_ok) -> None:
+    """Return once device_ok() holds; raise _Closed if the batcher
+    closes meanwhile."""
+    if device_ok():
+        return
+    log.warning("device wedged: deferring warmup until it recovers")
+    while not device_ok():
+        if batcher.closed:
+            raise _Closed()
+        time.sleep(_DEFER_POLL_S)
+    log.info("device recovered: resuming warmup")
+
+
+def _warm_one(batcher, device_ok, plans, payloads, kinds) -> bool:
+    """One warm batch, deferred while the device is wedged and run again
+    (up to _WARM_ATTEMPTS) when it failed as the device went down; True
+    when it ran. Raises _Closed once the batcher is closed."""
+    for attempt in range(_WARM_ATTEMPTS):
+        _await_device(batcher, device_ok)
+        try:
+            fut = batcher.warm_batch(plans, payloads, kinds)
+        except RuntimeError:
+            raise _Closed() from None
+        try:
+            fut.result()
+            return True
+        except Exception as e:
+            log.warning("warmup batch %s %dx%d B=%d failed: %r", kinds[0],
+                        plans[0].src_w, plans[0].src_h, len(plans), e)
+            if device_ok() or attempt + 1 == _WARM_ATTEMPTS:
+                return False
+    return False
+
+
 def warm(batcher, shapes=DEFAULT_SHAPES, device_decode: bool = True,
-         device_dct: bool = False, fast_decode: bool = False) -> int:
+         device_dct: bool = False, fast_decode: bool = False,
+         device_ok=None) -> int:
     """Run every (src_w, src_h, query) shape through `batcher` at B=1
     and B=max_batch on each kind it may take (with `fast_decode`, the
     folded kinds where the Engine would fold the shape's plan). Returns
     the number of batches run; a failed batch is logged and skipped, and
-    a closed batcher ends the warmup."""
+    a closed batcher ends the warmup. device_ok (default: the batcher's
+    device_available) gates every batch: warmup defers while it is
+    False."""
+    if device_ok is None:
+        device_ok = batcher.device_available
     t0 = time.perf_counter()
     done = total = 0
-    for src_w, src_h, qs in shapes:
-        plan = plan_image(src_w, src_h, parse_query(qs), filters.LANCZOS3,
-                          opaque=True)
-        kinds = _kinds(device_decode, device_dct,
-                       fast_decode and not (plan.gray or plan.invert))
-        payloads = {"pix": np.zeros((src_h, src_w, 3), np.uint8)}
-        for b in sorted({1, batcher.max_batch}):
-            for src, kind in kinds:
-                if src not in payloads:
-                    payloads[src] = _coef_meta(src_w, src_h, src)
-                total += 1
-                try:
-                    fut = batcher.warm_batch([plan] * b,
-                                             [payloads[src]] * b, [kind] * b)
-                except RuntimeError:
-                    log.info("warmup stopped: the batcher closed")
-                    return done
-                try:
-                    fut.result()
-                except Exception as e:
-                    log.warning("warmup batch %s %dx%d B=%d failed: %r",
-                                kind, src_w, src_h, b, e)
-                    continue
-                done += 1
+    try:
+        for src_w, src_h, qs in shapes:
+            plan = plan_image(src_w, src_h, parse_query(qs),
+                              filters.LANCZOS3, opaque=True)
+            kinds = _kinds(device_decode, device_dct,
+                           fast_decode and not (plan.gray or plan.invert))
+            payloads = {"pix": np.zeros((src_h, src_w, 3), np.uint8)}
+            for b in sorted({1, batcher.max_batch}):
+                for src, kind in kinds:
+                    if src not in payloads:
+                        payloads[src] = _coef_meta(src_w, src_h, src)
+                    total += 1
+                    done += _warm_one(batcher, device_ok, [plan] * b,
+                                      [payloads[src]] * b, [kind] * b)
+    except _Closed:
+        log.info("warmup stopped: the batcher closed")
+        return done
     log.info("warmed %d of %d batches in %.3f s", done, total,
              time.perf_counter() - t0)
     return done

@@ -11,8 +11,9 @@ root, keyed by a hash of its sources and flags, and loaded with ctypes:
   no libjpeg, so it builds wherever a `c++` does.
 
 Both run at first use, never at import: the CPU test suite imports
-every module on a machine without nvcc. A failed build raises; nothing
-falls back.
+every module on a machine without nvcc. A failed build raises
+`KernelBuildError`; nothing falls back: the micro-batcher fails the
+batch with it and never serves it from the host mirror.
 """
 
 from __future__ import annotations
@@ -58,6 +59,11 @@ def nvcc_flags(dec_tile_h: int = DEC_TILE_H) -> tuple:
 
 NVCC_FLAGS = nvcc_flags()
 
+
+class KernelBuildError(RuntimeError):
+    """The native code did not build or load (no compiler, a compile
+    error, a library that does not load)."""
+
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -70,7 +76,7 @@ def _nvcc() -> str:
     cand = os.path.join(home, "bin", "nvcc")
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin or "
+    raise KernelBuildError("nvcc not found (PATH, $CUDA_HOME/bin or "
                        "/usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
@@ -80,7 +86,7 @@ def _run(cmd) -> None:
     argv, proc = cmd
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(
+        raise KernelBuildError(
             f"build failed ({proc.returncode}): {' '.join(argv)}\n{out}")
 
 
@@ -136,7 +142,7 @@ def _cxx() -> str:
         found = shutil.which(name)
         if found:
             return found
-    raise RuntimeError("no host C++ compiler (c++ or g++): cannot build the "
+    raise KernelBuildError("no host C++ compiler (c++ or g++): cannot build the "
                        "host JPEG reader and encoder")
 
 
@@ -160,7 +166,7 @@ def load_host() -> ctypes.CDLL:
     global _HOST_LIB
     with _HOST_LOCK:
         if _HOST_LIB is None:
-            lib = ctypes.CDLL(str(build_host()))
+            lib = _open(build_host())
             p = ctypes.c_void_p
             for name in ("fanlin_read_jpeg_coeffs",
                          "fanlin_read_jpeg_coeffs4"):
@@ -192,14 +198,21 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _open(path: Path) -> ctypes.CDLL:
+    try:
+        return ctypes.CDLL(str(path))
+    except OSError as e:
+        raise KernelBuildError(f"cannot load {path}: {e}") from e
+
+
 def load(flags: tuple | None = None) -> ctypes.CDLL:
     """The built kernel library with its C signatures declared. Given
     `flags` (see `nvcc_flags`), a library built with those instead,
     loaded anew on each call (tools/torch_decode_tiles.py)."""
     global _LIB
     if flags is not None:
-        return _declare(ctypes.CDLL(str(build(flags))))
+        return _declare(_open(build(flags)))
     with _LOCK:
         if _LIB is None:
-            _LIB = _declare(ctypes.CDLL(str(build())))
+            _LIB = _declare(_open(build()))
         return _LIB

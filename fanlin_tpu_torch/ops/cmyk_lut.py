@@ -9,7 +9,9 @@ the JAX function's f32 operations in its order. The kernels
 converts in its colour stage) read the LUT packed by `pack_lut`, u8
 samples four entries to a 16 B row; `lut_planes_packed` is their order
 of work in torch, bit-equal to `lut_planes`. `DeviceCmykTransform` holds
-one sampled LUT for a device and converts pixels through the kernel.
+one sampled LUT for a device and converts pixels through the kernel, or
+through the host mirror's numpy LUT (`convert_host`) while the device is
+wedged.
 """
 
 from __future__ import annotations
@@ -166,6 +168,22 @@ class DeviceCmykTransform:
         out = cmyk_lut_kernels.cmyk_lut_pixels(
             _pixels(cmyk).to(self.device), self._lut(), self.n)
         return out.cpu().numpy()
+
+    def convert_host(self, cmyk: np.ndarray) -> np.ndarray:
+        """(H, W, 4) u8 CMYK -> (H, W, 3) u8 RGB in numpy, touching no
+        device (`convert_host` of the module), for serving while the
+        device is wedged."""
+        return convert_host(cmyk, self.lut_np, self.n)
+
+
+def convert_host(cmyk: np.ndarray, lut_flat: np.ndarray, n: int) -> np.ndarray:
+    """(H, W, 4) u8 CMYK pixels through an (n^4, 3) f32 LUT in numpy: the
+    host mirror's LUT (`host_decode.lut_planes`), the kernel's bytes."""
+    from .host_decode import lut_planes
+
+    c, m, y, k = (cmyk[..., i] for i in range(4))
+    r, g, b = lut_planes(c, m, y, k, lut_flat, n)
+    return np.stack([r, g, b], axis=-1).astype(np.uint8)
 
 
 def _pixels(cmyk: np.ndarray) -> torch.Tensor:

@@ -42,6 +42,7 @@ AC pairs. The Engine's runner holds it; nothing here is process-wide.
 
 from __future__ import annotations
 
+import copy
 import re
 
 import numpy as np
@@ -433,6 +434,16 @@ class BatchAssembly:
     def run(self):
         return self.collect(self.submit())
 
+    def replica(self):
+        """A copy that shares this batch's staged host arrays and has a
+        transfer state of its own: running it again (the batcher's
+        recovery probe) leaves an earlier run's pending download and
+        event to whoever still waits on them."""
+        twin = copy.copy(self)
+        twin._io = copy.copy(self._io)
+        twin._io.event = None
+        return twin
+
 
 class CoefBatchAssembly(BatchAssembly):
     """Host staging for one device batch of JPEG coefficient sources:
@@ -526,6 +537,11 @@ class CoefBatchAssembly(BatchAssembly):
     def upload_bytes(self) -> int:
         """Host->device bytes of the coefficient wire (blocks + tables)."""
         return self.coef.nbytes + self.q.nbytes
+
+    def host_grids(self):
+        """The staged block grids of PLANES, (B, rows, cols, 64) int16
+        views of the wire (the host mirror decodes them)."""
+        return [self.coef[a:b].reshape(shape) for a, b, shape in self._spans]
 
     def device_wire(self):
         """Upload the wire: the block grids of PLANES, then q, on the

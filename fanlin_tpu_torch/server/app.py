@@ -15,7 +15,10 @@ request semantics:
   middleware publishes the request's deadline and cancel event to the
   micro-batcher, which sheds abandoned requests before device work;
 * response headers: Content-Type, Vary: Accept when webp/avif was
-  requested, Server-Timing with f_fetch / f_process marks;
+  requested, Server-Timing with f_fetch / f_process marks; a response
+  that a batch of the host mirror served (`engine.processor.COLD_MARK`:
+  a stalled or wedged device, see `engine.batcher`) also carries `X-Cache-Warmth: cold` and
+  `Cache-Control: no-store`, and never enters the response cache;
 * with ``tpu.profile_dir``, ``GET /profile?seconds=N``: a torch.profiler
   capture of this process into that directory (`make_profile_handler`),
   exempt from the request timeout.
@@ -23,7 +26,9 @@ request semantics:
 One device. The engine serves through the micro-batcher
 (`engine.batcher`, `tpu.max_batch`, `batch_window_ms`,
 `pipeline_depth`, `max_queue`): concurrent requests of one shape group
-share a device batch. With `tpu.workers` > 1 this gateway runs in N
+share a device batch, and the host mirror serves while the card does
+not answer (`tpu.host_fallback`, `device_stall_s`). With `tpu.workers` >
+1 this gateway runs in N
 worker processes around one device service (`server.workers`); the
 CLI warms the kernels and caches at startup (`tpu.warmup`,
 `engine.warmup`); `tpu.source_cache_mb` caches decoded sources
@@ -33,11 +38,11 @@ products in bf16 (the batcher and the Engine hold it). There is no mesh:
 `tpu.data_parallel` serves unsharded on one device, as the reference
 does there, and is refused where more than one is visible
 (`check_data_parallel`). Config options whose code is not in the port
-raise at startup (`check_ported`). Accepted but inert: the batcher's
-failover knobs (`tpu.host_fallback`, `device_stall_s`,
-`spill_wait_ms`), `tpu.dct_pack_floor` (jpegdct batches always download
-full int16 coefficients, the reference's widest pack level) and, on one
-device, `tpu.mesh_sp`.
+raise at startup (`check_ported`). Accepted but inert:
+`tpu.spill_wait_ms` (the reference's queue-pressure spillover to the
+mirror, left out: see `engine.batcher`), `tpu.dct_pack_floor` (jpegdct batches always download full int16
+coefficients, the reference's widest pack level) and, on one device,
+`tpu.mesh_sp`.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from aiohttp import web
 from .. import config as config_mod
 from .. import device as device_mod
 from ..engine import Engine, native_codecs
+from ..engine.processor import COLD_MARK
 from ..engine.source_cache import SourceCache
 from ..engine.batcher import (REQUEST_CANCEL, REQUEST_DEADLINE,
                               BatcherOverload, BatchingRunner, MicroBatcher,
@@ -212,11 +218,18 @@ async def generic_handler(request: web.Request) -> web.Response:
         return await _fallback_or_message(
             state, path, params, accepted, 500, "server error on processing an image"
         )
+    cold = any(name == COLD_MARK for name, _ in marks)
     for name, dur in marks:
-        timer.add_duration(name, dur)
+        if name != COLD_MARK:
+            timer.add_duration(name, dur)
     timer.add("f_process")
     headers = _create_headers(mime, params, timer)
-    if cache is not None:
+    if cold:
+        # served by the host mirror (within 1 LSB of the card): no cache
+        # or CDN may keep these bytes
+        headers["X-Cache-Warmth"] = "cold"
+        headers["Cache-Control"] = "no-store"
+    elif cache is not None:
         cache.put(cache_key, (mime, processed), len(processed) + 256)
     return web.Response(status=200, headers=headers, body=processed)
 
@@ -399,6 +412,16 @@ def create_app(cfg: config_mod.Config, state: State) -> web.Application:
     return app
 
 
+def make_batcher(cfg: config_mod.Config, device: torch.device) -> MicroBatcher:
+    """The micro-batcher of a config (the single process's, or the
+    device service's in worker mode)."""
+    return MicroBatcher(
+        cfg.tpu.max_batch, cfg.tpu.batch_window_ms, device=device,
+        pipeline_depth=cfg.tpu.pipeline_depth, max_queue=cfg.tpu.max_queue,
+        fast=cfg.tpu.fast, host_fallback=cfg.tpu.host_fallback,
+        device_stall_s=cfg.tpu.device_stall_s)
+
+
 async def build_state(cfg: config_mod.Config,
                       device: Optional[torch.device] = None, runner=None,
                       device_decode: Optional[bool] = None) -> State:
@@ -408,9 +431,9 @@ async def build_state(cfg: config_mod.Config,
     -> fallback preload (failure only warns) -> the ICC profile, its
     device LUT (`tpu.device_icc`) and embedded profiles. The engine
     serves through
-    the micro-batcher (fanlin_tpu/server/app.py:488-495); the batcher's
-    failover knobs (`host_fallback`, `device_stall_s`, `spill_wait_ms`)
-    and `dct_pack_floor` are not ported and do nothing.
+    the micro-batcher (fanlin_tpu/server/app.py:488-495), built with the
+    failover knobs (`host_fallback`, `device_stall_s`);
+    `spill_wait_ms` and `dct_pack_floor` are not ported and do nothing.
 
     device: where the engine runs; defaults to CUDA and raises when
     CUDA is absent. Tests pass torch.device("cpu") explicitly.
@@ -425,10 +448,7 @@ async def build_state(cfg: config_mod.Config,
         if device is None:
             device = device_mod.cuda_device()
         check_data_parallel(cfg, device)
-        runner = BatchingRunner(MicroBatcher(
-            cfg.tpu.max_batch, cfg.tpu.batch_window_ms, device=device,
-            pipeline_depth=cfg.tpu.pipeline_depth,
-            max_queue=cfg.tpu.max_queue, fast=cfg.tpu.fast))
+        runner = BatchingRunner(make_batcher(cfg, device))
     if device_decode is None:
         device_decode = cfg.tpu.device_decode
     native_codecs.set_webp_method(cfg.tpu.webp_method)

@@ -41,8 +41,13 @@ boundary, so the service sheds queued entries by deadline only; the
 worker drops a request already abandoned before paying the socket trip,
 and bounds its wait end to end by the deadline plus _REPLY_GRACE_S.
 
-No fallback: a worker that cannot reach the service answers 500 (the
-fallback image path); it never transforms on its own CPU.
+No fallback in a worker: one that cannot reach the service answers 500
+(the fallback image path); it never transforms on its own CPU. The
+service's batcher has the host mirror (`engine.batcher`): a run reply
+carries its mirror flag, and the worker tags such a response cold as
+the single process does. The worker reads the service's wedge gauge
+through `RemoteRunner.device_available`, cached for _AVAIL_TTL_S; the
+mirror itself runs in the service process.
 
 Resilience: a worker that dies is logged and not respawned (the kernel
 spreads its SO_REUSEPORT share over the others; respawning would fork
@@ -79,11 +84,11 @@ from .. import device as device_mod
 from ..engine import native_codecs
 from ..engine import warmup as warmup_mod
 from ..engine.batcher import (REQUEST_CANCEL, REQUEST_DEADLINE,
-                              BatchingRunner, MicroBatcher, RequestExpired)
+                              BatchingRunner, RequestExpired)
 from ..ops import _build
 from ..ops.plan import plan_image
 from .app import (build_state, check_data_parallel, create_app,
-                  kernel_launches)
+                  kernel_launches, make_batcher)
 
 log = logging.getLogger("fanlin.workers")
 
@@ -98,6 +103,8 @@ _REPLY_GRACE_S = 2.0
 # how long the parent waits for its workers to drain after SIGTERM
 # before it kills them
 _DRAIN_S = 30.0
+# how long a worker reuses the service's wedge gauge
+_AVAIL_TTL_S = 1.0
 
 
 def _send(sock: socket.socket, obj) -> None:
@@ -205,6 +212,11 @@ class RemoteRunner:
         worker's Engine checks against its own."""
         self.path = path
         self.fast = bool(fast)
+        self._tls = threading.local()
+        # the gauge cache, shared by this worker's request threads
+        self._gauge_lock = threading.Lock()
+        self._avail = None  # (t_fetched, available)
+        self._avail_refreshing = False
 
     def run(self, plans, images, kinds=None):
         cancel_ev = REQUEST_CANCEL.get()
@@ -225,23 +237,49 @@ class RemoteRunner:
                     s.settimeout(reply_deadline - time.monotonic())
                 s.connect(self.path)
                 _send(s, req)
-                status, payload = _recv(s, reply_deadline)
+                status, payload, mirror = _recv(s, reply_deadline)
         except socket.timeout:
             raise RequestExpired(
                 "device service did not answer before the request "
                 "deadline") from None
         if status == "err":
             raise payload
+        if mirror:
+            self._tls.host_mirror = True
         return payload
 
-    def device_available(self) -> bool:
-        """Always True, as BatchingRunner's: the port has no wedge
-        detection, so no gauge crosses the socket."""
-        return True
+    def consume_host_mirror_flag(self) -> bool:
+        """True when a run() on this thread since the last consume was
+        served by the service's host mirror."""
+        v = getattr(self._tls, "host_mirror", False)
+        self._tls.host_mirror = False
+        return v
 
-    def prefer_pixel_source(self) -> bool:
-        """Always False, as BatchingRunner's (no host mirror)."""
-        return False
+    def device_available(self) -> bool:
+        """The service batcher's wedge gauge, cached for _AVAIL_TTL_S:
+        the engine asks per JPEG request, and a wedge lasts seconds. A
+        stale value only prices the mirror wrongly for a moment (both
+        source paths give the same bytes). One request thread refreshes
+        at a time; an unreachable service keeps the last known value
+        (the request itself reports the failure)."""
+        now = time.monotonic()
+        with self._gauge_lock:
+            cached = self._avail
+            if cached is not None and (now - cached[0] < _AVAIL_TTL_S
+                                       or self._avail_refreshing):
+                return cached[1]
+            self._avail_refreshing = True
+        try:
+            st = self.service_stats()
+        finally:
+            with self._gauge_lock:
+                self._avail_refreshing = False
+        with self._gauge_lock:
+            v = self._avail[1] if self._avail is not None else True
+            if st is not None:
+                v = not (st.get("batcher") or {}).get("device_wedged", 0)
+            self._avail = (time.monotonic(), v)
+            return v
 
     def service_stats(self):
         """The device service's counters ({"batcher": ...,
@@ -290,7 +328,10 @@ class _ServiceHandler(socketserver.BaseRequestHandler):
         REQUEST_DEADLINE.set(deadline)
         try:
             plans = [plan_image(*k) for k in keys]
-            reply = ("ok", service.runner.run(plans, images, kinds))
+            results = service.runner.run(plans, images, kinds)
+            # one connection per run, on a thread of its own: the flag is
+            # this run's
+            reply = ("ok", results, service.runner.consume_host_mirror_flag())
         except Exception as e:  # the exact type crosses back
             try:
                 pickle.dumps(e, protocol=pickle.HIGHEST_PROTOCOL)
@@ -298,7 +339,7 @@ class _ServiceHandler(socketserver.BaseRequestHandler):
                 # an exception that does not pickle would kill this
                 # thread inside _send: ship its type's name and message
                 e = RuntimeError(f"{type(e).__name__}: {e}")
-            reply = ("err", e)
+            reply = ("err", e, False)
         t2 = time.perf_counter()
         try:
             _send(self.request, reply)
@@ -339,10 +380,7 @@ class DeviceService:
             _build.load()  # compiled by the parent before the fork
             torch.empty(1, device=device)  # the CUDA context, now
         self.device = device
-        self.batcher = MicroBatcher(
-            cfg.tpu.max_batch, cfg.tpu.batch_window_ms, device=device,
-            pipeline_depth=cfg.tpu.pipeline_depth,
-            max_queue=cfg.tpu.max_queue, fast=cfg.tpu.fast)
+        self.batcher = make_batcher(cfg, device)
         self.runner = BatchingRunner(self.batcher)
         # the socket's share of a worker's f_device: per "run" message,
         # the ms from the handler's start to the request decoded (recv),

@@ -188,8 +188,10 @@ def test_convert_jpeg_color_matches(case):
 @pytest.mark.parametrize("cut", [0.3, 0.6, 0.9])
 def test_convert_damaged_stream_matches(cut):
     """A cut CMYK stream that Pillow cannot load gives None on both
-    packages (the normal decode path reports it), with a device LUT too;
-    the JAX package's device_up=False has no port (it raises)."""
+    packages (the normal decode path reports it), with a device LUT too,
+    and with device_up=False (a wedged device); an intact stream with
+    device_up=False converts through the LUT's host twin, to the bytes
+    of the device form (here its plain version)."""
     data = cmyk_jpeg()
     data = data[:int(len(data) * cut)]
     prof = make_cmyk_profile(0)
@@ -198,11 +200,15 @@ def test_convert_damaged_stream_matches(cut):
     default = ticc.CMYK2RGB.with_icc_profile(prof)
     xform = tlut.DeviceCmykTransform(tlut.sample_lut(default.convert, 5), CPU)
     for t in (None, xform):
-        got = ticc.convert_jpeg_color_if_needed(data, default, False, t)
-        assert want is None and got is None
-    with pytest.raises(NotImplementedError):
-        ticc.convert_jpeg_color_if_needed(cmyk_jpeg(), default, False, xform,
-                                          device_up=False)
+        for up in (True, False):
+            got = ticc.convert_jpeg_color_if_needed(data, default, False, t,
+                                                    device_up=up)
+            assert want is None and got is None
+    whole = cmyk_jpeg()
+    host = ticc.convert_jpeg_color_if_needed(whole, default, False, xform,
+                                             device_up=False)
+    np.testing.assert_array_equal(
+        host, ticc.convert_jpeg_color_if_needed(whole, default, False, xform))
 
 
 def ImageCmsProfileBytes() -> bytes:

@@ -653,11 +653,13 @@ def test_worker_without_service_answers_500(tmp_path):
     assert status == 500
     assert text == "server error on processing an image"
     assert runner.service_stats() is None
-    # the gauges are BatchingRunner's constants: nothing crosses the
-    # socket per request for them
-    local = batcher_mod.BatchingRunner(None)
-    assert (runner.device_available(), runner.prefer_pixel_source()) == (
-        local.device_available(), local.prefer_pixel_source()) == (True, False)
+    # the service's wedge gauge is unknown: the worker keeps its healthy
+    # default (device available), as a fresh service's batcher reports it
+    local = batcher_mod.BatchingRunner(batcher_mod.MicroBatcher(2, 1.0, CPU))
+    try:
+        assert runner.device_available() == local.device_available() is True
+    finally:
+        assert local.batcher.close()
 
 
 @pytest.mark.parametrize("workers", [1, 2])
