@@ -131,8 +131,9 @@ class TpuConfig:
     batch_window_ms: float = 2.0
     # max images per device batch
     max_batch: int = 8
-    # number of host codec worker threads (decode/encode)
-    codec_threads: int = 0  # 0 = os.cpu_count()
+    # number of host codec worker threads (decode/encode); 0 keeps
+    # asyncio's default executor: min(32, os.cpu_count() + 4) threads
+    codec_threads: int = 0
     # data-parallel sharding over available devices
     data_parallel: bool = False
     # spatial-parallel factor: shard the source-width axis over this

@@ -69,6 +69,30 @@ than the mirror) and queue-pressure spillover (`tpu.spill_wait_ms`,
 accepted and inert): no measured load on the card has a batch that the
 mirror finishes sooner than the card would.
 
+Every phase of a served batch is timed with one pair of clock reads,
+added to a counter of `stats` and, while a `GET /profile` capture runs,
+recorded as a span (`utils.profiling`) that names the batch (`batch`,
+its images `n`, the request ids it serves `rids`) and this thread's CPU
+time over it (`cpu_ms`: wall time far above it is a wait for the GIL or
+a lock):
+
+* `fanlin.batcher.queue`, per entry, from `submit` to the device thread
+  taking its batch (`queue_wait_ms_total`, per image);
+* on the device thread `fanlin.batcher.stage` (`fused.make_assembly`),
+  `.permit_wait` (a pipeline permit) and `.submit` (`asm.submit()`,
+  with its plan rebuilds and pageable uploads, `pageable_bytes`,
+  `pageable_uploads`, `plan_rebuilds`), each `<phase>_ms_total`;
+* on the collect thread `fanlin.batcher.device_wait`, the wait for the
+  batch's event (`device_wait_ms_total` counts it from the hand-over to
+  the collect thread; the span starts when the collect thread takes the
+  batch, its `queued_ms` the time before), and `.unpack`, the rest of
+  the collect (`unpack_ms_total`);
+* `fanlin.batcher.handoff`, per image, from its future resolved to
+  `BatchingRunner.run` holding the result (`handoff_ms_total`).
+
+Warm and mirror batches get the same spans, with `warm` / `mirror`
+args, and count in none of these counters.
+
 The port defines its own contextvars and exceptions: it imports
 nothing of the JAX package.
 """
@@ -77,6 +101,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import itertools
 import logging
 import os
 import threading
@@ -90,6 +115,7 @@ import torch
 from ..ops import fused
 from ..ops import _build
 from ..ops.plan import ImagePlan, bucket_h, bucket_w
+from ..utils import profiling
 
 _logger = logging.getLogger("fanlin.batcher")
 
@@ -133,16 +159,21 @@ class DeviceStalled(RuntimeError):
     cancelled before it ran: warmup batches are never mirror-served."""
 
 
-def _safe_result(fut: Future, result, mirror: bool = False) -> None:
+def _safe_result(fut: Future, result, mirror: bool = False,
+                 t_ns: int = None, batch: int = None) -> None:
     """set_result tolerant of a future resolved (or cancelled)
     elsewhere: after a stall the batch is mirror-served while the stuck
     device call may still complete; whichever side comes second is
-    dropped. mirror: mark the future as served by the host mirror."""
+    dropped. mirror: mark the future as served by the host mirror.
+    t_ns, batch: the perf_counter_ns stamp of the resolve and the batch
+    id, carried on the future for the hand-back's span."""
     if fut.cancelled():
         return
     try:
         if mirror:
             fut.fanlin_host_mirror = True
+        if t_ns is not None:
+            fut.fanlin_resolved = (t_ns, batch)
         fut.set_result(result)
     except InvalidStateError:
         pass
@@ -176,6 +207,18 @@ class _PermitOnce:
                 return
             self._done = True
         self._sem.release()
+
+
+class _BatchTag:
+    """A batch as its spans name it: its id, the request ids of its
+    entries, its kind of run (`warm` / `mirror` args), and when the
+    device thread handed it to the collect thread (perf_counter_ns)."""
+
+    __slots__ = ("id", "rids", "n", "flags", "t_handed")
+
+    def __init__(self, bid: int, rids: list, n: int, **flags):
+        self.id, self.rids, self.n, self.flags = bid, rids, n, flags
+        self.t_handed = None
 
 
 class _Watch:
@@ -267,7 +310,7 @@ class MicroBatcher:
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
         # key -> (flush deadline, [(plan, image, future, kind,
-        #         req_deadline, cancel_ev, t_submitted)])
+        #         req_deadline, cancel_ev, t_submitted_ns, request_id)])
         self._groups: Dict[Tuple, Tuple[float, list]] = {}
         # key -> entries admitted but not yet picked up by the device
         # thread (the backlog max_queue bounds)
@@ -303,6 +346,8 @@ class MicroBatcher:
         self._pending_token = 0
         # executors replaced by past wedges; close() joins them
         self._abandoned: list = []
+        # batch ids of the spans, warm and mirror batches included
+        self._batch_ids = itertools.count(1)
         # observability counters (the gateway's /stats)
         self.stats = {"batches": 0, "images": 0, "full_flushes": 0,
                       "timer_flushes": 0, "queued_joins": 0,
@@ -314,10 +359,26 @@ class MicroBatcher:
                       "upload_bytes": 0,
                       # queued entries across groups (gauge), and the
                       # submit->dispatch wait of dispatched entries
-                      # (cumulative ms and peak; mean = total / images)
+                      # (cumulative ms; mean = total / images)
                       "backlog": 0,
                       "queue_wait_ms_total": 0.0,
-                      "queue_wait_ms_peak": 0.0,
+                      # the phases of the served batches on the card,
+                      # cumulative ms (module docstring; per batch =
+                      # total / batches, handoff's per image)
+                      "stage_ms_total": 0.0,
+                      "permit_wait_ms_total": 0.0,
+                      "submit_ms_total": 0.0,
+                      "device_wait_ms_total": 0.0,
+                      "unpack_ms_total": 0.0,
+                      "handoff_ms_total": 0.0,
+                      # what their submits did on the host besides
+                      # launching: pageable uploads of shared matrices
+                      # (`fused._device_cached` misses) and rebuilds of
+                      # the padded plan matrices (`plan._uniform_entry`,
+                      # `_folded_padded` misses)
+                      "pageable_bytes": 0,
+                      "pageable_uploads": 0,
+                      "plan_rebuilds": 0,
                       # startup batches run by engine.warmup
                       "warm_batches": 0,
                       # batches served by the host mirror (a stalled
@@ -396,7 +457,7 @@ class MicroBatcher:
             self._backlog[key] = self._backlog.get(key, 0) + 1
             self.stats["backlog"] += 1
             item = (plan, image, fut, kind, req_deadline, cancel_ev,
-                    time.monotonic())
+                    time.perf_counter_ns(), profiling.REQUEST_ID.get())
             queued = self._queued.get(key)
             if queued is not None:
                 queued.append(item)
@@ -524,14 +585,26 @@ class MicroBatcher:
 
         def run():
             watch = None
+            tag = _BatchTag(next(self._batch_ids), [], len(plans), warm=True)
             try:
+                t0, c0 = time.perf_counter_ns(), time.thread_time_ns()
                 asm = fused.make_assembly(plans, payloads, kinds,
                                           self.device, fast=self.fast)
+                t1, c1 = time.perf_counter_ns(), time.thread_time_ns()
+                self._phase("stage", tag, t0, t1, c0, c1, counted=False)
                 if self._armed:
                     watch = self._watch_add(asm, [wf], None, warm=True)
                 with self._on_stream():
                     out = asm.submit()
+                t2, c2 = time.perf_counter_ns(), time.thread_time_ns()
+                self._phase("submit", tag, t1, t2, c1, c2, counted=False)
+                asm.wait()
+                t3, c3 = time.perf_counter_ns(), time.thread_time_ns()
+                self._phase("device_wait", tag, t2, t3, c2, c3,
+                            counted=False)
                 results = asm.collect(out)
+                self._phase("unpack", tag, t3, time.perf_counter_ns(), c3,
+                            time.thread_time_ns(), counted=False)
             except BaseException as e:
                 if watch is not None:
                     self._watch_done(watch, roundtrip_ok=False)
@@ -766,26 +839,70 @@ class MicroBatcher:
                 self.stats["shed_expired"] += expired
         return live
 
-    def _count_batch(self, group) -> None:
-        """Count a dispatched batch and its entries' queue wait."""
-        now = time.monotonic()
+    def _count_batch(self, group) -> Tuple[_BatchTag, int]:
+        """Count a dispatched batch and its entries' queue wait. Returns
+        the batch's tag and the perf_counter_ns stamp at which it was
+        taken, where its entries' `fanlin.batcher.queue` spans end."""
+        now = time.perf_counter_ns()
+        tag = _BatchTag(next(self._batch_ids), [g[7] for g in group],
+                        len(group))
         with self._lock:
             self.stats["batches"] += 1
             self.stats["images"] += len(group)
+            self.stats["queue_wait_ms_total"] += sum(
+                now - g[6] for g in group) / 1e6
+        if profiling.on():
             for g in group:
-                wait_ms = (now - g[6]) * 1000.0
-                self.stats["queue_wait_ms_total"] += wait_ms
-                if wait_ms > self.stats["queue_wait_ms_peak"]:
-                    self.stats["queue_wait_ms_peak"] = wait_ms
+                profiling.record("fanlin.batcher.queue", g[6], now, g[7],
+                                 batch=tag.id)
+        return tag, now
 
-    def _make_host_assembly(self, group):
+    def _phase(self, name: str, tag: _BatchTag, t0: int, t1: int, c0: int,
+               c1: int, counted: bool = True, **extra) -> None:
+        """One phase of a batch on this thread, from t0 to t1
+        (perf_counter_ns), its CPU time c0 to c1 (thread_time_ns). When
+        `counted`, its ms are added to stats[name + "_ms_total"] and each
+        of `extra` to its own counter; while a capture runs it is the
+        span `fanlin.batcher.<name>`, `extra` among its args."""
+        if counted:
+            with self._lock:
+                self.stats[name + "_ms_total"] += (t1 - t0) / 1e6
+                for k, v in extra.items():
+                    self.stats[k] += v
+        if profiling.on():
+            args = dict(tag.flags, **extra)
+            profiling.record("fanlin.batcher." + name, t0, t1, batch=tag.id,
+                             n=tag.n, rids=tag.rids, cpu_ms=(c1 - c0) / 1e6,
+                             **args)
+
+    def note_handoff(self, fut: Future, t_ns: int) -> None:
+        """The result of `fut` reached its caller at `t_ns`: the time
+        since the future was resolved is added to `handoff_ms_total`
+        and is the caller's `fanlin.batcher.handoff` span. A future
+        resolved without a stamp (failed, cancelled) is skipped."""
+        stamp = getattr(fut, "fanlin_resolved", None)
+        if stamp is None:
+            return
+        t0, bid = stamp
+        with self._lock:
+            self.stats["handoff_ms_total"] += (t_ns - t0) / 1e6
+        if profiling.on():
+            profiling.record("fanlin.batcher.handoff", t0, t_ns,
+                             profiling.REQUEST_ID.get(), batch=bid)
+
+    def _make_host_assembly(self, group, tag: _BatchTag):
         """The batch staged for the mirror alone: on the CPU, so the
         mirror lane never calls into CUDA (no pinned allocation on a
         card that may be failing)."""
-        return fused.make_assembly([g[0] for g in group],
-                                   [g[1] for g in group],
-                                   [g[3] for g in group], _CPU,
-                                   fast=self.fast)
+        t0, c0 = time.perf_counter_ns(), time.thread_time_ns()
+        asm = fused.make_assembly([g[0] for g in group],
+                                  [g[1] for g in group],
+                                  [g[3] for g in group], _CPU,
+                                  fast=self.fast)
+        asm.fanlin_batch = tag
+        self._phase("stage", tag, t0, time.perf_counter_ns(), c0,
+                    time.thread_time_ns(), counted=False, mirror=True)
+        return asm
 
     def _submit_host(self, group, reason: str) -> None:
         """Mirror-lane submit that cannot kill its caller: if the host
@@ -807,9 +924,9 @@ class MicroBatcher:
             group = self._live_entries(group)
             if not group:
                 return
-            self._count_batch(group)
+            tag, _ = self._count_batch(group)
             futures = [g[2] for g in group]
-            asm = self._make_host_assembly(group)
+            asm = self._make_host_assembly(group, tag)
         except Exception as e:
             for f in futures:
                 _safe_fail(f, e)
@@ -833,14 +950,22 @@ class MicroBatcher:
 
         _logger.warning("host mirror serving a batch of %d (%s)",
                         len(asm.plans), reason)
+        t0, c0 = time.perf_counter_ns(), time.thread_time_ns()
         try:
             results = hostexec.run_host(asm)
         except Exception as e:
             for f in futures:
                 _safe_fail(f, e)
             return
+        t1, c1 = time.perf_counter_ns(), time.thread_time_ns()
+        tag = getattr(asm, "fanlin_batch", None)
         for f, r in zip(futures, results):
-            _safe_result(f, r, mirror=True)
+            _safe_result(f, r, mirror=True, t_ns=t1,
+                         batch=tag.id if tag is not None else None)
+        if tag is not None:
+            # the mirror's run stands in for the card's
+            self._phase("device_wait", tag, t0, t1, c0, c1, counted=False,
+                        mirror=True)
 
     def _device_failed(self, exc: Exception, futures, where: str) -> None:
         """A device call of a served batch raised: fail its futures,
@@ -864,24 +989,31 @@ class MicroBatcher:
             group = self._live_entries(group)
             if not group:
                 return
-            self._count_batch(group)
+            tag, t0 = self._count_batch(group)
+            c0 = time.thread_time_ns()
             futures = [g[2] for g in group]
             with self._lock:
                 wedged = self._wedged
                 if wedged:
                     self.stats["host_fallbacks"] += 1
             if wedged:
-                self._mirror_async(self._make_host_assembly(group), futures,
-                                   "device wedged")
+                self._mirror_async(self._make_host_assembly(group, tag),
+                                   futures, "device wedged")
                 return
             asm = fused.make_assembly([g[0] for g in group],
                                       [g[1] for g in group],
                                       [g[3] for g in group], self.device,
                                       fast=self.fast)
+            asm.fanlin_batch = tag
+            t1, c1 = time.perf_counter_ns(), time.thread_time_ns()
+            self._phase("stage", tag, t0, t1, c0, c1)
             # bound submit-ahead to the pipeline depth; permits held by
             # stuck collects must not block the device thread forever
-            if not self._inflight.acquire(
-                    timeout=self.device_stall_s if self._armed else None):
+            permitted = self._inflight.acquire(
+                timeout=self.device_stall_s if self._armed else None)
+            t2, c2 = time.perf_counter_ns(), time.thread_time_ns()
+            self._phase("permit_wait", tag, t1, t2, c1, c2)
+            if not permitted:
                 with self._lock:
                     self.stats["device_stalls"] += 1
                     self.stats["host_fallbacks"] += 1
@@ -894,10 +1026,12 @@ class MicroBatcher:
             releaser = _PermitOnce(self._inflight)
             if self._armed:
                 watch = self._watch_add(asm, futures, releaser)
-            with self._on_stream():
+            with self._on_stream(), profiling.tally() as counts:
                 out = asm.submit()
-            with self._lock:
-                self.stats["upload_bytes"] += asm.upload_bytes
+            t3 = time.perf_counter_ns()
+            self._phase("submit", tag, t2, t3, c2, time.thread_time_ns(),
+                        upload_bytes=asm.upload_bytes, **counts)
+            tag.t_handed = t3
             self._collector.submit(self._collect_batch, asm, out, futures,
                                    watch, releaser)
         except BaseException as e:
@@ -931,7 +1065,11 @@ class MicroBatcher:
         futures, while the device thread submits the next batch. A
         stalled batch keeps this thread (and the assembly) until the
         device lets the wait return."""
+        tag = asm.fanlin_batch
+        t0, c0 = time.perf_counter_ns(), time.thread_time_ns()
         try:
+            asm.wait()
+            t1, c1 = time.perf_counter_ns(), time.thread_time_ns()
             results = asm.collect(out)
         except Exception as e:
             releaser.release()
@@ -947,8 +1085,15 @@ class MicroBatcher:
             self._watch_done(watch, roundtrip_ok=True)
         if stale:
             return  # mirror-served already; the late result is dropped
+        t2, c2 = time.perf_counter_ns(), time.thread_time_ns()
         for f, r in zip(futures, results):
-            _safe_result(f, r)
+            _safe_result(f, r, t_ns=t2, batch=tag.id)
+        # from the hand-over: the batch may have waited for this thread
+        with self._lock:
+            self.stats["device_wait_ms_total"] += (t1 - tag.t_handed) / 1e6
+        self._phase("device_wait", tag, t0, t1, c0, c1, counted=False,
+                    queued_ms=(t0 - tag.t_handed) / 1e6)
+        self._phase("unpack", tag, t1, t2, c1, c2)
 
     def close(self) -> bool:
         """Drain and shut down: queued groups are dispatched (to the
@@ -1011,7 +1156,10 @@ class BatchingRunner:
             kinds = ["rgb"] * len(plans)
         futures = [self.batcher.submit(p, i, k)
                    for p, i, k in zip(plans, images, kinds)]
-        results = [f.result() for f in futures]
+        results = []
+        for f in futures:
+            results.append(f.result())
+            self.batcher.note_handoff(f, time.perf_counter_ns())
         # sticky per thread, consumed by the engine at the end of the
         # request (a GIF makes several run() calls)
         if any(getattr(f, "fanlin_host_mirror", False) for f in futures):

@@ -85,6 +85,7 @@ import torch
 from ..ops import cmyk_lut, filters, fused, jpeg_decode, plan as plan_mod
 from ..spec import content as content_mod
 from ..spec import query as query_mod
+from ..utils import profiling
 from . import (codecs, icc, jpeg_coeffs, jpeg_encode, native_codecs,
                png_writer, source_cache, svg)
 
@@ -165,8 +166,13 @@ class Engine:
         # the default profile sampled into a device LUT
         # (enable_device_icc); None keeps CMYK on host lcms2
         self.device_cmyk = None
-        # observability: requests served by source kind (/stats)
+        # observability (/stats "engine"): requests served by source
+        # kind; and the requests the gateway handed to a codec thread,
+        # with their summed wait for one (`note_pool_wait`, under
+        # _pool_lock)
         self.stats = {"pixel_src": 0, "coef_src": 0}
+        self.pool_stats = {"requests": 0, "pool_wait_ms_total": 0.0}
+        self._pool_lock = threading.Lock()
         # decoded-source cache (source_cache.SourceCache, wired from
         # tpu.source_cache_mb): hot sources served as several variants
         # pay the host decode once
@@ -258,7 +264,9 @@ class Engine:
         marks: Optional[list] = None,
     ) -> Tuple[str, bytes]:
         """marks, when given, collects (name, duration_ms) sub-stage
-        timings (f_decode / f_device / f_encode) for Server-Timing."""
+        timings (f_decode / f_device / f_encode) for Server-Timing; each
+        stage is also a span of a capture (`fanlin.engine.decode` /
+        `.device` / `.encode`, on this thread, `utils.profiling`)."""
         fmt = codecs.sniff_format(data)
         if fmt is None:
             try:
@@ -273,7 +281,7 @@ class Engine:
             self._mark_cold(marks)
             return result
 
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         orientation = codecs.read_orientation(data)
         meta = converted = None
         scache = self.source_cache
@@ -348,8 +356,8 @@ class Engine:
                 codecs.apply_orientation(img, orientation))
             h, w = img.shape[:2]
             self.stats["pixel_src"] += 1
-        if marks is not None:
-            marks.append(("f_decode", (time.perf_counter() - t0) * 1000.0))
+        self._stage("f_decode", "fanlin.engine.decode", t0,
+                    time.perf_counter_ns(), marks)
 
         plan = plan_mod.plan_image(w, h, params, filters.LANCZOS3,
                                    opaque=not has_alpha)
@@ -379,19 +387,41 @@ class Engine:
                     base += fused.FOLD_SUFFIX
             kind = base if kind == "rgb" else f"{base}+{kind}"
 
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
         out = self.runner.run([plan], [src], [kind])[0]
-        t2 = time.perf_counter()
-        if marks is not None:
-            marks.append(("f_device", (t2 - t1) * 1000.0))
+        t2 = time.perf_counter_ns()
+        self._stage("f_device", "fanlin.engine.device", t1, t2, marks)
         try:
             payload = self._encode(out, out_fmt, params.quality(), mode)
         except codecs.CodecError as e:
             raise ProcessError(str(e)) from e
-        if marks is not None:
-            marks.append(("f_encode", (time.perf_counter() - t2) * 1000.0))
+        self._stage("f_encode", "fanlin.engine.encode", t2,
+                    time.perf_counter_ns(), marks)
         self._mark_cold(marks)
         return (codecs.MIME[out_fmt], payload)
+
+    @staticmethod
+    def _stage(mark: str, span: str, t0_ns: int, t1_ns: int, marks) -> None:
+        """One stage of process_image from one pair of clock reads: its
+        Server-Timing mark (when `marks` is given) and its span."""
+        if marks is not None:
+            marks.append((mark, (t1_ns - t0_ns) / 1e6))
+        if profiling.on():
+            profiling.record(span, t0_ns, t1_ns,
+                             rid=profiling.REQUEST_ID.get())
+
+    def note_pool_wait(self, t_submit_ns: int, t_start_ns: int) -> None:
+        """A request handed to a codec thread at `t_submit_ns` started
+        there at `t_start_ns` (`server.state`): counted in `pool_stats`
+        (`requests`, `pool_wait_ms_total`) and its
+        `fanlin.engine.pool_wait` span."""
+        with self._pool_lock:
+            self.pool_stats["requests"] += 1
+            self.pool_stats["pool_wait_ms_total"] += (t_start_ns
+                                                      - t_submit_ns) / 1e6
+        if profiling.on():
+            profiling.record("fanlin.engine.pool_wait", t_submit_ns,
+                             t_start_ns, profiling.REQUEST_ID.get())
 
     def _sink(self, params, plan, out_fmt: str, mode: str) -> str:
         """The batch kind: which encode front-end runs on the device

@@ -48,6 +48,7 @@ import re
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ..utils.bytelru import ByteLRU
 from . import (cmyk_lut, dct, filters, jpeg_decode, jpeg_decode_kernels,
                resample_kernels)
@@ -203,8 +204,13 @@ def _device_cached(arr, device: torch.device):
         dev = hit[1]
     else:
         # a blocking copy: complete before any stream reads it (batches
-        # of several runners, each on its own stream, share the cache)
-        dev = torch.from_numpy(arr).to(device)
+        # of several runners, each on its own stream, share the cache);
+        # from pageable memory, counted in the batcher's tally
+        with profiling.span("fanlin.assembly.pageable_upload",
+                            bytes=arr.nbytes):
+            dev = torch.from_numpy(arr).to(device)
+        profiling.note("pageable_uploads")
+        profiling.note("pageable_bytes", arr.nbytes)
         _DEVICE_MATRIX_CACHE.put(key, (arr, dev), arr.nbytes)
     if device.type == "cuda":
         # an eviction must not free it under another stream's reads
@@ -430,6 +436,11 @@ class BatchAssembly:
             res = [out[i, :, : p.out_h, : p.out_w].transpose(1, 2, 0).copy()
                    for i, p in enumerate(self.plans)]
         return res
+
+    def wait(self) -> None:
+        """Block until the submitted batch's copies are done (collect()
+        waits too; touches no device tensor)."""
+        self._io.wait()
 
     def run(self):
         return self.collect(self.submit())

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..utils import profiling
 from ..utils.bytelru import ByteLRU
 from . import filters, jpeg_decode
 from .resample_kernels import band_ranges
@@ -192,6 +193,16 @@ def _uniform_entry(plan: ImagePlan):
     hit = _UNIFORM_CACHE.get(key)
     if hit is not None and hit[0] is plan:
         return hit[1:]
+    with profiling.span("fanlin.assembly.rebuild", what="uniform"):
+        value, bands, nbytes = _uniform_build(plan)
+    profiling.note("plan_rebuilds")
+    _UNIFORM_CACHE.put(key, (plan, value, bands), nbytes)
+    return value, bands
+
+
+def _uniform_build(plan: ImagePlan):
+    """A cache miss of _uniform_entry: the padded matrices, their band
+    ranges and their bytes."""
     sh, sw = bucket_h(plan.src_h), bucket_w(plan.src_w)
     oh, ow = bucket_h(plan.out_h), bucket_w(plan.out_w)
     av = np.zeros((oh, sh), dtype=np.float32)
@@ -211,8 +222,7 @@ def _uniform_entry(plan: ImagePlan):
     value = (av, ah, bv, bh)
     bands = band_ranges(*value)
     nbytes = sum(a.nbytes for a in value if a is not None) + bands.nbytes
-    _UNIFORM_CACHE.put(key, (plan, value, bands), nbytes)
-    return value, bands
+    return value, bands, nbytes
 
 
 # The folded matrices (jpeg_decode.folded_matrices) of uniform
@@ -233,10 +243,13 @@ def _folded_padded(plan: ImagePlan, subsamp: int):
     if hit is not None and hit[0] is plan:
         return hit[1]
     av_b, ah, _, _ = _uniform_padded(plan)
-    av = np.zeros((av_b.shape[0], bucket_h16(plan.src_h)), dtype=np.float32)
-    av[:, : av_b.shape[1]] = av_b
-    mats = jpeg_decode.folded_matrices(av, ah, plan.src_h, plan.src_w,
-                                       subsamp)
+    with profiling.span("fanlin.assembly.rebuild", what="folded"):
+        av = np.zeros((av_b.shape[0], bucket_h16(plan.src_h)),
+                      dtype=np.float32)
+        av[:, : av_b.shape[1]] = av_b
+        mats = jpeg_decode.folded_matrices(av, ah, plan.src_h, plan.src_w,
+                                           subsamp)
+    profiling.note("plan_rebuilds")
     nbytes = sum(m.nbytes for m in {id(m): m for m in mats}.values())
     _FOLDED_CACHE.put(key, (plan, mats), nbytes)
     return mats

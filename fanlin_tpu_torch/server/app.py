@@ -21,7 +21,11 @@ request semantics:
   `Cache-Control: no-store`, and never enters the response cache;
 * with ``tpu.profile_dir``, ``GET /profile?seconds=N``: a torch.profiler
   capture of this process into that directory (`make_profile_handler`),
-  exempt from the request timeout.
+  exempt from the request timeout, holding the port's own spans
+  (`utils.profiling`): every request gets an id (`trace_middleware`)
+  that its spans, and the batches that served it, carry;
+* ``GET /stats``: the gateway's, the engine's and the batcher's
+  counters, read as a window with `t_ms` (`stats_handler`).
 
 One device. The engine serves through the micro-batcher
 (`engine.batcher`, `tpu.max_batch`, `batch_window_ms`,
@@ -48,6 +52,7 @@ coefficients, the reference's widest pack level) and, on one device,
 from __future__ import annotations
 
 import asyncio
+import itertools
 import json
 import logging
 import threading
@@ -78,6 +83,11 @@ from .timing import Timer
 log = logging.getLogger("fanlin.server")
 
 STATE_KEY = web.AppKey("state", object)
+# the gateway's counters (/stats "gateway"): the wait at the max_clients
+# semaphore, summed over the requests it admitted
+GATEWAY_STATS_KEY = web.AppKey("gateway_stats", dict)
+# request ids (`profiling.REQUEST_ID`), one per request of the process
+_REQUEST_IDS = itertools.count(1)
 
 CONTENT_TYPE_TEXT_PLAIN = "text/plain; charset=utf-8"
 VARY_ACCEPT = "Accept"
@@ -200,7 +210,10 @@ async def generic_handler(request: web.Request) -> web.Response:
         return await _fallback_or_message(
             state, path, params, accepted, status, "not found"
         )
-    timer.add("f_fetch")
+    t0, t1 = timer.add("f_fetch")
+    if profiling.on():
+        profiling.record("fanlin.origin.fetch", t0, t1,
+                         profiling.REQUEST_ID.get())
     marks: list = []
     try:
         mime, processed = await state.process_image_async(
@@ -250,10 +263,13 @@ def kernel_launches() -> dict:
 
 async def stats_handler(request: web.Request) -> web.Response:
     """Additive observability endpoint (the reference has none):
-    engine and batcher counters, the CUDA kernels' launch counts, cache
-    stats. In a gateway worker the batcher and the kernels live in the
-    device service: their counters come from there (None when it does
-    not answer); the engine and the caches are this worker's."""
+    gateway, engine and batcher counters, the CUDA kernels' launch
+    counts, cache stats, and `t_ms`, this process's monotonic clock at
+    the read in ms: a reader divides the counters' deltas between two
+    reads by its delta. In a gateway worker the batcher and the kernels
+    live in the device service: their counters come from there (None
+    when it does not answer); the gateway, the engine and the caches
+    are this worker's."""
     state: State = request.app[STATE_KEY]
     runner = state.engine.runner
     extra = {}
@@ -269,7 +285,9 @@ async def stats_handler(request: web.Request) -> web.Response:
         launches = kernel_launches()
     scache = state.engine.source_cache
     body = {
-        "engine": dict(state.engine.stats),
+        "t_ms": time.monotonic() * 1e3,
+        "gateway": dict(request.app[GATEWAY_STATS_KEY]),
+        "engine": {**state.engine.stats, **state.engine.pool_stats},
         "batcher": batcher_stats,
         "kernel_launches": launches,
         "caches": {
@@ -284,9 +302,18 @@ async def stats_handler(request: web.Request) -> web.Response:
 
 @web.middleware
 async def trace_middleware(request: web.Request, handler):
-    t0 = time.perf_counter()
+    """The request log line, and the request's id
+    (`profiling.REQUEST_ID`, which every span of the request carries) and
+    its `fanlin.request` span."""
+    t0 = time.perf_counter_ns()
+    rid = next(_REQUEST_IDS)
+    profiling.REQUEST_ID.set(rid)
     response = await handler(request)
-    latency_ms = (time.perf_counter() - t0) * 1000.0
+    t1 = time.perf_counter_ns()
+    if profiling.on():
+        profiling.record("fanlin.request", t0, t1, rid, path=request.path,
+                         status=response.status)
+    latency_ms = (t1 - t0) / 1e6
     log.info(
         "request",
         extra={
@@ -369,28 +396,41 @@ def make_timeout_middleware(timeout: float, profile_route: bool = False):
     return timeout_middleware
 
 
-def make_concurrency_middleware(max_clients: int):
+def make_concurrency_middleware(max_clients: int, stats: dict):
+    """The max_clients cap; the wait for it is added to `stats`
+    (`admit_wait_ms_total`, `requests`) and is the request's
+    `fanlin.gateway.admit` span."""
     semaphore = asyncio.Semaphore(max_clients)
 
     @web.middleware
     async def concurrency_middleware(request: web.Request, handler):
+        t0 = time.perf_counter_ns()
         async with semaphore:  # queues like tower ConcurrencyLimitLayer
+            t1 = time.perf_counter_ns()
+            # the event loop's thread alone: no lock
+            stats["admit_wait_ms_total"] += (t1 - t0) / 1e6
+            stats["requests"] += 1
+            if profiling.on():
+                profiling.record("fanlin.gateway.admit", t0, t1,
+                                 profiling.REQUEST_ID.get())
             return await handler(request)
 
     return concurrency_middleware
 
 
 def create_app(cfg: config_mod.Config, state: State) -> web.Application:
+    gateway_stats = {"admit_wait_ms_total": 0.0, "requests": 0}
     app = web.Application(
         middlewares=[
             trace_middleware,
             make_timeout_middleware(REQUEST_TIMEOUT_SECS,
                                     profile_route=bool(cfg.tpu.profile_dir)),
-            make_concurrency_middleware(cfg.max_clients),
+            make_concurrency_middleware(cfg.max_clients, gateway_stats),
         ],
         client_max_size=1024**3,
     )
     app[STATE_KEY] = state
+    app[GATEWAY_STATS_KEY] = gateway_stats
     app.router.add_route("*", "/ping", ping_handler)
     app.router.add_get("/stats", stats_handler)
     if cfg.tpu.profile_dir:
@@ -462,6 +502,9 @@ async def build_state(cfg: config_mod.Config,
                     fast_decode=cfg.tpu.fast_decode, fast=cfg.tpu.fast)
     if cfg.tpu.source_cache_mb:
         engine.source_cache = SourceCache(cfg.tpu.source_cache_mb)
+    # the codec threads: tpu.codec_threads of them, or with 0 the loop's
+    # default executor (asyncio's: min(32, os.cpu_count() + 4) threads),
+    # which the file origin's reads share
     if cfg.tpu.codec_threads:
         from concurrent.futures import ThreadPoolExecutor
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from typing import Dict, List, Optional, Tuple
 from urllib.parse import urlsplit
 
@@ -26,7 +27,7 @@ from ..engine.icc import CMYK2RGB
 from ..infra import Client
 from ..spec import content as content_mod
 from ..spec import query as query_mod
-from ..utils import paths
+from ..utils import paths, profiling
 from .router import Router
 
 log = logging.getLogger("fanlin.server")
@@ -151,7 +152,22 @@ class State:
 
     async def process_image_async(self, data: bytes, params, accepted,
                                   marks=None):
-        """Run the (blocking, device-bound) engine off the event loop."""
-        return await asyncio.to_thread(
-            self.engine.process_image, data, params, accepted, marks
-        )
+        """Run the (blocking, device-bound) engine off the event loop,
+        on a codec thread. The wait for one is counted by the engine
+        (`Engine.note_pool_wait`: `fanlin.engine.pool_wait`); the way
+        back from it to the loop is the `fanlin.engine.pool_return`
+        span."""
+        out, t_done = await asyncio.to_thread(
+            self._process_on_pool, time.perf_counter_ns(), data, params,
+            accepted, marks)
+        if profiling.on():
+            profiling.record("fanlin.engine.pool_return", t_done,
+                             time.perf_counter_ns(),
+                             profiling.REQUEST_ID.get())
+        return out
+
+    def _process_on_pool(self, t_submit_ns: int, data: bytes, params,
+                         accepted, marks):
+        self.engine.note_pool_wait(t_submit_ns, time.perf_counter_ns())
+        out = self.engine.process_image(data, params, accepted, marks)
+        return out, time.perf_counter_ns()

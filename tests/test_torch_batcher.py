@@ -320,7 +320,8 @@ def test_unset_cancel_event_rides_through():
 def test_backpressure_metrics_track_queue_depth_and_wait():
     """The backlog gauge counts queued entries and returns to zero after
     dispatch; dispatched entries record their submit->dispatch wait,
-    which for a timer flush is about the batch window."""
+    which for a timer flush is about the batch window, and the batch's
+    phases after it are counted too."""
     b = MicroBatcher(max_batch=8, window_ms=30.0, device=CPU)
     try:
         assert b.stats["backlog"] == 0
@@ -334,7 +335,10 @@ def test_backpressure_metrics_track_queue_depth_and_wait():
         assert b.stats["images"] == 3
         mean = b.stats["queue_wait_ms_total"] / b.stats["images"]
         assert mean >= 10.0
-        assert b.stats["queue_wait_ms_peak"] >= mean
+        # one timer-flushed batch of the three: staged and collected once
+        assert b.stats["batches"] == 1
+        assert b.stats["stage_ms_total"] > 0
+        assert b.stats["unpack_ms_total"] > 0
     finally:
         b.close()
 

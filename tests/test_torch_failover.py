@@ -447,7 +447,7 @@ def test_dispatch_survives_executor_shutdown_race():
 
         batcher._device.submit = wedge_then_refuse
         batcher._dispatch([(plan, img, fut, "rgb", None, None,
-                            time.monotonic())])
+                            time.perf_counter_ns(), None)])
         _within_lsb(fut.result(timeout=15.0), expected)
         assert calls == [1] and _mirrored(fut)
         batcher._device.submit = real_submit
@@ -963,7 +963,9 @@ def test_slow_device_keeps_everything_on_device(monkeypatch):
         futs = [batcher.submit(plan, img) for _ in range(4)]
         for f in futs:
             np.testing.assert_array_equal(f.result(timeout=30.0), expected)
-        assert batcher.stats["queue_wait_ms_peak"] > 20
+        # the batches queued behind the slow collects far past 20 ms
+        assert (batcher.stats["queue_wait_ms_total"]
+                / batcher.stats["images"]) > 20
         assert batcher.stats["host_fallbacks"] == 0
         assert not any(_mirrored(f) for f in futs)
     finally:

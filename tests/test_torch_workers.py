@@ -231,7 +231,9 @@ def test_workers_ping_and_stats():
             "jpeg_decode_cmyk": 0, "jpeg_decode_cmyk_rgb": 0,
             "cmyk_lut": 0}  # the CPU runs the plain versions
         # the engine and the caches are the answering worker's own
-        assert set(full["engine"]) == {"pixel_src", "coef_src"}
+        assert set(full["engine"]) == {"pixel_src", "coef_src", "requests",
+                                       "pool_wait_ms_total"}
+        assert full["engine"]["requests"] >= 1
         assert full["caches"]["responses"] is None
         assert full["caches"]["sources"]["max_bytes"] == 8 * 1024 * 1024
     finally:
