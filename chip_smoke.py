@@ -25,7 +25,9 @@ Phases (each failure exits non-zero; nothing is caught):
      synth (4:2:0) at B = 8, 16 and 5 real of B=8, a 12 MP 4:2:0 q90
      JPEG B=2, a 4:2:2 JPEG B=4, 4:4:0 and gray batches from seeded
      coefficient grids, the crafted out-of-range grid, and odd true dims
-     (641x479, 7x5) in 4:2:0, 4:2:2 and 4:4:0; at lenna B=1 and B=8,
+     (641x479, 7x5) in 4:2:0, 4:2:2 and 4:4:0; each batch again from
+     pooled wire slots (unzeroed device wire): 0 differing decode bytes
+     and the same served images; at lenna B=1 and B=8,
      synth B=16 and 12 MP B=2 its CUDA event ms over many launches,
      device ms from torch.profiler, host enqueue ms over 50 calls without
      a synchronize and plain ms, the bytes and int32 operations each
@@ -842,6 +844,22 @@ def phase2b(dev: torch.device) -> dict:
               f"{3 * asm.sh * asm.sw} B/img", flush=True)
         check(fused_diff[0] == 0,
               f"{name}: jpeg_decode_rgb differs from its plain version")
+        # the same images staged into wire slots, as a codec thread stages
+        # them: the batch uploads its real images alone into an unzeroed
+        # wire, and must decode and serve them as the zeroed wire does
+        pool = fused.WireSlotPool(dev, per_geometry=images)
+        slots = [pool.stage(meta) for _ in range(images)]
+        check(all(s is not None for s in slots), f"{name}: no wire slot")
+        sasm = fused.CoefBatchAssembly([plan] * images, slots, dev)
+        slot_diff = _bytes_differing(
+            jk.jpeg_decode_rgb(*sasm.device_wire(), *dec)[:images],
+            rgb[:images])
+        served = all(np.array_equal(a, b)
+                     for a, b in zip(sasm.run(), asm.run()))
+        print(f"phase2b {name} slot wire: decode bytes differing "
+              f"{slot_diff[0]}, served images equal {served}", flush=True)
+        check(slot_diff[0] == 0 and served,
+              f"{name}: a slot batch differs from the zeroed wire's")
         res = {"err": fused_diff[1]}
         if timed:
             big = kind == "12mp"

@@ -21,6 +21,15 @@ the batcher
   downloads, an event), and a collect thread waits on the event and
   hands out the results, while the device thread submits the next
   batch; at most ``pipeline_depth`` batches sit between the halves;
+* lets the thread that submits a coefficient image stage its wire
+  first (`prestage`), into a pinned slot of a pool sized from the
+  codec threads and the pipeline (``codec_threads`` + ``pipeline_depth``
+  × ``max_batch`` slots a source geometry), so the device thread only
+  enqueues that image's upload; the collect thread hands the slot back
+  once the batch's event has fired (a stalled or mirrored batch's
+  slots are forgotten instead: its upload or the mirror may still read
+  them). An image that finds no free slot is staged on the device
+  thread as before;
 * sheds entries whose request was abandoned (the gateway's cancel
   event) or whose deadline passed, before any staging or device work;
 * optionally caps each group's queue (``max_queue``), rejecting at
@@ -78,6 +87,9 @@ a lock):
 
 * `fanlin.batcher.queue`, per entry, from `submit` to the device thread
   taking its batch (`queue_wait_ms_total`, per image);
+* `fanlin.assembly.prestage`, per image, on the codec thread before it
+  submits: a coefficient image's wire staged into a pooled slot
+  (`prestage`; counted in `prestaged` when its batch is taken);
 * on the device thread `fanlin.batcher.stage` (`fused.make_assembly`),
   `.permit_wait` (a pipeline permit) and `.submit` (`asm.submit()`,
   with its plan rebuilds and pageable uploads, `pageable_bytes`,
@@ -283,12 +295,16 @@ class MicroBatcher:
     def __init__(self, max_batch: int, window_ms: float,
                  device: torch.device, pipeline_depth: int = 2,
                  max_queue: int = 0, fast: bool = False,
-                 host_fallback: bool = False, device_stall_s: float = 30.0):
+                 host_fallback: bool = False, device_stall_s: float = 30.0,
+                 codec_threads: int = 0):
         """device: where batches run. pipeline_depth: batches allowed
         between submit and collect. max_queue: per-group cap on admitted
         entries not yet picked up by the device thread (0 = unlimited).
         fast: every batch's resample products in bf16 (`tpu.fast`), the
-        warmup's too.
+        warmup's too. codec_threads: the threads that stage and submit
+        images (`tpu.codec_threads`; 0 = asyncio's default pool,
+        min(32, cores + 4)): with the images a full pipeline holds, the
+        wire slots a source geometry may take (`prestage`).
 
         host_fallback: arm the failover lane (`tpu.host_fallback`);
         without it nothing is watched and a stalled batch waits for the
@@ -330,6 +346,10 @@ class MicroBatcher:
             thread_name_prefix="fanlin-hostexec")
         self.pipeline_depth = max(int(pipeline_depth), 1)
         self._inflight = threading.BoundedSemaphore(self.pipeline_depth)
+        codec_threads = int(codec_threads) or min(32,
+                                                   (os.cpu_count() or 1) + 4)
+        self._slots = fused.WireSlotPool(
+            device, codec_threads + self.pipeline_depth * max_batch)
         self._closed = False
         # failover state, guarded by self._lock
         self._wedged = False
@@ -349,7 +369,11 @@ class MicroBatcher:
         # batch ids of the spans, warm and mirror batches included
         self._batch_ids = itertools.count(1)
         # observability counters (the gateway's /stats)
-        self.stats = {"batches": 0, "images": 0, "full_flushes": 0,
+        self.stats = {"batches": 0, "images": 0,
+                      # images whose wire a codec thread staged
+                      # (`prestage`); the rest the device thread stages
+                      "prestaged": 0,
+                      "full_flushes": 0,
                       "timer_flushes": 0, "queued_joins": 0,
                       "shed_expired": 0,
                       "shed_cancelled": 0, "rejected_overload": 0,
@@ -437,9 +461,51 @@ class MicroBatcher:
 
     # -- submission --------------------------------------------------------
 
+    def prestage(self, meta):
+        """Stage a plain (3-component) coefficient meta's wire into a
+        pooled slot on the calling thread (a codec thread, before it
+        submits the image): the `fused.WireSlot` to submit in the meta's
+        place, or None when no slot of its geometry is free (the device
+        thread then stages it). While a capture runs, a staged image is
+        the span `fanlin.assembly.prestage` of its request."""
+        t0 = time.perf_counter_ns()
+        slot = self._slots.stage(meta)
+        if slot is not None and profiling.on():
+            profiling.record("fanlin.assembly.prestage", t0,
+                             time.perf_counter_ns(),
+                             profiling.REQUEST_ID.get(), bytes=slot.nbytes)
+        return slot
+
+    def unstage(self, slot) -> None:
+        """Hand back a slot from `prestage` that was never submitted."""
+        self._slots.release([slot])
+
+    def _unstage_entries(self, group) -> None:
+        """Hand back the slots of entries no batch uploaded."""
+        self._slots.release([g[1] for g in group
+                             if isinstance(g[1], fused.WireSlot)])
+
+    def _take_slots(self, asm) -> list:
+        """The pool's slots an assembly holds, taken from it once (the
+        collect thread and the watchdog may both try)."""
+        with self._lock:
+            slots = getattr(asm, "slots", None) or []
+            if slots:
+                asm.slots = []
+        return slots
+
     def submit(self, plan: ImagePlan, image, kind: str = "rgb") -> Future:
-        """Queue one image (pixels, or a coefficient dict for coef*
-        kinds); the future resolves to its result."""
+        """Queue one image (pixels, or a coefficient dict or its
+        `prestage` slot for coef* kinds); the future resolves to its
+        result. A slot refused admission is handed back."""
+        try:
+            return self._submit(plan, image, kind)
+        except BaseException:
+            if isinstance(image, fused.WireSlot):
+                self.unstage(image)
+            raise
+
+    def _submit(self, plan: ImagePlan, image, kind: str) -> Future:
         key = _group_key(plan, kind)
         fut: Future = Future()
         req_deadline = REQUEST_DEADLINE.get()
@@ -504,6 +570,7 @@ class MicroBatcher:
                 return
             with self._lock:
                 self._claim(group)
+            self._unstage_entries(group)
             for entry in group:
                 _safe_fail(entry[2], e)
             return
@@ -744,8 +811,10 @@ class MicroBatcher:
                             f"warmup batch stalled > {self.device_stall_s} s"))
                     continue
                 # the stuck call holds a pipeline permit: free it for the
-                # fresh pipeline (its own release becomes a no-op)
+                # fresh pipeline (its own release becomes a no-op); its
+                # upload may still read its slots, and the mirror will
                 watch.releaser.release()
+                self._slots.discard(self._take_slots(watch.asm))
                 with self._lock:
                     self.stats["host_fallbacks"] += 1
                 self._mirror_async(watch.asm, watch.futures, "device stall")
@@ -817,22 +886,26 @@ class MicroBatcher:
         the gateway's cancel event fired, fail it when its deadline
         passed. Neither pays staging or device time."""
         now = time.monotonic()
-        live = []
+        live, dead = [], []
         cancelled = expired = 0
         for entry in group:
             fut, req_deadline, cancel_ev = entry[2], entry[4], entry[5]
             if fut.cancelled():
+                dead.append(entry)
                 continue
             if cancel_ev is not None and cancel_ev.is_set():
                 cancelled += 1
                 fut.cancel()
+                dead.append(entry)
                 continue
             if req_deadline is not None and req_deadline <= now:
                 expired += 1
                 _safe_fail(fut, RequestExpired(
                     "request deadline passed before device dispatch"))
+                dead.append(entry)
                 continue
             live.append(entry)
+        self._unstage_entries(dead)
         if cancelled or expired:
             with self._lock:
                 self.stats["shed_cancelled"] += cancelled
@@ -846,9 +919,11 @@ class MicroBatcher:
         now = time.perf_counter_ns()
         tag = _BatchTag(next(self._batch_ids), [g[7] for g in group],
                         len(group))
+        prestaged = sum(isinstance(g[1], fused.WireSlot) for g in group)
         with self._lock:
             self.stats["batches"] += 1
             self.stats["images"] += len(group)
+            self.stats["prestaged"] += prestaged
             self.stats["queue_wait_ms_total"] += sum(
                 now - g[6] for g in group) / 1e6
         if profiling.on():
@@ -893,12 +968,17 @@ class MicroBatcher:
     def _make_host_assembly(self, group, tag: _BatchTag):
         """The batch staged for the mirror alone: on the CPU, so the
         mirror lane never calls into CUDA (no pinned allocation on a
-        card that may be failing)."""
+        card that may be failing). It stages from the metas; the entries'
+        slots go back unread."""
         t0, c0 = time.perf_counter_ns(), time.thread_time_ns()
-        asm = fused.make_assembly([g[0] for g in group],
-                                  [g[1] for g in group],
-                                  [g[3] for g in group], _CPU,
-                                  fast=self.fast)
+        try:
+            asm = fused.make_assembly(
+                [g[0] for g in group],
+                [g[1].meta if isinstance(g[1], fused.WireSlot) else g[1]
+                 for g in group],
+                [g[3] for g in group], _CPU, fast=self.fast)
+        finally:
+            self._unstage_entries(group)
         asm.fanlin_batch = tag
         self._phase("stage", tag, t0, time.perf_counter_ns(), c0,
                     time.thread_time_ns(), counted=False, mirror=True)
@@ -912,6 +992,7 @@ class MicroBatcher:
         except RuntimeError:
             with self._lock:
                 self._claim(group)
+            self._unstage_entries(group)
             for entry in group:
                 _safe_fail(entry[2], RuntimeError("batcher closed"))
 
@@ -1021,6 +1102,7 @@ class MicroBatcher:
                 _logger.error("pipeline permits held > %.1f s (collects not "
                               "returning); serving from the host mirror",
                               self.device_stall_s)
+                self._slots.discard(self._take_slots(asm))
                 self._mirror_async(asm, futures, "device stall")
                 return
             releaser = _PermitOnce(self._inflight)
@@ -1041,6 +1123,11 @@ class MicroBatcher:
                 self._watch_done(watch, roundtrip_ok=False)
             if releaser is not None:
                 releaser.release()
+            if asm is None:
+                self._unstage_entries(group)
+            else:
+                # its upload may have started; the mirror may read them
+                self._slots.discard(self._take_slots(asm))
             if watch is not None and watch.stale and isinstance(e, Exception):
                 return  # the watchdog served it already
             if isinstance(e, Exception) and asm is not None:
@@ -1077,14 +1164,17 @@ class MicroBatcher:
                 self._watch_done(watch, roundtrip_ok=False)
                 if watch.stale:
                     return  # the watchdog served it already
+            self._slots.discard(self._take_slots(asm))
             self._device_failed(e, futures, "collect")
             return
         releaser.release()
-        stale = watch is not None and watch.stale
         if watch is not None:
+            # unwatched from here on, so `stale` is final
             self._watch_done(watch, roundtrip_ok=True)
-        if stale:
+        if watch is not None and watch.stale:
             return  # mirror-served already; the late result is dropped
+        # the batch's event has fired: its upload has read its slots
+        self._slots.release(self._take_slots(asm))
         t2, c2 = time.perf_counter_ns(), time.thread_time_ns()
         for f, r in zip(futures, results):
             _safe_result(f, r, t_ns=t2, batch=tag.id)
@@ -1165,6 +1255,13 @@ class BatchingRunner:
         if any(getattr(f, "fanlin_host_mirror", False) for f in futures):
             self._tls.host_mirror = True
         return results
+
+    def prestage(self, meta):
+        """`MicroBatcher.prestage`, on the calling thread."""
+        return self.batcher.prestage(meta)
+
+    def unstage(self, slot) -> None:
+        self.batcher.unstage(slot)
 
     def consume_host_mirror_flag(self) -> bool:
         """True when a run() on this thread since the last consume was

@@ -266,7 +266,10 @@ class Engine:
         """marks, when given, collects (name, duration_ms) sub-stage
         timings (f_decode / f_device / f_encode) for Server-Timing; each
         stage is also a span of a capture (`fanlin.engine.decode` /
-        `.device` / `.encode`, on this thread, `utils.profiling`)."""
+        `.device` / `.encode`, on this thread, `utils.profiling`).
+        f_decode ends once a plain coefficient source's wire is staged
+        for the device, where the runner keeps slots for it
+        (`BatchingRunner.prestage`)."""
         fmt = codecs.sniff_format(data)
         if fmt is None:
             try:
@@ -356,9 +359,41 @@ class Engine:
                 codecs.apply_orientation(img, orientation))
             h, w = img.shape[:2]
             self.stats["pixel_src"] += 1
+        # a plain coefficient source's wire staged here, on this thread
+        # (inside f_decode), where the runner keeps slots for it
+        prestage = getattr(self.runner, "prestage", None)
+        staged = (prestage(meta) if prestage is not None and meta is not None
+                  and not meta.get("cmyk") else None)
         self._stage("f_decode", "fanlin.engine.decode", t0,
                     time.perf_counter_ns(), marks)
+        try:
+            plan, kind, out_fmt, mode = self._route(
+                params, accepted, fmt, w, h, has_alpha, is_gray, meta)
+        except BaseException:
+            if staged is not None:
+                self.runner.unstage(staged)
+            raise
+        if staged is not None:
+            src = staged
+        else:
+            src = img if meta is None else meta
 
+        t1 = time.perf_counter_ns()
+        out = self.runner.run([plan], [src], [kind])[0]
+        t2 = time.perf_counter_ns()
+        self._stage("f_device", "fanlin.engine.device", t1, t2, marks)
+        try:
+            payload = self._encode(out, out_fmt, params.quality(), mode)
+        except codecs.CodecError as e:
+            raise ProcessError(str(e)) from e
+        self._stage("f_encode", "fanlin.engine.encode", t2,
+                    time.perf_counter_ns(), marks)
+        self._mark_cold(marks)
+        return (codecs.MIME[out_fmt], payload)
+
+    def _route(self, params, accepted, fmt, w, h, has_alpha, is_gray, meta):
+        """The plan, the batch kind, the output format and mode of a
+        decoded source (`meta`: its coefficient meta, None for pixels)."""
         plan = plan_mod.plan_image(w, h, params, filters.LANCZOS3,
                                    opaque=not has_alpha)
         mode = self._output_mode(params, plan, has_alpha, is_gray)
@@ -368,10 +403,7 @@ class Engine:
         elif params.use_avif() and accepted.avif_accepted():
             out_fmt = codecs.AVIF
         kind = self._sink(params, plan, out_fmt, mode)
-        if meta is None:
-            src = img
-        else:
-            src = meta
+        if meta is not None:
             if meta.get("cmyk"):
                 # plain CMYK and YCCK never share a batch, nor do two
                 # profiles' LUTs
@@ -386,19 +418,7 @@ class Engine:
                 if self.fast_decode and not (plan.gray or plan.invert):
                     base += fused.FOLD_SUFFIX
             kind = base if kind == "rgb" else f"{base}+{kind}"
-
-        t1 = time.perf_counter_ns()
-        out = self.runner.run([plan], [src], [kind])[0]
-        t2 = time.perf_counter_ns()
-        self._stage("f_device", "fanlin.engine.device", t1, t2, marks)
-        try:
-            payload = self._encode(out, out_fmt, params.quality(), mode)
-        except codecs.CodecError as e:
-            raise ProcessError(str(e)) from e
-        self._stage("f_encode", "fanlin.engine.encode", t2,
-                    time.perf_counter_ns(), marks)
-        self._mark_cold(marks)
-        return (codecs.MIME[out_fmt], payload)
+        return plan, kind, out_fmt, mode
 
     @staticmethod
     def _stage(mark: str, span: str, t0_ns: int, t1_ns: int, marks) -> None:

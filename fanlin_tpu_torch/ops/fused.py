@@ -16,7 +16,11 @@ the downloads as non-blocking work on the caller's current stream,
 then records an event; `collect()` only waits on that event and copies
 each image's result out of the pinned buffers, so the batcher's collect
 thread never touches a device tensor. On the CPU (tests) the same code
-runs on plain host arrays with no event.
+runs on plain host arrays with no event. A coefficient image may arrive
+staged already, in a pooled pinned `WireSlot` that the thread which
+read it filled (`WireSlotPool`); a batch of such slots uploads its real
+images' slots alone. The padded matrices of a uniform batch's plan stay
+on the device, keyed by the plan's content (`_uniform_device`).
 
 Routing: a coefficient batch is decoded on the device by the decode
 kernel (`jpeg_decode_kernels.jpeg_decode_rgb`), which writes the same
@@ -44,6 +48,9 @@ from __future__ import annotations
 
 import copy
 import re
+import threading
+from collections import OrderedDict
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -54,9 +61,8 @@ from . import (cmyk_lut, dct, filters, jpeg_decode, jpeg_decode_kernels,
                resample_kernels)
 from .chain import (_post_resample, _transform_kernel,
                     _transform_kernel_uniform)
-from .plan import (_folded_padded, _pack_params, _uniform_bands,
-                   _uniform_padded, bucket_b, bucket_h, bucket_h16,
-                   bucket_w, plan_image)
+from .plan import (_folded_padded, _pack_params, _uniform_entry, bucket_b,
+                   bucket_h, bucket_h16, bucket_w, plan_image, uniform_key)
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -189,9 +195,27 @@ def _tail(out, c_out: int, sink):
     return out[:, :c_out]
 
 
-# Device copies of the shared (uniform) matrices, keyed by the host
-# array's identity (the array is kept in the value so a live id cannot
-# collide).
+def _upload_pageable(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A blocking copy of a host array to the device: complete before any
+    stream reads it (batches of several runners, each on its own stream,
+    share the caches); from pageable memory, counted in the batcher's
+    tally."""
+    with profiling.span("fanlin.assembly.pageable_upload", bytes=arr.nbytes):
+        dev = torch.from_numpy(arr).to(device)
+    profiling.note("pageable_uploads")
+    profiling.note("pageable_bytes", arr.nbytes)
+    return dev
+
+
+def _keep_for_stream(dev: torch.Tensor, device: torch.device) -> None:
+    if device.type == "cuda":
+        # an eviction must not free it under another stream's reads
+        dev.record_stream(torch.cuda.current_stream(device))
+
+
+# Device copies of the folded matrices and packed LUTs, keyed by the
+# host array's identity (the array is kept in the value so a live id
+# cannot collide).
 _DEVICE_MATRIX_CACHE = ByteLRU(max_bytes=256 * 1024 * 1024)
 
 
@@ -203,19 +227,40 @@ def _device_cached(arr, device: torch.device):
     if hit is not None and hit[0] is arr:
         dev = hit[1]
     else:
-        # a blocking copy: complete before any stream reads it (batches
-        # of several runners, each on its own stream, share the cache);
-        # from pageable memory, counted in the batcher's tally
-        with profiling.span("fanlin.assembly.pageable_upload",
-                            bytes=arr.nbytes):
-            dev = torch.from_numpy(arr).to(device)
-        profiling.note("pageable_uploads")
-        profiling.note("pageable_bytes", arr.nbytes)
+        dev = _upload_pageable(arr, device)
         _DEVICE_MATRIX_CACHE.put(key, (arr, dev), arr.nbytes)
-    if device.type == "cuda":
-        # an eviction must not free it under another stream's reads
-        dev.record_stream(torch.cuda.current_stream(device))
+    _keep_for_stream(dev, device)
     return dev
+
+
+# The padded matrices of uniform batches (plan._uniform_padded and their
+# band ranges) resident on the device, keyed by the plan's content
+# (`plan.uniform_key`), so a plan object rebuilt with equal content, or
+# evicted from the host caches, finds its copy still there. The budget
+# holds the warmed plans of any configuration with room to spare: the
+# five camera srcset plans (4032x3024 -> 640..1200) take 119.5 MiB of
+# an 80 GB card.
+_RESIDENT = ByteLRU(max_bytes=1024 * 1024 * 1024)
+
+
+def _uniform_device(plan, device: torch.device):
+    """(av, ah, bv, bh, bands) of a uniform batch's plan on `device` (bv,
+    bh None without blur). A miss builds the host matrices (counted as a
+    plan rebuild when the host cache misses too) and uploads each once
+    from pageable memory."""
+    key = (uniform_key(plan), str(device))
+    mats = _RESIDENT.get(key)
+    if mats is None:
+        value, bands = _uniform_entry(plan)
+        host = (*value, bands)
+        mats = tuple(None if a is None else _upload_pageable(a, device)
+                     for a in host)
+        _RESIDENT.put(key, mats,
+                      sum(a.nbytes for a in host if a is not None))
+    for m in mats:
+        if m is not None:
+            _keep_for_stream(m, device)
+    return mats
 
 
 # The packed form (cmyk_lut.pack_lut) of each f32 LUT array the metas and
@@ -371,6 +416,11 @@ class BatchAssembly:
         """Host->device bytes of the pixel wire."""
         return self.x.nbytes
 
+    def uniform_matrices(self):
+        """(av, ah, bv, bh, bands) of a uniform batch's plan on the device
+        (`_uniform_device`)."""
+        return _uniform_device(self.plans[0], self.device)
+
     def _device_x(self):
         """The (B, c_in, sh, sw) u8 source batch on the device."""
         return self._io.upload(self.x)
@@ -385,14 +435,11 @@ class BatchAssembly:
                             for a in (self.flags, self.fill, self.box))
         p0 = self.plans[0]
         if self.uniform:
-            av, ah, bv, bh = (_device_cached(a, dev)
-                              for a in _uniform_padded(p0))
+            av, ah, bv, bh, bands = self.uniform_matrices()
             if self.uses_kernel():
                 out = resample_kernels.resample_uniform(
                     flags, fill, box, av, ah, x, bv, bh,
-                    crop=(p0.out_h, p0.out_w),
-                    bands=_device_cached(_uniform_bands(p0), dev),
-                    fast=self.fast,
+                    crop=(p0.out_h, p0.out_w), bands=bands, fast=self.fast,
                 )
             else:
                 out = _transform_kernel_uniform(x, av, ah, flags, fill, box,
@@ -456,6 +503,201 @@ class BatchAssembly:
         return twin
 
 
+def _wire_shapes(h: int, w: int, subsamp: int, planes) -> list:
+    """(rows, cols) of each plane's block grid in a coefficient wire: the
+    bucket's block grid (luma bucket_h16 / 8 by bucket_w / 8, chroma
+    divided by chroma_divisors; a CMYK K plane at luma's)."""
+    dv, dh = jpeg_decode.chroma_divisors(subsamp)
+    gh, sw = bucket_h16(h), bucket_w(w)
+    luma = (gh // 8, sw // 8)
+    chroma = (gh // (8 * dv), sw // (8 * dh))
+    return [chroma if key in ("cb", "cr") else luma for key in planes]
+
+
+_Q_BYTES = 2 * 64 * 4  # an image's quant tables: (2, 64) int32
+
+
+class WireSlot:
+    """One image's share of a coefficient wire in one host buffer (pinned
+    on CUDA, from torch's caching host allocator): each plane of
+    CoefBatchAssembly.PLANES at the bucket's block grid, then the quant
+    tables (luma, chroma). The buffer is zeroed once, when it is made;
+    `fill` writes the meta's true grids only, whose shapes are part of
+    the slot's geometry (`wire_geometry`), so what lies past them stays
+    zero through every reuse."""
+
+    PLANES = ("y", "cb", "cr")  # the meta's block grids, in wire order
+
+    def __init__(self, geometry: tuple, pinned: bool):
+        subsamp, h, w, _ = geometry
+        self.geometry = geometry
+        shapes = _wire_shapes(h, w, subsamp, self.PLANES)
+        sizes = [r * c * 64 * 2 for r, c in shapes]
+        self.buf = torch.zeros(sum(sizes) + _Q_BYTES, dtype=torch.uint8,
+                               pin_memory=pinned)
+        arr = self.buf.numpy()
+        words = self.buf.view(torch.int16)
+        # each plane as a numpy grid and as flat int16 words (what the
+        # upload copies), then the tables' words
+        self.grids, self.planes = [], []
+        at = 0
+        for (r, c), n in zip(shapes, sizes):
+            self.grids.append(arr[at:at + n].view(np.int16).reshape(r, c, 64))
+            self.planes.append(words[at // 2:(at + n) // 2])
+            at += n
+        self.q = arr[at:].view(np.int32).reshape(2, 64)
+        self.q_words = words[at // 2:]
+        self.meta = None
+        # a pool's slot is "out" (staged, in a batch) or "free"; a slot
+        # the pool forgot, or never made, is "gone"
+        self.state = "gone"
+
+    @property
+    def nbytes(self) -> int:
+        return self.buf.numel()
+
+    def fill(self, meta) -> "WireSlot":
+        """Copy the meta's grids and quant tables in; returns self."""
+        for grid, key in zip(self.grids, self.PLANES):
+            g = meta[key]
+            grid[: g.shape[0], : g.shape[1]] = g
+        self.q[0] = meta["lq"]
+        self.q[1] = meta["cq"]
+        self.meta = meta
+        return self
+
+
+def wire_geometry(meta) -> tuple:
+    """A plain (3-component) read_jpeg_coeffs meta's slot geometry:
+    (subsamp, h, w, the true (rows, cols) of each plane)."""
+    return (meta["subsamp"], meta["h"], meta["w"],
+            tuple(meta[k].shape[:2] for k in WireSlot.PLANES))
+
+
+class _Shelf:
+    """A WireSlotPool's slots of one geometry."""
+
+    __slots__ = ("free", "made", "size")
+
+    def __init__(self, size: int):
+        self.free: List[WireSlot] = []
+        self.made = 0  # slots alive, free or out
+        self.size = size  # one slot's pinned bytes
+
+
+class WireSlotPool:
+    """Reusable WireSlots, a free list per geometry, for the threads that
+    stage images before they reach a batch (the micro-batcher's codec
+    threads). A slot is made on demand, at most `per_geometry` of one
+    geometry and `max_bytes` in all; to make room for a new one, free
+    slots of the geometries used least recently are dropped. `stage`
+    gives None when no slot can be had: the image is then staged on the
+    device thread. A slot goes back with `release` only once nothing
+    reads it any more (the upload of its batch has finished); `discard`
+    forgets one that something may still read (a stalled batch, the
+    mirror), which frees it when its last holder drops it. A geometry
+    with no slot alive is forgotten too, so sources of many sizes leave
+    no records behind."""
+
+    def __init__(self, device: torch.device, per_geometry: int,
+                 max_bytes: int = 2 * 1024 ** 3):
+        self.pinned = device.type == "cuda"
+        self.per_geometry = int(per_geometry)
+        self.max_bytes = int(max_bytes)
+        self.bytes = 0
+        self._lock = threading.Lock()
+        # geometry -> its shelf, least recently used first
+        self._shelves: "OrderedDict[tuple, _Shelf]" = OrderedDict()
+
+    def _slot_bytes(self, geometry) -> int:
+        """The memory one slot of `geometry` takes: its bytes, and on CUDA
+        the power of two above them, the block torch's caching host
+        allocator hands out for them."""
+        subsamp, h, w, _ = geometry
+        size = _Q_BYTES + sum(r * c * 128 for r, c in _wire_shapes(
+            h, w, subsamp, WireSlot.PLANES))
+        return 1 << (size - 1).bit_length() if self.pinned else size
+
+    def _acquire(self, geometry) -> Optional[WireSlot]:
+        with self._lock:
+            shelf = self._shelves.get(geometry)
+            if shelf is None:
+                shelf = self._shelves[geometry] = _Shelf(
+                    self._slot_bytes(geometry))
+            self._shelves.move_to_end(geometry)
+            if shelf.free:
+                slot = shelf.free.pop()
+                slot.state = "out"
+                return slot
+            if shelf.made >= self.per_geometry:
+                self._drop_if_empty(geometry)
+                return None
+            while self.bytes + shelf.size > self.max_bytes:
+                old = next((g for g, f in self._shelves.items() if f.free),
+                           None)
+                if old is None:
+                    self._drop_if_empty(geometry)
+                    return None
+                self._shelves[old].free.pop().state = "gone"
+                self._forget(old)
+            shelf.made += 1
+            self.bytes += shelf.size
+        try:
+            slot = WireSlot(geometry, self.pinned)
+        except RuntimeError:  # no pinned memory to be had
+            with self._lock:
+                self._forget(geometry)
+            return None
+        slot.state = "out"
+        return slot
+
+    def _forget(self, geometry) -> None:
+        shelf = self._shelves[geometry]
+        shelf.made -= 1
+        self.bytes -= shelf.size
+        self._drop_if_empty(geometry)
+
+    def _drop_if_empty(self, geometry) -> None:
+        if self._shelves[geometry].made == 0:
+            del self._shelves[geometry]
+
+    def stage(self, meta) -> Optional[WireSlot]:
+        """A free slot of the meta's geometry with the meta copied in, or
+        None (also where a grid does not fit the bucket's: the device
+        thread's staging then raises as before)."""
+        geometry = wire_geometry(meta)
+        subsamp, h, w, grids = geometry
+        shapes = _wire_shapes(h, w, subsamp, WireSlot.PLANES)
+        if any(g[0] > r or g[1] > c for g, (r, c) in zip(grids, shapes)):
+            return None
+        slot = self._acquire(geometry)
+        if slot is None:
+            return None
+        try:
+            return slot.fill(meta)
+        except BaseException:
+            self.release([slot])
+            raise
+
+    def release(self, slots) -> None:
+        """Hand slots back for reuse: nothing reads them any more. A slot
+        not out of the pool is left alone."""
+        with self._lock:
+            for slot in slots:
+                if slot.state == "out":
+                    slot.state, slot.meta = "free", None
+                    self._shelves[slot.geometry].free.append(slot)
+
+    def discard(self, slots) -> None:
+        """Forget slots that something may still read (each out of the
+        pool; others are left alone)."""
+        with self._lock:
+            for slot in slots:
+                if slot.state == "out":
+                    slot.state = "gone"
+                    self._forget(slot.geometry)
+
+
 class CoefBatchAssembly(BatchAssembly):
     """Host staging for one device batch of JPEG coefficient sources:
     the host half of fanlin_tpu/ops/fused.py CoefBatchAssembly
@@ -469,18 +711,27 @@ class CoefBatchAssembly(BatchAssembly):
     buffer, and the quant tables as (B, 2, 64) int32. The kernel reads
     only the blocks of the true rect of the batch's real images."""
 
-    PLANES = ("y", "cb", "cr")  # the meta's block grids, in wire order
+    PLANES = WireSlot.PLANES  # the meta's block grids, in wire order
 
-    def __init__(self, plans, metas, device: torch.device, jpeg420=False,
+    def __init__(self, plans, payloads, device: torch.device, jpeg420=False,
                  fold=False, fast=False):
-        """metas: read_jpeg_coeffs dicts (either package's), all of one
-        (w, h) and subsamp. jpeg420: as for BatchAssembly. fold: take the
-        folded decode-resize (`tpu.fast_decode`) where the batch allows
-        it: uniform, with no grayscale or invert, which need the decoded
-        pixels (the gate of fanlin_tpu/ops/fused.py:1737-1744). fast: as
-        for BatchAssembly, K11's AC pairs included."""
-        if len(plans) != len(metas) or not plans:
+        """payloads: read_jpeg_coeffs dicts (either package's), all of one
+        (w, h) and subsamp, or WireSlots staged from such dicts
+        (`WireSlotPool.stage`). jpeg420: as for BatchAssembly. fold: take
+        the folded decode-resize (`tpu.fast_decode`) where the batch
+        allows it: uniform, with no grayscale or invert, which need the
+        decoded pixels (the gate of fanlin_tpu/ops/fused.py:1737-1744).
+        fast: as for BatchAssembly, K11's AC pairs included.
+
+        With no WireSlot among the payloads the wire is staged here, as
+        one zeroed buffer of the bucket's layout. With one or more, the
+        batch uploads its real images' slots alone (`device_wire`), each
+        dict among the payloads staged here into a slot of its own; the
+        pool's slots are listed in `slots`, for their owner to hand back
+        once the batch's upload has finished."""
+        if len(plans) != len(payloads) or not plans:
             raise ValueError("one plan per source, at least one source")
+        metas = [p.meta if isinstance(p, WireSlot) else p for p in payloads]
         m0 = metas[0]
         self.true_h, self.true_w, self.subsamp = m0["h"], m0["w"], m0["subsamp"]
         if any((m["h"], m["w"], m["subsamp"]) !=
@@ -509,19 +760,29 @@ class CoefBatchAssembly(BatchAssembly):
         self.c_in = 3
         self.fold = bool(fold) and self.uniform and not (p0.gray or
                                                          p0.invert)
+        self._shapes = _wire_shapes(self.true_h, self.true_w, self.subsamp,
+                                    self.PLANES)
+        self.slots: List[WireSlot] = [p for p in payloads
+                                      if isinstance(p, WireSlot)]
+        self._wires = None
+        if self.slots:
+            self._stage_slots(payloads)
+        else:
+            self._stage_wire(metas)
+        (self.flags, self.fill, self.box,
+         self.av, self.ah, self.bv, self.bh) = _pack_params(
+            plans, self.b, self.sh, self.sw, self.oh, self.ow,
+            self.uniform, self.has_blur, zeros=self._io.zeros,
+        )
 
-        dv, dh = jpeg_decode.chroma_divisors(self.subsamp)
-        gh = bucket_h16(self.true_h)  # whole 4:2:0 MCU rows
-        luma = (gh // 8, self.sw // 8)
-        chroma = (gh // (8 * dv), self.sw // (8 * dh))
-        shapes = [chroma if key in ("cb", "cr") else luma
-                  for key in self.PLANES]
+    def _stage_wire(self, metas) -> None:
+        """The whole wire in one zeroed buffer of the bucket's layout."""
         self.coef = self._io.zeros(
-            self.b * sum(h * w for h, w in shapes) * 64, np.int16)
+            self.b * sum(h * w for h, w in self._shapes) * 64, np.int16)
         self._spans = []
         at = 0
         grids = []
-        for h, w in shapes:
+        for h, w in self._shapes:
             n = self.b * h * w * 64
             self._spans.append((at, at + n, (self.b, h, w, 64)))
             grids.append(self.coef[at:at + n].reshape(self.b, h, w, 64))
@@ -533,11 +794,19 @@ class CoefBatchAssembly(BatchAssembly):
                 grid[i, : g.shape[0], : g.shape[1]] = g
             self.q[i, 0] = m["lq"]
             self.q[i, 1] = m["cq"]
-        (self.flags, self.fill, self.box,
-         self.av, self.ah, self.bv, self.bh) = _pack_params(
-            plans, self.b, self.sh, self.sw, self.oh, self.ow,
-            self.uniform, self.has_blur, zeros=self._io.zeros,
-        )
+
+    def _stage_slots(self, payloads) -> None:
+        """One slot per real image: the given ones, and one staged here
+        for each dict (its buffer a pinned allocation of this batch). The
+        metas share (subsamp, h, w), so every slot has the batch's
+        layout."""
+        pinned = self.device.type == "cuda"
+        self._wires = [p if isinstance(p, WireSlot)
+                       else WireSlot(wire_geometry(p), pinned).fill(p)
+                       for p in payloads]
+        self.q = np.zeros((self.b, 2, 64), np.int32)
+        for i, wire in enumerate(self._wires):
+            self.q[i] = wire.q
 
     def uses_kernel(self) -> bool:
         """A folded batch launches neither the decode kernel nor the
@@ -547,19 +816,59 @@ class CoefBatchAssembly(BatchAssembly):
     @property
     def upload_bytes(self) -> int:
         """Host->device bytes of the coefficient wire (blocks + tables)."""
+        if self._wires is not None:
+            return sum(w.nbytes for w in self._wires)
         return self.coef.nbytes + self.q.nbytes
 
     def host_grids(self):
         """The staged block grids of PLANES, (B, rows, cols, 64) int16
-        views of the wire (the host mirror decodes them)."""
-        return [self.coef[a:b].reshape(shape) for a, b, shape in self._spans]
+        views of the wire (the host mirror decodes them); from slots,
+        copies in the same layout."""
+        if self._wires is None:
+            return [self.coef[a:b].reshape(shape)
+                    for a, b, shape in self._spans]
+        grids = [np.zeros((self.b, h, w, 64), np.int16)
+                 for h, w in self._shapes]
+        for i, wire in enumerate(self._wires):
+            for grid, g in zip(grids, wire.grids):
+                grid[i] = g
+        return grids
 
     def device_wire(self):
         """Upload the wire: the block grids of PLANES, then q, on the
         device, the grids as views of one uploaded buffer."""
+        if self._wires is not None:
+            return self._device_wire_from_slots()
         flat = self._io.upload(self.coef)
         q = self._io.upload(self.q)
         return (*(flat[a:b].view(shape) for a, b, shape in self._spans), q)
+
+    def _device_wire_from_slots(self):
+        """The wire in the bucket's layout on the device, each real
+        image's slot copied in (one non-blocking copy a plane, and one of
+        its tables). The decode kernel reads the blocks of the real
+        images' true rects alone, which the slots hold, so on CUDA the
+        buffer is not zeroed; the folded route and the CPU's plain decode
+        read the bucket's padding images too, and get a zeroed one."""
+        b = self.b
+        sizes = [h * w * 64 for h, w in self._shapes]  # int16 words
+        q_words = _Q_BYTES // 2
+        make = (torch.empty if self.device.type == "cuda" and not self.fold
+                else torch.zeros)
+        flat = make(b * (sum(sizes) + q_words), dtype=torch.int16,
+                    device=self.device)
+        out, at = [], 0
+        for p, ((h, w), n) in enumerate(zip(self._shapes, sizes)):
+            for i, wire in enumerate(self._wires):
+                flat[at + i * n: at + (i + 1) * n].copy_(wire.planes[p],
+                                                         non_blocking=True)
+            out.append(flat[at: at + b * n].view(b, h, w, 64))
+            at += b * n
+        for i, wire in enumerate(self._wires):
+            flat[at + i * q_words: at + (i + 1) * q_words].copy_(
+                wire.q_words, non_blocking=True)
+        out.append(flat[at:].view(torch.int32).view(b, 2, 64))
+        return tuple(out)
 
     def _device_x(self):
         """Upload the block grids and decode them on the device in one
@@ -586,8 +895,7 @@ class CoefBatchAssembly(BatchAssembly):
         dims (as fanlin_tpu/ops/fused.py:2071-2076 does): (B, 3, out_h,
         out_w) u8."""
         p0 = self.plans[0]
-        _, _, bv, bh = (_device_cached(a, self.device)
-                        for a in _uniform_padded(p0))
+        _, _, bv, bh, _ = self.uniform_matrices()
         out = _post_resample(self.folded(wire), flags, fill, box, bv, bh,
                              uniform=True, opaque_in=True)
         return out[:, :, : p0.out_h, : p0.out_w]

@@ -83,6 +83,12 @@ class ImagePlan:
     # there (the matrices never cross the socket). None for a plan not
     # built by plan_image.
     cache_key: Optional[tuple] = None
+    # What av and ah are computed from (the filter, the source dims and
+    # each axis's resample_matrix arguments or canvas offset): plans
+    # with equal keys hold equal matrices, whichever query made them.
+    # The device copies of the padded matrices are kept by it
+    # (`fused._uniform_device`).
+    matrix_key: tuple = dataclasses.field(kw_only=True)
 
 
 # Plans hold dense (out x src) f32 matrices, so the cache is
@@ -133,14 +139,19 @@ def _plan_image_uncached(src_w: int, src_h: int, params, filter_name: str,
     sigma = params.blur()
     dims = params.dimensions()
 
+    def plan(out_h, out_w, av, ah, box, use_canvas, want_alpha, how):
+        return ImagePlan(src_h, src_w, out_h, out_w, av, ah, gray, inv, fill,
+                         box, use_canvas, sigma, want_alpha,
+                         matrix_key=(filter_name, src_h, src_w) + how)
+
     if dims is not None and (dims[0] != src_w or dims[1] != src_h):
         w, h = dims
         if params.cropping():
             w2, h2, x0, y0 = filters.fill_crop_window(src_w, src_h, w, h)
             av = filters.resample_matrix(src_h, h2, filter_name, y0, h)
             ah = filters.resample_matrix(src_w, w2, filter_name, x0, w)
-            return ImagePlan(src_h, src_w, h, w, av, ah, gray, inv, fill,
-                             (0, 0, w, h), False, sigma, not opaque)
+            return plan(h, w, av, ah, (0, 0, w, h), False, not opaque,
+                        ("crop", h2, y0, h, w2, x0, w))
         rw, rh = filters.resize_dimensions(src_w, src_h, w, h, False)
         if w > rw or h > rh:
             # fill-canvas overlay, centered (handler.rs:238-248)
@@ -152,18 +163,18 @@ def _plan_image_uncached(src_w: int, src_h: int, params, filter_name: str,
             av[y0 : y0 + rh] = av_r
             ah = np.zeros((w, src_w), dtype=np.float32)
             ah[x0 : x0 + rw] = ah_r
-            return ImagePlan(src_h, src_w, h, w, av, ah, gray, inv, fill,
-                             (x0, y0, rw, rh), True, sigma, False)
+            return plan(h, w, av, ah, (x0, y0, rw, rh), True, False,
+                        ("canvas", rh, y0, h, rw, x0, w))
         av = filters.resample_matrix(src_h, rh, filter_name)
         ah = filters.resample_matrix(src_w, rw, filter_name)
-        return ImagePlan(src_h, src_w, rh, rw, av, ah, gray, inv, fill,
-                         (0, 0, rw, rh), False, sigma, not opaque)
+        return plan(rh, rw, av, ah, (0, 0, rw, rh), False, not opaque,
+                    ("fit", rh, rw))
 
     # no resize: output at source dims
     av = filters.resample_matrix(src_h, src_h, filter_name)
     ah = filters.resample_matrix(src_w, src_w, filter_name)
-    return ImagePlan(src_h, src_w, src_h, src_w, av, ah, gray, inv, fill,
-                     (0, 0, src_w, src_h), False, sigma, not opaque)
+    return plan(src_h, src_w, av, ah, (0, 0, src_w, src_h), False,
+                not opaque, ("fit", src_h, src_w))
 
 
 # Padded shared-matrix cache for uniform batches, keyed by plan
@@ -182,6 +193,14 @@ def _uniform_bands(plan: ImagePlan) -> np.ndarray:
     """resample_kernels.band_ranges of _uniform_padded(plan), cached
     beside it."""
     return _uniform_entry(plan)[1]
+
+
+def uniform_key(plan: ImagePlan) -> tuple:
+    """What `_uniform_build(plan)` is computed from: the plan's matrix
+    key, its blur sigma and its buckets."""
+    return (plan.matrix_key, plan.blur_sigma,
+            bucket_h(plan.src_h), bucket_w(plan.src_w),
+            bucket_h(plan.out_h), bucket_w(plan.out_w))
 
 
 def _uniform_entry(plan: ImagePlan):

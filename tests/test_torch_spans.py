@@ -96,6 +96,7 @@ THREAD_OF = {
     "fanlin.origin.fetch": ("loop", False),
     "fanlin.engine.pool_return": ("loop", False),
     "fanlin.engine.pool_wait": ("fanlin-codec", False),
+    "fanlin.assembly.prestage": ("fanlin-codec", False),
     "fanlin.engine.decode": ("fanlin-codec", True),
     "fanlin.engine.device": ("fanlin-codec", True),
     "fanlin.engine.encode": ("fanlin-codec", True),
@@ -197,6 +198,7 @@ def test_capture_holds_every_span_on_its_thread(captured):
     # a codec thread's stages carry their request's id as an arg
     for name in ("fanlin.engine.decode", "fanlin.engine.device",
                  "fanlin.engine.encode", "fanlin.engine.pool_wait",
+                 "fanlin.assembly.prestage",
                  "fanlin.batcher.queue", "fanlin.batcher.handoff"):
         assert {s.args["rid"] for s in spans.named(name)} == images, name
 
@@ -337,22 +339,24 @@ def test_no_capture_records_nothing_and_calls_no_profiler(tmp_path,
 @time_limit(120)
 def test_counters_move_by_what_was_done(monkeypatch):
     """Each served batch is one stage span and moves `batches` by one;
-    `pageable_uploads` and `pageable_bytes` count the misses of the
-    device matrix cache, `plan_rebuilds` those of the padded plan cache;
-    the phases' ms totals grow."""
+    `pageable_uploads` and `pageable_bytes` count the matrices the
+    misses of the device matrix cache upload, `plan_rebuilds` the misses
+    of the padded plan cache; the phases' ms totals grow."""
     puts = {"device": [], "plan": 0}
-    real_dev_put = fused._DEVICE_MATRIX_CACHE.put
+    real_dev_put = fused._RESIDENT.put
     real_plan_put = plan_mod._UNIFORM_CACHE.put
 
     def dev_put(key, value, nbytes):
-        puts["device"].append(nbytes)
+        # one entry a plan: its matrices (bv, bh None without blur)
+        puts["device"] += [m.numel() * m.element_size() for m in value
+                           if m is not None]
         return real_dev_put(key, value, nbytes)
 
     def plan_put(key, value, nbytes):
         puts["plan"] += 1
         return real_plan_put(key, value, nbytes)
 
-    monkeypatch.setattr(fused._DEVICE_MATRIX_CACHE, "put", dev_put)
+    monkeypatch.setattr(fused._RESIDENT, "put", dev_put)
     monkeypatch.setattr(plan_mod._UNIFORM_CACHE, "put", plan_put)
     b = MicroBatcher(max_batch=4, window_ms=5.0, device=CPU)
     img = make_test_image(80, 60)
@@ -411,3 +415,41 @@ def test_counters_and_records_lose_no_update_across_threads():
     assert engine.pool_stats["pool_wait_ms_total"] == pytest.approx(8000.0)
     assert [r[0] for r in prof.fanlin_spans].count(
         "fanlin.engine.pool_wait") == 8000
+
+
+@time_limit(120)
+def test_prestaged_counter_and_its_metric(tmp_path):
+    """/stats counts the images a codec thread staged (`prestaged`, next
+    to `images`), and the benchmark's `assembly.prestaged_share` reads
+    it as a share of the window's images: every JPEG of a CPU server
+    with free slots."""
+    from types import SimpleNamespace
+
+    from harness import cell as hcell
+
+    cfg = _cfg(tmp_path, ', "response_cache_mb": 0')
+
+    async def go():
+        client = await _client(cfg)
+        try:
+            before = json.loads(await (await client.get("/stats")).text())
+            for q in ("w=61&h=41", "w=59&h=43", "w=61&h=41"):
+                r = await client.get("/baz/lenna_src.jpg?" + q)
+                assert r.status == 200
+            after = json.loads(await (await client.get("/stats")).text())
+            return before, after
+        finally:
+            await client.close()
+
+    before, after = asyncio.new_event_loop().run_until_complete(go())
+    assert before["batcher"]["prestaged"] == 0
+    assert after["batcher"]["prestaged"] - before["batcher"]["prestaged"] == (
+        after["batcher"]["images"] - before["batcher"]["images"]) == 3
+    read = hcell.load_module("metrics", "assembly.prestaged_share").read
+    assert read(SimpleNamespace(stats_before=before,
+                                stats_after=after)) == 100.0
+    # a server without the counter (an older one) gives no reading
+    for stats in (before, after):
+        del stats["batcher"]["prestaged"]
+    assert read(SimpleNamespace(stats_before=before,
+                                stats_after=after)) is None
