@@ -26,8 +26,12 @@ Phases (each failure exits non-zero; nothing is caught):
      JPEG B=2, a 4:2:2 JPEG B=4, 4:4:0 and gray batches from seeded
      coefficient grids, the crafted out-of-range grid, and odd true dims
      (641x479, 7x5) in 4:2:0, 4:2:2 and 4:4:0; each batch again from
-     pooled wire slots (unzeroed device wire): 0 differing decode bytes
-     and the same served images; at lenna B=1 and B=8,
+     prestaged pinned wire slots (the unzeroed device wire, its padding
+     images poisoned): 0 differing decode bytes against the plain
+     version of a zeroed wire and the same served images as the
+     dict-staged batch; a slot dropped while its upload waits behind a
+     long kernel is not reused before the copy (torch's caching host
+     allocator), 0 differing decode bytes; at lenna B=1 and B=8,
      synth B=16 and 12 MP B=2 its CUDA event ms over many launches,
      device ms from torch.profiler, host enqueue ms over 50 calls without
      a synchronize and plain ms, the bytes and int32 operations each
@@ -86,7 +90,10 @@ Phases (each failure exits non-zero; nothing is caught):
      jpeg_decode_cmyk_rgb (the 4-component decode converting through the
      packed ICC LUT in its colour stage) against its plain version (K12b's
      plain version of K12a's) over the whole output, and K12a
-     jpeg_decode_cmyk (its yardstick) against its own, and (b) K12b
+     jpeg_decode_cmyk (its yardstick) against its own, the fused kernel
+     again on prestaged pinned wire slots (the unzeroed device wire, its
+     padding images poisoned) against the plain version of a zeroed
+     wire, and (b) K12b
      cmyk_lut (planar and pixel forms) against its plain version, 0 bytes
      differing, on CMYK and YCCK 4:4:4 (PIL streams and their Adobe
      flips), YCCK 4:2:0 grids, odd dims (641x479, 7x5), B = 1, 8, a
@@ -816,6 +823,67 @@ def _enqueue_ms(fn, calls: int = 50) -> float:
     return ms
 
 
+def _poisoned_wire(wire, n: int) -> tuple:
+    """(wire with its padding images, i >= n, set to noise, a copy with
+    them zeroed): what a kernel that never reads the padding decodes
+    alike."""
+    gen = torch.Generator(device=wire[0].device).manual_seed(n)
+    clean = tuple(t.clone() for t in wire)
+    for t, c in zip(wire, clean):
+        c[n:] = 0
+        t[n:] = torch.randint(-2048, 2048, t[n:].shape, generator=gen,
+                              device=t.device, dtype=t.dtype)
+    return wire, clean
+
+
+def phase2b_reuse(dev: torch.device) -> None:
+    """A pinned slot dropped while its upload still waits behind a long
+    kernel: torch's caching host allocator must not hand its block out
+    again before the copy has run. The slot's batch is queued behind
+    ~1 s of torch.cuda._sleep, the slot dropped, the same size
+    allocated again and overwritten; the first batch must then decode as
+    the plain version of a clean wire of the same image."""
+    import gc
+
+    from fanlin_tpu_torch.spec.query import parse_query
+    from fanlin_tpu_torch.ops import fused, plan as plan_mod
+    from fanlin_tpu_torch.ops import jpeg_decode_kernels as jk
+
+    meta, _ = _decode_source("12mp", np.random.default_rng(20261018))
+    plan = plan_mod.plan_image(meta["w"], meta["h"],
+                               parse_query("w=640&h=480"), opaque=True)
+    slot = fused.WireSlot(meta, pinned=True)
+    ptr, size = slot.buf.data_ptr(), slot.nbytes
+    asm = fused.CoefBatchAssembly([plan], [slot], dev)
+    dec = (asm.subsamp, asm.true_h, asm.true_w, asm.sh, asm.sw, 1)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 31)
+    rgb = jk.jpeg_decode_rgb(*asm.device_wire(), *dec)
+    del asm, slot
+    gc.collect()
+    again = [torch.empty(size, dtype=torch.uint8, pin_memory=True)
+             for _ in range(4)]
+    for buf in again:
+        buf.fill_(0x5A)
+    reused = any(b.data_ptr() == ptr for b in again)
+    pending = not torch.cuda.current_stream(dev).query()
+    torch.cuda.synchronize()
+    want = fused.CoefBatchAssembly([plan], [meta], dev)
+    diff = _bytes_differing(rgb, jk.jpeg_decode_rgb_ref(*want.device_wire(),
+                                                        *dec))
+    del again
+    gc.collect()
+    after = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+    print(f"phase2b reuse: {size} B slot dropped with its upload queued "
+          f"(stream still busy: {pending}); its block handed out again "
+          f"before the copy: {reused}; after it: "
+          f"{after.data_ptr() == ptr}; decode bytes differing {diff[0]}",
+          flush=True)
+    check(pending, "the long kernel ended before the slot was dropped")
+    check(not reused and diff[0] == 0,
+          "a dropped pinned slot was reused before its upload had run")
+
+
 def phase2b(dev: torch.device) -> dict:
     """The fused decode kernel jpeg_decode_rgb against its plain version
     on the same inputs; at the timed shapes, event ms, device ms, host
@@ -844,22 +912,24 @@ def phase2b(dev: torch.device) -> dict:
               f"{3 * asm.sh * asm.sw} B/img", flush=True)
         check(fused_diff[0] == 0,
               f"{name}: jpeg_decode_rgb differs from its plain version")
-        # the same images staged into wire slots, as a codec thread stages
-        # them: the batch uploads its real images alone into an unzeroed
-        # wire, and must decode and serve them as the zeroed wire does
-        pool = fused.WireSlotPool(dev, per_geometry=images)
-        slots = [pool.stage(meta) for _ in range(images)]
-        check(all(s is not None for s in slots), f"{name}: no wire slot")
+        # the same images prestaged into pinned wire slots, as a codec
+        # thread stages them: the kernel reads the real images' slots
+        # alone, so their unzeroed device wire, its padding images
+        # poisoned, decodes as the plain version of a zeroed one, and the
+        # batch serves the dict-staged batch's images
+        slots = [fused.WireSlot(meta, pinned=True) for _ in range(images)]
         sasm = fused.CoefBatchAssembly([plan] * images, slots, dev)
-        slot_diff = _bytes_differing(
-            jk.jpeg_decode_rgb(*sasm.device_wire(), *dec)[:images],
-            rgb[:images])
+        swire, clean = _poisoned_wire(sasm.device_wire(), images)
+        slot_diff = _bytes_differing(jk.jpeg_decode_rgb(*swire, *dec),
+                                     jk.jpeg_decode_rgb_ref(*clean, *dec))
         served = all(np.array_equal(a, b)
                      for a, b in zip(sasm.run(), asm.run()))
         print(f"phase2b {name} slot wire: decode bytes differing "
-              f"{slot_diff[0]}, served images equal {served}", flush=True)
+              f"{slot_diff[0]} ({sasm.b - images} padding images poisoned), "
+              f"served images equal {served}", flush=True)
         check(slot_diff[0] == 0 and served,
-              f"{name}: a slot batch differs from the zeroed wire's")
+              f"{name}: a slot batch differs from the plain decode or from "
+              "the dict-staged batch")
         res = {"err": fused_diff[1]}
         if timed:
             big = kind == "12mp"
@@ -1874,8 +1944,8 @@ def _cmyk_source(kind: str, rng) -> dict:
 
 def phase7_kernels(dev: torch.device, lut: np.ndarray) -> dict:
     """(a) The fused kernel jpeg_decode_cmyk_rgb against its plain version
-    (K12b's plain version of K12a's) over the whole output, and K12a
-    against its own; (b) K12b, planar on K12a's output and in pixel form
+    (K12b's plain version of K12a's) over the whole output, and on a slot
+    wire with poisoned padding images, and K12a against its own; (b) K12b, planar on K12a's output and in pixel form
     on its first image, against its plain version: 0 bytes differing at
     every shape. (e) At the timed shapes, in turns: event ms of the fused
     kernel, the pair (K12a then K12b) and each alone; device ms and plain
@@ -1918,6 +1988,21 @@ def phase7_kernels(dev: torch.device, lut: np.ndarray) -> dict:
         p_diff = _bytes_differing(
             pix, lk.cmyk_lut_ref(cmyk[:1], lut_dev, n)[0].permute(1, 2, 0))
         vs_pair = _bytes_differing(rgb, pair)
+        # the same images prestaged into pinned wire slots: the unzeroed
+        # device wire, its padding images poisoned, decodes as the plain
+        # version of a zeroed one
+        sasm = fused.CmykCoefBatchAssembly(
+            [plan] * images,
+            [fused.WireSlot(meta, pinned=True) for _ in range(images)], dev)
+        swire, clean = _poisoned_wire(sasm.device_wire(), images)
+        s_diff = _bytes_differing(
+            jk.jpeg_decode_cmyk_rgb(*swire, packed, n, *args),
+            jk.jpeg_decode_cmyk_rgb_ref(*clean, lut_dev, n, *args))
+        print(f"phase7a {name} slot wire: jpeg_decode_cmyk_rgb bytes "
+              f"differing {s_diff[0]} ({sasm.b - images} padding images "
+              "poisoned)", flush=True)
+        check(s_diff[0] == 0, f"{name}: jpeg_decode_cmyk_rgb on a slot wire "
+                              "differs from its plain version")
         print(f"phase7a {name} {meta['w']}x{meta['h']} {asm.subsamp}"
               f"{' ycck' if asm.ycck else ''} B={asm.b} n={images} "
               f"jpeg_decode_cmyk_rgb bytes differing {f_diff[0]} of "
@@ -4041,6 +4126,7 @@ def main() -> int:
     build_s = phase1()
     bench = phase2(dev)
     decode = phase2b(dev)
+    phase2b_reuse(dev)
     phase3_pre_encode(dev)
 
     # the main path's launch-count windows: each run is driven with the

@@ -22,14 +22,10 @@ the batcher
   hands out the results, while the device thread submits the next
   batch; at most ``pipeline_depth`` batches sit between the halves;
 * lets the thread that submits a coefficient image stage its wire
-  first (`prestage`), into a pinned slot of a pool sized from the
-  codec threads and the pipeline (``codec_threads`` + ``pipeline_depth``
-  × ``max_batch`` slots a source geometry), so the device thread only
-  enqueues that image's upload; the collect thread hands the slot back
-  once the batch's event has fired (a stalled or mirrored batch's
-  slots are forgotten instead: its upload or the mirror may still read
-  them). An image that finds no free slot is staged on the device
-  thread as before;
+  first (`prestage`), into a pinned slot of its own, so the device
+  thread only enqueues that image's upload; the slot is freed with its
+  last holder (torch's caching host allocator reuses its block once the
+  upload has finished);
 * sheds entries whose request was abandoned (the gateway's cancel
   event) or whose deadline passed, before any staging or device work;
 * optionally caps each group's queue (``max_queue``), rejecting at
@@ -88,7 +84,7 @@ a lock):
 * `fanlin.batcher.queue`, per entry, from `submit` to the device thread
   taking its batch (`queue_wait_ms_total`, per image);
 * `fanlin.assembly.prestage`, per image, on the codec thread before it
-  submits: a coefficient image's wire staged into a pooled slot
+  submits: a coefficient image's wire staged into its own pinned slot
   (`prestage`; counted in `prestaged` when its batch is taken);
 * on the device thread `fanlin.batcher.stage` (`fused.make_assembly`),
   `.permit_wait` (a pipeline permit) and `.submit` (`asm.submit()`,
@@ -295,16 +291,12 @@ class MicroBatcher:
     def __init__(self, max_batch: int, window_ms: float,
                  device: torch.device, pipeline_depth: int = 2,
                  max_queue: int = 0, fast: bool = False,
-                 host_fallback: bool = False, device_stall_s: float = 30.0,
-                 codec_threads: int = 0):
+                 host_fallback: bool = False, device_stall_s: float = 30.0):
         """device: where batches run. pipeline_depth: batches allowed
         between submit and collect. max_queue: per-group cap on admitted
         entries not yet picked up by the device thread (0 = unlimited).
         fast: every batch's resample products in bf16 (`tpu.fast`), the
-        warmup's too. codec_threads: the threads that stage and submit
-        images (`tpu.codec_threads`; 0 = asyncio's default pool,
-        min(32, cores + 4)): with the images a full pipeline holds, the
-        wire slots a source geometry may take (`prestage`).
+        warmup's too.
 
         host_fallback: arm the failover lane (`tpu.host_fallback`);
         without it nothing is watched and a stalled batch waits for the
@@ -346,10 +338,6 @@ class MicroBatcher:
             thread_name_prefix="fanlin-hostexec")
         self.pipeline_depth = max(int(pipeline_depth), 1)
         self._inflight = threading.BoundedSemaphore(self.pipeline_depth)
-        codec_threads = int(codec_threads) or min(32,
-                                                   (os.cpu_count() or 1) + 4)
-        self._slots = fused.WireSlotPool(
-            device, codec_threads + self.pipeline_depth * max_batch)
         self._closed = False
         # failover state, guarded by self._lock
         self._wedged = False
@@ -462,50 +450,27 @@ class MicroBatcher:
     # -- submission --------------------------------------------------------
 
     def prestage(self, meta):
-        """Stage a plain (3-component) coefficient meta's wire into a
-        pooled slot on the calling thread (a codec thread, before it
-        submits the image): the `fused.WireSlot` to submit in the meta's
-        place, or None when no slot of its geometry is free (the device
-        thread then stages it). While a capture runs, a staged image is
-        the span `fanlin.assembly.prestage` of its request."""
+        """Stage a coefficient meta's wire into a pinned slot of its own
+        on the calling thread (a codec thread, before it submits the
+        image): the `fused.WireSlot` to submit in the meta's place, or
+        the meta when no pinned memory is to be had (the device thread
+        then stages it). While a capture runs, a staged image is the
+        span `fanlin.assembly.prestage` of its request."""
         t0 = time.perf_counter_ns()
-        slot = self._slots.stage(meta)
-        if slot is not None and profiling.on():
+        try:
+            slot = fused.WireSlot(meta, self.device.type == "cuda")
+        except RuntimeError:  # no pinned memory to be had
+            return meta
+        if profiling.on():
             profiling.record("fanlin.assembly.prestage", t0,
                              time.perf_counter_ns(),
                              profiling.REQUEST_ID.get(), bytes=slot.nbytes)
         return slot
 
-    def unstage(self, slot) -> None:
-        """Hand back a slot from `prestage` that was never submitted."""
-        self._slots.release([slot])
-
-    def _unstage_entries(self, group) -> None:
-        """Hand back the slots of entries no batch uploaded."""
-        self._slots.release([g[1] for g in group
-                             if isinstance(g[1], fused.WireSlot)])
-
-    def _take_slots(self, asm) -> list:
-        """The pool's slots an assembly holds, taken from it once (the
-        collect thread and the watchdog may both try)."""
-        with self._lock:
-            slots = getattr(asm, "slots", None) or []
-            if slots:
-                asm.slots = []
-        return slots
-
     def submit(self, plan: ImagePlan, image, kind: str = "rgb") -> Future:
         """Queue one image (pixels, or a coefficient dict or its
-        `prestage` slot for coef* kinds); the future resolves to its
-        result. A slot refused admission is handed back."""
-        try:
-            return self._submit(plan, image, kind)
-        except BaseException:
-            if isinstance(image, fused.WireSlot):
-                self.unstage(image)
-            raise
-
-    def _submit(self, plan: ImagePlan, image, kind: str) -> Future:
+        `prestage` slot for coef* and cmyk* kinds); the future resolves
+        to its result."""
         key = _group_key(plan, kind)
         fut: Future = Future()
         req_deadline = REQUEST_DEADLINE.get()
@@ -570,7 +535,6 @@ class MicroBatcher:
                 return
             with self._lock:
                 self._claim(group)
-            self._unstage_entries(group)
             for entry in group:
                 _safe_fail(entry[2], e)
             return
@@ -811,10 +775,8 @@ class MicroBatcher:
                             f"warmup batch stalled > {self.device_stall_s} s"))
                     continue
                 # the stuck call holds a pipeline permit: free it for the
-                # fresh pipeline (its own release becomes a no-op); its
-                # upload may still read its slots, and the mirror will
+                # fresh pipeline (its own release becomes a no-op)
                 watch.releaser.release()
-                self._slots.discard(self._take_slots(watch.asm))
                 with self._lock:
                     self.stats["host_fallbacks"] += 1
                 self._mirror_async(watch.asm, watch.futures, "device stall")
@@ -886,26 +848,22 @@ class MicroBatcher:
         the gateway's cancel event fired, fail it when its deadline
         passed. Neither pays staging or device time."""
         now = time.monotonic()
-        live, dead = [], []
+        live = []
         cancelled = expired = 0
         for entry in group:
             fut, req_deadline, cancel_ev = entry[2], entry[4], entry[5]
             if fut.cancelled():
-                dead.append(entry)
                 continue
             if cancel_ev is not None and cancel_ev.is_set():
                 cancelled += 1
                 fut.cancel()
-                dead.append(entry)
                 continue
             if req_deadline is not None and req_deadline <= now:
                 expired += 1
                 _safe_fail(fut, RequestExpired(
                     "request deadline passed before device dispatch"))
-                dead.append(entry)
                 continue
             live.append(entry)
-        self._unstage_entries(dead)
         if cancelled or expired:
             with self._lock:
                 self.stats["shed_cancelled"] += cancelled
@@ -968,17 +926,13 @@ class MicroBatcher:
     def _make_host_assembly(self, group, tag: _BatchTag):
         """The batch staged for the mirror alone: on the CPU, so the
         mirror lane never calls into CUDA (no pinned allocation on a
-        card that may be failing). It stages from the metas; the entries'
-        slots go back unread."""
+        card that may be failing): the entries' slots are read as they
+        are, a dict is staged into an unpinned one."""
         t0, c0 = time.perf_counter_ns(), time.thread_time_ns()
-        try:
-            asm = fused.make_assembly(
-                [g[0] for g in group],
-                [g[1].meta if isinstance(g[1], fused.WireSlot) else g[1]
-                 for g in group],
-                [g[3] for g in group], _CPU, fast=self.fast)
-        finally:
-            self._unstage_entries(group)
+        asm = fused.make_assembly([g[0] for g in group],
+                                  [g[1] for g in group],
+                                  [g[3] for g in group], _CPU,
+                                  fast=self.fast)
         asm.fanlin_batch = tag
         self._phase("stage", tag, t0, time.perf_counter_ns(), c0,
                     time.thread_time_ns(), counted=False, mirror=True)
@@ -992,7 +946,6 @@ class MicroBatcher:
         except RuntimeError:
             with self._lock:
                 self._claim(group)
-            self._unstage_entries(group)
             for entry in group:
                 _safe_fail(entry[2], RuntimeError("batcher closed"))
 
@@ -1102,7 +1055,6 @@ class MicroBatcher:
                 _logger.error("pipeline permits held > %.1f s (collects not "
                               "returning); serving from the host mirror",
                               self.device_stall_s)
-                self._slots.discard(self._take_slots(asm))
                 self._mirror_async(asm, futures, "device stall")
                 return
             releaser = _PermitOnce(self._inflight)
@@ -1123,11 +1075,6 @@ class MicroBatcher:
                 self._watch_done(watch, roundtrip_ok=False)
             if releaser is not None:
                 releaser.release()
-            if asm is None:
-                self._unstage_entries(group)
-            else:
-                # its upload may have started; the mirror may read them
-                self._slots.discard(self._take_slots(asm))
             if watch is not None and watch.stale and isinstance(e, Exception):
                 return  # the watchdog served it already
             if isinstance(e, Exception) and asm is not None:
@@ -1164,7 +1111,6 @@ class MicroBatcher:
                 self._watch_done(watch, roundtrip_ok=False)
                 if watch.stale:
                     return  # the watchdog served it already
-            self._slots.discard(self._take_slots(asm))
             self._device_failed(e, futures, "collect")
             return
         releaser.release()
@@ -1173,8 +1119,6 @@ class MicroBatcher:
             self._watch_done(watch, roundtrip_ok=True)
         if watch is not None and watch.stale:
             return  # mirror-served already; the late result is dropped
-        # the batch's event has fired: its upload has read its slots
-        self._slots.release(self._take_slots(asm))
         t2, c2 = time.perf_counter_ns(), time.thread_time_ns()
         for f, r in zip(futures, results):
             _safe_result(f, r, t_ns=t2, batch=tag.id)
@@ -1259,9 +1203,6 @@ class BatchingRunner:
     def prestage(self, meta):
         """`MicroBatcher.prestage`, on the calling thread."""
         return self.batcher.prestage(meta)
-
-    def unstage(self, slot) -> None:
-        self.batcher.unstage(slot)
 
     def consume_host_mirror_flag(self) -> bool:
         """True when a run() on this thread since the last consume was

@@ -267,9 +267,8 @@ class Engine:
         timings (f_decode / f_device / f_encode) for Server-Timing; each
         stage is also a span of a capture (`fanlin.engine.decode` /
         `.device` / `.encode`, on this thread, `utils.profiling`).
-        f_decode ends once a plain coefficient source's wire is staged
-        for the device, where the runner keeps slots for it
-        (`BatchingRunner.prestage`)."""
+        f_decode ends once a coefficient source's wire is staged for the
+        device, where the runner stages it (`BatchingRunner.prestage`)."""
         fmt = codecs.sniff_format(data)
         if fmt is None:
             try:
@@ -359,24 +358,17 @@ class Engine:
                 codecs.apply_orientation(img, orientation))
             h, w = img.shape[:2]
             self.stats["pixel_src"] += 1
-        # a plain coefficient source's wire staged here, on this thread
-        # (inside f_decode), where the runner keeps slots for it
+        # a coefficient source's wire staged here, on this thread (inside
+        # f_decode), where the runner stages it
         prestage = getattr(self.runner, "prestage", None)
-        staged = (prestage(meta) if prestage is not None and meta is not None
-                  and not meta.get("cmyk") else None)
+        if meta is None:
+            src = img
+        else:
+            src = meta if prestage is None else prestage(meta)
         self._stage("f_decode", "fanlin.engine.decode", t0,
                     time.perf_counter_ns(), marks)
-        try:
-            plan, kind, out_fmt, mode = self._route(
-                params, accepted, fmt, w, h, has_alpha, is_gray, meta)
-        except BaseException:
-            if staged is not None:
-                self.runner.unstage(staged)
-            raise
-        if staged is not None:
-            src = staged
-        else:
-            src = img if meta is None else meta
+        plan, kind, out_fmt, mode = self._route(
+            params, accepted, fmt, w, h, has_alpha, is_gray, meta)
 
         t1 = time.perf_counter_ns()
         out = self.runner.run([plan], [src], [kind])[0]

@@ -16,9 +16,9 @@ the downloads as non-blocking work on the caller's current stream,
 then records an event; `collect()` only waits on that event and copies
 each image's result out of the pinned buffers, so the batcher's collect
 thread never touches a device tensor. On the CPU (tests) the same code
-runs on plain host arrays with no event. A coefficient image may arrive
-staged already, in a pooled pinned `WireSlot` that the thread which
-read it filled (`WireSlotPool`); a batch of such slots uploads its real
+runs on plain host arrays with no event. Each coefficient image has
+one host wire, a pinned `WireSlot` of its own, made by the thread that
+read the image or, for a dict, by the assembly; a batch uploads its real
 images' slots alone. The padded matrices of a uniform batch's plan stay
 on the device, keyed by the plan's content (`_uniform_device`).
 
@@ -48,9 +48,6 @@ from __future__ import annotations
 
 import copy
 import re
-import threading
-from collections import OrderedDict
-from typing import List, Optional
 
 import numpy as np
 import torch
@@ -515,25 +512,32 @@ def _wire_shapes(h: int, w: int, subsamp: int, planes) -> list:
 
 
 _Q_BYTES = 2 * 64 * 4  # an image's quant tables: (2, 64) int32
+_PLANES = ("y", "cb", "cr")  # a meta's block grids, in wire order
+_CMYK_PLANES = _PLANES + ("k",)
+
+
+def _meta(payload) -> dict:
+    """The read_jpeg_coeffs dict of a coefficient payload (a dict or a
+    WireSlot)."""
+    return payload.meta if isinstance(payload, WireSlot) else payload
 
 
 class WireSlot:
-    """One image's share of a coefficient wire in one host buffer (pinned
-    on CUDA, from torch's caching host allocator): each plane of
-    CoefBatchAssembly.PLANES at the bucket's block grid, then the quant
-    tables (luma, chroma). The buffer is zeroed once, when it is made;
-    `fill` writes the meta's true grids only, whose shapes are part of
-    the slot's geometry (`wire_geometry`), so what lies past them stays
-    zero through every reuse."""
+    """One image's coefficient wire in one host buffer of its own (pinned
+    on CUDA, from torch's caching host allocator, which hands a block out
+    again only after the copies recorded on it have finished): each plane
+    of its assembly's PLANES (K too for a CMYK meta) at the bucket's block
+    grid, then the quant tables (luma, chroma). The meta's true grids are
+    copied in and the blocks past them zeroed: a reused block holds an
+    earlier image's bytes, and the folded route and the CPU's plain decode
+    read the padding. The slot lives as long as something holds it: its
+    batch, a stalled batch's mirror."""
 
-    PLANES = ("y", "cb", "cr")  # the meta's block grids, in wire order
-
-    def __init__(self, geometry: tuple, pinned: bool):
-        subsamp, h, w, _ = geometry
-        self.geometry = geometry
-        shapes = _wire_shapes(h, w, subsamp, self.PLANES)
+    def __init__(self, meta, pinned: bool):
+        keys = _CMYK_PLANES if meta.get("cmyk") else _PLANES
+        shapes = _wire_shapes(meta["h"], meta["w"], meta["subsamp"], keys)
         sizes = [r * c * 64 * 2 for r, c in shapes]
-        self.buf = torch.zeros(sum(sizes) + _Q_BYTES, dtype=torch.uint8,
+        self.buf = torch.empty(sum(sizes) + _Q_BYTES, dtype=torch.uint8,
                                pin_memory=pinned)
         arr = self.buf.numpy()
         words = self.buf.view(torch.int16)
@@ -541,161 +545,28 @@ class WireSlot:
         # upload copies), then the tables' words
         self.grids, self.planes = [], []
         at = 0
-        for (r, c), n in zip(shapes, sizes):
-            self.grids.append(arr[at:at + n].view(np.int16).reshape(r, c, 64))
+        for key, (r, c), n in zip(keys, shapes, sizes):
+            grid = arr[at:at + n].view(np.int16).reshape(r, c, 64)
+            g = meta[key]
+            gr, gc = g.shape[:2]
+            if gr > r or gc > c:
+                raise ValueError(f"{key} grid {gr}x{gc} exceeds the "
+                                 f"bucket's {r}x{c}")
+            grid[:gr, :gc] = g
+            grid[gr:] = 0
+            grid[:gr, gc:] = 0
+            self.grids.append(grid)
             self.planes.append(words[at // 2:(at + n) // 2])
             at += n
         self.q = arr[at:].view(np.int32).reshape(2, 64)
+        self.q[0] = meta["lq"]
+        self.q[1] = meta["cq"]
         self.q_words = words[at // 2:]
-        self.meta = None
-        # a pool's slot is "out" (staged, in a batch) or "free"; a slot
-        # the pool forgot, or never made, is "gone"
-        self.state = "gone"
+        self.meta = meta
 
     @property
     def nbytes(self) -> int:
         return self.buf.numel()
-
-    def fill(self, meta) -> "WireSlot":
-        """Copy the meta's grids and quant tables in; returns self."""
-        for grid, key in zip(self.grids, self.PLANES):
-            g = meta[key]
-            grid[: g.shape[0], : g.shape[1]] = g
-        self.q[0] = meta["lq"]
-        self.q[1] = meta["cq"]
-        self.meta = meta
-        return self
-
-
-def wire_geometry(meta) -> tuple:
-    """A plain (3-component) read_jpeg_coeffs meta's slot geometry:
-    (subsamp, h, w, the true (rows, cols) of each plane)."""
-    return (meta["subsamp"], meta["h"], meta["w"],
-            tuple(meta[k].shape[:2] for k in WireSlot.PLANES))
-
-
-class _Shelf:
-    """A WireSlotPool's slots of one geometry."""
-
-    __slots__ = ("free", "made", "size")
-
-    def __init__(self, size: int):
-        self.free: List[WireSlot] = []
-        self.made = 0  # slots alive, free or out
-        self.size = size  # one slot's pinned bytes
-
-
-class WireSlotPool:
-    """Reusable WireSlots, a free list per geometry, for the threads that
-    stage images before they reach a batch (the micro-batcher's codec
-    threads). A slot is made on demand, at most `per_geometry` of one
-    geometry and `max_bytes` in all; to make room for a new one, free
-    slots of the geometries used least recently are dropped. `stage`
-    gives None when no slot can be had: the image is then staged on the
-    device thread. A slot goes back with `release` only once nothing
-    reads it any more (the upload of its batch has finished); `discard`
-    forgets one that something may still read (a stalled batch, the
-    mirror), which frees it when its last holder drops it. A geometry
-    with no slot alive is forgotten too, so sources of many sizes leave
-    no records behind."""
-
-    def __init__(self, device: torch.device, per_geometry: int,
-                 max_bytes: int = 2 * 1024 ** 3):
-        self.pinned = device.type == "cuda"
-        self.per_geometry = int(per_geometry)
-        self.max_bytes = int(max_bytes)
-        self.bytes = 0
-        self._lock = threading.Lock()
-        # geometry -> its shelf, least recently used first
-        self._shelves: "OrderedDict[tuple, _Shelf]" = OrderedDict()
-
-    def _slot_bytes(self, geometry) -> int:
-        """The memory one slot of `geometry` takes: its bytes, and on CUDA
-        the power of two above them, the block torch's caching host
-        allocator hands out for them."""
-        subsamp, h, w, _ = geometry
-        size = _Q_BYTES + sum(r * c * 128 for r, c in _wire_shapes(
-            h, w, subsamp, WireSlot.PLANES))
-        return 1 << (size - 1).bit_length() if self.pinned else size
-
-    def _acquire(self, geometry) -> Optional[WireSlot]:
-        with self._lock:
-            shelf = self._shelves.get(geometry)
-            if shelf is None:
-                shelf = self._shelves[geometry] = _Shelf(
-                    self._slot_bytes(geometry))
-            self._shelves.move_to_end(geometry)
-            if shelf.free:
-                slot = shelf.free.pop()
-                slot.state = "out"
-                return slot
-            if shelf.made >= self.per_geometry:
-                self._drop_if_empty(geometry)
-                return None
-            while self.bytes + shelf.size > self.max_bytes:
-                old = next((g for g, f in self._shelves.items() if f.free),
-                           None)
-                if old is None:
-                    self._drop_if_empty(geometry)
-                    return None
-                self._shelves[old].free.pop().state = "gone"
-                self._forget(old)
-            shelf.made += 1
-            self.bytes += shelf.size
-        try:
-            slot = WireSlot(geometry, self.pinned)
-        except RuntimeError:  # no pinned memory to be had
-            with self._lock:
-                self._forget(geometry)
-            return None
-        slot.state = "out"
-        return slot
-
-    def _forget(self, geometry) -> None:
-        shelf = self._shelves[geometry]
-        shelf.made -= 1
-        self.bytes -= shelf.size
-        self._drop_if_empty(geometry)
-
-    def _drop_if_empty(self, geometry) -> None:
-        if self._shelves[geometry].made == 0:
-            del self._shelves[geometry]
-
-    def stage(self, meta) -> Optional[WireSlot]:
-        """A free slot of the meta's geometry with the meta copied in, or
-        None (also where a grid does not fit the bucket's: the device
-        thread's staging then raises as before)."""
-        geometry = wire_geometry(meta)
-        subsamp, h, w, grids = geometry
-        shapes = _wire_shapes(h, w, subsamp, WireSlot.PLANES)
-        if any(g[0] > r or g[1] > c for g, (r, c) in zip(grids, shapes)):
-            return None
-        slot = self._acquire(geometry)
-        if slot is None:
-            return None
-        try:
-            return slot.fill(meta)
-        except BaseException:
-            self.release([slot])
-            raise
-
-    def release(self, slots) -> None:
-        """Hand slots back for reuse: nothing reads them any more. A slot
-        not out of the pool is left alone."""
-        with self._lock:
-            for slot in slots:
-                if slot.state == "out":
-                    slot.state, slot.meta = "free", None
-                    self._shelves[slot.geometry].free.append(slot)
-
-    def discard(self, slots) -> None:
-        """Forget slots that something may still read (each out of the
-        pool; others are left alone)."""
-        with self._lock:
-            for slot in slots:
-                if slot.state == "out":
-                    slot.state = "gone"
-                    self._forget(slot.geometry)
 
 
 class CoefBatchAssembly(BatchAssembly):
@@ -707,31 +578,26 @@ class CoefBatchAssembly(BatchAssembly):
 
     The wire is the simplest lossless one: int16 natural-order block
     grids, zero-padded to the bucket's block grid (luma bucket_h16 / 8
-    by bucket_w / 8, chroma divided by chroma_divisors), uploaded as one
-    buffer, and the quant tables as (B, 2, 64) int32. The kernel reads
+    by bucket_w / 8, chroma divided by chroma_divisors), and the quant
+    tables as (B, 2, 64) int32. Each real image's share of it is a
+    WireSlot of its own, which the batch uploads alone; the kernel reads
     only the blocks of the true rect of the batch's real images."""
 
-    PLANES = WireSlot.PLANES  # the meta's block grids, in wire order
+    PLANES = _PLANES
 
     def __init__(self, plans, payloads, device: torch.device, jpeg420=False,
                  fold=False, fast=False):
         """payloads: read_jpeg_coeffs dicts (either package's), all of one
-        (w, h) and subsamp, or WireSlots staged from such dicts
-        (`WireSlotPool.stage`). jpeg420: as for BatchAssembly. fold: take
-        the folded decode-resize (`tpu.fast_decode`) where the batch
-        allows it: uniform, with no grayscale or invert, which need the
-        decoded pixels (the gate of fanlin_tpu/ops/fused.py:1737-1744).
-        fast: as for BatchAssembly, K11's AC pairs included.
-
-        With no WireSlot among the payloads the wire is staged here, as
-        one zeroed buffer of the bucket's layout. With one or more, the
-        batch uploads its real images' slots alone (`device_wire`), each
-        dict among the payloads staged here into a slot of its own; the
-        pool's slots are listed in `slots`, for their owner to hand back
-        once the batch's upload has finished."""
+        (w, h) and subsamp, or WireSlots made from such dicts (the
+        batcher's `prestage`); each dict is staged here into a slot of
+        its own. jpeg420: as for BatchAssembly. fold: take the folded
+        decode-resize (`tpu.fast_decode`) where the batch allows it:
+        uniform, with no grayscale or invert, which need the decoded
+        pixels (the gate of fanlin_tpu/ops/fused.py:1737-1744). fast: as
+        for BatchAssembly, K11's AC pairs included."""
         if len(plans) != len(payloads) or not plans:
             raise ValueError("one plan per source, at least one source")
-        metas = [p.meta if isinstance(p, WireSlot) else p for p in payloads]
+        metas = [_meta(p) for p in payloads]
         m0 = metas[0]
         self.true_h, self.true_w, self.subsamp = m0["h"], m0["w"], m0["subsamp"]
         if any((m["h"], m["w"], m["subsamp"]) !=
@@ -762,51 +628,19 @@ class CoefBatchAssembly(BatchAssembly):
                                                          p0.invert)
         self._shapes = _wire_shapes(self.true_h, self.true_w, self.subsamp,
                                     self.PLANES)
-        self.slots: List[WireSlot] = [p for p in payloads
-                                      if isinstance(p, WireSlot)]
-        self._wires = None
-        if self.slots:
-            self._stage_slots(payloads)
-        else:
-            self._stage_wire(metas)
+        # the real images' wires, in batch order: the given slots, and a
+        # slot staged here for each dict
+        pinned = device.type == "cuda"
+        self.wires = [p if isinstance(p, WireSlot) else WireSlot(p, pinned)
+                      for p in payloads]
+        self.q = np.zeros((self.b, 2, 64), np.int32)
+        for i, wire in enumerate(self.wires):
+            self.q[i] = wire.q
         (self.flags, self.fill, self.box,
          self.av, self.ah, self.bv, self.bh) = _pack_params(
             plans, self.b, self.sh, self.sw, self.oh, self.ow,
             self.uniform, self.has_blur, zeros=self._io.zeros,
         )
-
-    def _stage_wire(self, metas) -> None:
-        """The whole wire in one zeroed buffer of the bucket's layout."""
-        self.coef = self._io.zeros(
-            self.b * sum(h * w for h, w in self._shapes) * 64, np.int16)
-        self._spans = []
-        at = 0
-        grids = []
-        for h, w in self._shapes:
-            n = self.b * h * w * 64
-            self._spans.append((at, at + n, (self.b, h, w, 64)))
-            grids.append(self.coef[at:at + n].reshape(self.b, h, w, 64))
-            at += n
-        self.q = self._io.zeros((self.b, 2, 64), np.int32)
-        for i, m in enumerate(metas):
-            for grid, key in zip(grids, self.PLANES):
-                g = m[key]
-                grid[i, : g.shape[0], : g.shape[1]] = g
-            self.q[i, 0] = m["lq"]
-            self.q[i, 1] = m["cq"]
-
-    def _stage_slots(self, payloads) -> None:
-        """One slot per real image: the given ones, and one staged here
-        for each dict (its buffer a pinned allocation of this batch). The
-        metas share (subsamp, h, w), so every slot has the batch's
-        layout."""
-        pinned = self.device.type == "cuda"
-        self._wires = [p if isinstance(p, WireSlot)
-                       else WireSlot(wire_geometry(p), pinned).fill(p)
-                       for p in payloads]
-        self.q = np.zeros((self.b, 2, 64), np.int32)
-        for i, wire in enumerate(self._wires):
-            self.q[i] = wire.q
 
     def uses_kernel(self) -> bool:
         """A folded batch launches neither the decode kernel nor the
@@ -815,56 +649,47 @@ class CoefBatchAssembly(BatchAssembly):
 
     @property
     def upload_bytes(self) -> int:
-        """Host->device bytes of the coefficient wire (blocks + tables)."""
-        if self._wires is not None:
-            return sum(w.nbytes for w in self._wires)
-        return self.coef.nbytes + self.q.nbytes
+        """Host->device bytes of the coefficient wire: the real images'
+        slots (blocks + tables)."""
+        return sum(w.nbytes for w in self.wires)
 
     def host_grids(self):
         """The staged block grids of PLANES, (B, rows, cols, 64) int16
-        views of the wire (the host mirror decodes them); from slots,
-        copies in the same layout."""
-        if self._wires is None:
-            return [self.coef[a:b].reshape(shape)
-                    for a, b, shape in self._spans]
+        copies of the slots' (the host mirror decodes them)."""
         grids = [np.zeros((self.b, h, w, 64), np.int16)
                  for h, w in self._shapes]
-        for i, wire in enumerate(self._wires):
+        for i, wire in enumerate(self.wires):
             for grid, g in zip(grids, wire.grids):
                 grid[i] = g
         return grids
 
+    def _wire_zeroed(self) -> bool:
+        """Whether the device wire must be zeroed before the slots are
+        copied in: the decode kernels read the blocks of the real images'
+        true rects alone, which the slots hold, so on CUDA it is not; the
+        folded route and the CPU's plain decode read the bucket's padding
+        images too."""
+        return self.fold or self.device.type != "cuda"
+
     def device_wire(self):
         """Upload the wire: the block grids of PLANES, then q, on the
-        device, the grids as views of one uploaded buffer."""
-        if self._wires is not None:
-            return self._device_wire_from_slots()
-        flat = self._io.upload(self.coef)
-        q = self._io.upload(self.q)
-        return (*(flat[a:b].view(shape) for a, b, shape in self._spans), q)
-
-    def _device_wire_from_slots(self):
-        """The wire in the bucket's layout on the device, each real
+        device, views of one buffer in the bucket's layout, each real
         image's slot copied in (one non-blocking copy a plane, and one of
-        its tables). The decode kernel reads the blocks of the real
-        images' true rects alone, which the slots hold, so on CUDA the
-        buffer is not zeroed; the folded route and the CPU's plain decode
-        read the bucket's padding images too, and get a zeroed one."""
+        its tables)."""
         b = self.b
         sizes = [h * w * 64 for h, w in self._shapes]  # int16 words
         q_words = _Q_BYTES // 2
-        make = (torch.empty if self.device.type == "cuda" and not self.fold
-                else torch.zeros)
+        make = torch.zeros if self._wire_zeroed() else torch.empty
         flat = make(b * (sum(sizes) + q_words), dtype=torch.int16,
                     device=self.device)
         out, at = [], 0
         for p, ((h, w), n) in enumerate(zip(self._shapes, sizes)):
-            for i, wire in enumerate(self._wires):
+            for i, wire in enumerate(self.wires):
                 flat[at + i * n: at + (i + 1) * n].copy_(wire.planes[p],
                                                          non_blocking=True)
             out.append(flat[at: at + b * n].view(b, h, w, 64))
             at += b * n
-        for i, wire in enumerate(self._wires):
+        for i, wire in enumerate(self.wires):
             flat[at + i * q_words: at + (i + 1) * q_words].copy_(
                 wire.q_words, non_blocking=True)
         out.append(flat[at:].view(torch.int32).view(b, 2, 64))
@@ -926,12 +751,14 @@ class CmykCoefBatchAssembly(CoefBatchAssembly):
     As in the reference there is no folded variant (the LUT is not
     linear)."""
 
-    PLANES = ("y", "cb", "cr", "k")
+    PLANES = _CMYK_PLANES
 
-    def __init__(self, plans, metas, device: torch.device, jpeg420=False,
+    def __init__(self, plans, payloads, device: torch.device, jpeg420=False,
                  fast=False):
-        """metas: read_jpeg_coeffs4 dicts (either package's) with a LUT
-        attached, all of one geometry, layout and colour transform."""
+        """payloads: read_jpeg_coeffs4 dicts (either package's) with a LUT
+        attached, all of one geometry, layout and colour transform, or
+        WireSlots made from such dicts."""
+        metas = [_meta(p) for p in payloads]
         if not metas or not all(isinstance(m, dict) and m.get("cmyk")
                                 for m in metas):
             raise ValueError("a CMYK batch takes read_jpeg_coeffs4 dicts")
@@ -946,7 +773,7 @@ class CmykCoefBatchAssembly(CoefBatchAssembly):
         self.ycck = bool(m0["ycck"])
         if any(bool(m["ycck"]) != self.ycck for m in metas):
             raise ValueError("a CMYK batch holds one colour transform")
-        super().__init__(plans, metas, device, jpeg420, fast=fast)
+        super().__init__(plans, payloads, device, jpeg420, fast=fast)
 
     def _device_x(self):
         """Upload the block grids, then decode them and convert them
@@ -997,9 +824,10 @@ def make_assembly(plans, payloads, kinds, device: torch.device, *,
     "coef440", each optionally with FOLD_SUFFIX (the folded
     decode-resize) and with "+jpeg420", "+webp420", "+png:N" or
     "+jpegdct:Q", for coefficient sources (payloads are read_jpeg_coeffs
-    dicts); "cmyk444", "cmyk420" (+ "y" for YCCK, + "@<key>" for an
-    embedded profile's LUT), with the same sinks, for 4-component sources
-    (read_jpeg_coeffs4 dicts carrying their LUT). fast: the resample
+    dicts or their WireSlots); "cmyk444", "cmyk420" (+ "y" for YCCK, +
+    "@<key>" for an embedded profile's LUT), with the same sinks, for
+    4-component sources (read_jpeg_coeffs4 dicts carrying their LUT, or
+    their WireSlots). fast: the resample
     products in bf16 (`tpu.fast`), whatever the kind."""
     k0 = kinds[0] if kinds else "rgb"
     base, _, sink = k0.partition("+")
@@ -1008,7 +836,7 @@ def make_assembly(plans, payloads, kinds, device: torch.device, *,
         subsamp, ycck = int(cmyk.group(1)), bool(cmyk.group(2))
         if not all(isinstance(m, dict) and m.get("cmyk")
                    and (m["subsamp"], bool(m["ycck"])) == (subsamp, ycck)
-                   for m in payloads):
+                   for m in map(_meta, payloads)):
             raise ValueError(f"batch kind {k0!r} takes read_jpeg_coeffs4 "
                              f"dicts of subsamp {subsamp}, ycck {ycck}")
         return CmykCoefBatchAssembly(plans, payloads, device,

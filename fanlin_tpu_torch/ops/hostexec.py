@@ -11,9 +11,9 @@ only the tests run.
 
 It reads the host arrays an assembly stages (`BatchAssembly.x`, flags,
 fill, box and the per-image matrices; a coefficient batch's block grids
-and tables, `CoefBatchAssembly.host_grids()`), which are pinned buffers
-on CUDA, so a batch whose device call stalled is mirrored from the same
-bytes it uploaded, and returns exactly what `collect()` returns.
+and tables, `CoefBatchAssembly.host_grids()`, copied from its pinned
+wire slots), so a batch whose device call stalled is mirrored from the
+same bytes it uploaded, and returns exactly what `collect()` returns.
 
 Numerics: the decode of a coefficient batch (`ops.host_decode`) is the
 kernels' integer arithmetic, so its planes equal `jpeg_decode_rgb`'s and

@@ -459,8 +459,7 @@ def make_batcher(cfg: config_mod.Config, device: torch.device) -> MicroBatcher:
         cfg.tpu.max_batch, cfg.tpu.batch_window_ms, device=device,
         pipeline_depth=cfg.tpu.pipeline_depth, max_queue=cfg.tpu.max_queue,
         fast=cfg.tpu.fast, host_fallback=cfg.tpu.host_fallback,
-        device_stall_s=cfg.tpu.device_stall_s,
-        codec_threads=cfg.tpu.codec_threads)
+        device_stall_s=cfg.tpu.device_stall_s)
 
 
 async def build_state(cfg: config_mod.Config,

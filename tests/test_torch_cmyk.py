@@ -117,20 +117,22 @@ def _kind(meta):
 QS = "w=60&h=44"
 
 
+@pytest.mark.parametrize("payload", ["dict", "slot"])
 @pytest.mark.parametrize("name", SOURCES)
 @pytest.mark.parametrize("qs", [QS, "w=50&h=50&crop=true&blur=1",
                                 "w=64&h=40&rgb=9,8,7"])
-def test_assembly_matches_jax(name, qs):
-    """The pixel result of a CMYK batch against the JAX
-    CmykCoefBatchAssembly on the same metas and LUT (1 LSB, 0.5 %), and
-    byte-equal to the port's pixel route (the decoded CMYK pixels through
-    the same LUT)."""
+def test_assembly_matches_jax(name, qs, payload):
+    """The pixel result of a CMYK batch, staged from the dict or
+    prestaged in a WireSlot, against the JAX CmykCoefBatchAssembly on the
+    same metas and LUT (1 LSB, 0.5 %), and byte-equal to the port's pixel
+    route (the decoded CMYK pixels through the same LUT)."""
     data = _source(name)
     lut = _lut()
     meta = _meta(data, lut)
     plan = tplan.plan_image(meta["w"], meta["h"], parse_query(qs),
                             opaque=True)
-    got = tfused.make_assembly([plan], [meta], [_kind(meta)], CPU).run()[0]
+    src = meta if payload == "dict" else tfused.WireSlot(meta, pinned=False)
+    got = tfused.make_assembly([plan], [src], [_kind(meta)], CPU).run()[0]
     jplan = jfused.plan_image(meta["w"], meta["h"], jparse_query(qs),
                               opaque=True)
     want = jfused.make_assembly([jplan], [meta], [_kind(meta)]).run()[0]

@@ -162,7 +162,9 @@ def test_coef_wire_is_padded_int16_blocks():
     meta = read_jpeg_coeffs(_golden("lenna"))  # 512 x 512, 4:4:4
     plan = tplan.plan_image(512, 512, parse_query("w=300&h=200"), opaque=True)
     asm = tfused.CoefBatchAssembly([plan], [meta], CPU)
-    assert asm.coef.dtype == np.int16
+    slot, = asm.wires
+    assert [g.dtype for g in slot.grids] == [np.int16] * 3
+    assert [g.shape for g in slot.grids] == [(64, 64, 64)] * 3
     assert asm.upload_bytes == 3 * 512 * 512 * 2 + 2 * 64 * 4
     assert (asm.sh, asm.sw) == (tplan.bucket_h(512), tplan.bucket_w(512))
 
