@@ -29,14 +29,20 @@ Phases (each failure exits non-zero; nothing is caught):
      prestaged pinned wire slots (the unzeroed device wire, its padding
      images poisoned): 0 differing decode bytes against the plain
      version of a zeroed wire and the same served images as the
-     dict-staged batch; a slot dropped while its upload waits behind a
+     dict-staged batch; each batch again read by the serving engine's
+     slot route (the entropy reader writing each image straight into a
+     pinned slot; a JPEG of the shape's geometry where the shape has
+     none), 0 differing decode bytes against the dict route of the same
+     JPEG, the 12 MP slots' first in the block of a dropped camera slot
+     filled with 0x7F; a slot dropped while its upload waits behind a
      long kernel is not reused before the copy (torch's caching host
      allocator), 0 differing decode bytes; at lenna B=1 and B=8,
      synth B=16 and 12 MP B=2 its CUDA event ms over many launches,
      device ms from torch.profiler, host enqueue ms over 50 calls without
      a synchronize and plain ms, the bytes and int32 operations each
-     shape needs, its bound and the share reached; the reader's host ms
-     per image and the wire's bytes per image
+     shape needs, its bound and the share reached; the host ms per image
+     of the reader, the dict route and the slot route, in turns, and the
+     wire's bytes per image
   3. the golden floors of tests/test_golden_parity.py on tests/golden
      through both source paths: the pre-encode floor through the pixel
      and the coefficient assemblies, then the encoded floor through
@@ -718,6 +724,47 @@ def _decode_source(kind: str, rng):
     return meta, data
 
 
+def _route_jpeg(meta, data, rng) -> bytes:
+    """A JPEG of a DECODE_SHAPES source's geometry: its own stream, else
+    a seeded photo at its dims and layout (4:4:0: a 4:2:2 stream of the
+    transposed dims whose SOF is rewritten to the 4:4:0 dims and factors,
+    the same count of 2-luma-block MCUs)."""
+    from PIL import Image
+
+    if data is not None:
+        return data
+    w, h, subsamp = meta["w"], meta["h"], meta["subsamp"]
+    if meta["gray"]:
+        buf = io.BytesIO()
+        Image.fromarray(_photo(w, h, rng)).convert("L").save(
+            buf, format="JPEG", quality=85)
+        return buf.getvalue()
+    if subsamp != 440:
+        return _jpeg(_photo(w, h, rng), quality=85,
+                     subsampling={444: 0, 422: 1, 420: 2}[subsamp])
+    out = bytearray(_jpeg(_photo(h, w, rng), quality=85, subsampling=1))
+    sof = out.index(b"\xff\xc0")
+    out[sof + 5:sof + 9] = h.to_bytes(2, "big") + w.to_bytes(2, "big")
+    check(out[sof + 11] == 0x21, "a 4:2:2 stream expected")
+    out[sof + 11] = 0x12
+    return bytes(out)
+
+
+def _slot_read(data, pinned=True):
+    """The serving engine's slot route: a pinned slot of the stream's
+    geometry, the reader writing straight into it."""
+    from fanlin_tpu_torch.engine import jpeg_coeffs
+    from fanlin_tpu_torch.ops import fused
+
+    head = jpeg_coeffs.read_header(data)
+    check(head is not None, "the reader refused a header")
+    slot = fused.WireSlot.empty(head.h, head.w, head.subsamp, head.grids,
+                                pinned)
+    check(jpeg_coeffs.read_into_slot(data, head, slot),
+          "the reader refused a stream it read as a dict")
+    return slot
+
+
 def _bytes_differing(a, b) -> tuple:
     check(a.shape == b.shape and a.dtype == b.dtype,
           f"shape {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}")
@@ -930,6 +977,35 @@ def phase2b(dev: torch.device) -> dict:
         check(slot_diff[0] == 0 and served,
               f"{name}: a slot batch differs from the plain decode or from "
               "the dict-staged batch")
+        # the same geometry read by the slot route and by the dict route
+        jpeg = _route_jpeg(meta, data, rng)
+        rmeta = read_jpeg_coeffs(jpeg)
+        dasm = fused.CoefBatchAssembly([plan] * images, [rmeta] * images, dev)
+        reused = None
+        if kind == "12mp":
+            # a dropped camera slot's block, poisoned, handed to the first
+            # slot read: the reader alone must clear what it held
+            old = _slot_read(jpeg)
+            old.buf.fill_(0x7F)
+            ptr = old.buf.data_ptr()
+            del old
+            first = _slot_read(jpeg)
+            reused = first.buf.data_ptr() == ptr
+            rslots = [first] + [_slot_read(jpeg) for _ in range(images - 1)]
+        else:
+            rslots = [_slot_read(jpeg) for _ in range(images)]
+        rasm = fused.CoefBatchAssembly([plan] * images, rslots, dev)
+        route_diff = _bytes_differing(
+            jk.jpeg_decode_rgb(*rasm.device_wire(), *dec),
+            jk.jpeg_decode_rgb(*dasm.device_wire(), *dec))
+        print(f"phase2b {name} slot route: decode bytes differing "
+              f"{route_diff[0]} from the dict route ({len(jpeg)} B JPEG"
+              + ("" if reused is None else
+                 f", a dropped camera slot's block reused: {reused}")
+              + ")", flush=True)
+        check(route_diff[0] == 0 and reused is not False,
+              f"{name}: the slot route differs from the dict route, or the "
+              "camera slot's block was not reused")
         res = {"err": fused_diff[1]}
         if timed:
             big = kind == "12mp"
@@ -957,14 +1033,24 @@ def phase2b(dev: torch.device) -> dict:
                   "event time", flush=True)
         if name in ("lenna444_b1", "12mp420_b2"):
             reps = 20 if kind == "lenna" else 5
-            host = []
+            routes = {
+                "reader": lambda: read_jpeg_coeffs(data),
+                "dict route": lambda: fused.WireSlot(read_jpeg_coeffs(data),
+                                                     pinned=True),
+                "slot route": lambda: _slot_read(data),
+            }
+            host = {r: [] for r in routes}
+            order = list(routes) + list(routes)[::-1]
             for _ in range(reps + 1):
-                t0 = time.perf_counter()
-                read_jpeg_coeffs(data)
-                host.append((time.perf_counter() - t0) * 1000.0)
-            print(f"phase2b {name} reader host ms per image (median of "
-                  f"{reps}): {statistics.median(host[1:]):.4f}, "
-                  f"{len(data)} B of JPEG", flush=True)
+                for r in order:
+                    t0 = time.perf_counter()
+                    routes[r]()
+                    host[r].append((time.perf_counter() - t0) * 1000.0)
+            print(f"phase2b {name} host ms per image (median of "
+                  f"{2 * reps}, in turns): " + ", ".join(
+                      f"{r} {statistics.median(t[2:]):.4f}"
+                      for r, t in host.items())
+                  + f"; {len(data)} B of JPEG", flush=True)
         results[name] = res
     for s in (420, 422, 440, 444):
         share = halo_share(s, *jk.decode_tile(s))
@@ -1167,9 +1253,12 @@ async def _phase4(dev: torch.device) -> None:
             async with s.get(base + "/stats") as r:
                 stats = await r.text()
                 print("phase4 /stats", stats, flush=True)
-                check(json.loads(stats)["engine"]["coef_src"] > 0,
+                engine = json.loads(stats)["engine"]
+                check(engine["coef_src"] > 0,
                       "the server served no JPEG through the coefficient "
                       "path")
+                check(engine["slot_reads"] == engine["coef_src"],
+                      "a JPEG of the batching server took the dict route")
     finally:
         await runner.cleanup()
     print("phase4 ping, jpeg 300x200, webp, blur, 404, coef_src: ok",

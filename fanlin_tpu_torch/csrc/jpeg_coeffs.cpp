@@ -34,10 +34,21 @@
 // non-zero, and the caller decodes pixels. Like
 // fc_read_jpeg_coeffs it returns 2 for CMYK/YCCK/RGB colour spaces,
 // sampling layouts outside 4:2:0/4:2:2/4:4:0/4:4:4, per-component
-// chroma quant tables and coefficient blobs over 512 MiB.
+// chroma quant tables and coefficient planes over 512 MiB.
 //
-// fanlin_read_jpeg_coeffs4 is the 4-component twin (fc_read_jpeg_coeffs4,
-// native/fanlin_codec.cpp:678-770): the colour space of libjpeg's
+// Output: two calls. The header call parses the markers up to the first
+// SOS and gives the dims, each component's true block grid and the
+// layout (or the refusal). The decode call parses them again and writes
+// each component's true grid straight into a plane the caller owns (a
+// pointer and a row stride in blocks each), so no coefficient is copied:
+// a block is zeroed just before the first scan that covers its
+// component visits it (the stream sets only its non-zero coefficients,
+// and a caller's plane may hold anything), a component no scan covers
+// is zeroed at the end, and the dummy blocks of an interleaved scan past
+// a grid are decoded into one scratch block and dropped.
+//
+// With `four` set, both calls take the 4-component form
+// (fc_read_jpeg_coeffs4, native/fanlin_codec.cpp:678-770): the colour space of libjpeg's
 // default_decompress_parms for four components (no Adobe marker or
 // Adobe transform 0: CMYK; any other transform: YCCK), plain CMYK with
 // every component 1x1, YCCK with comp0 and comp3 at 1x1 or 2x2 and the
@@ -55,9 +66,7 @@
 // (build_host) and bound in fanlin_tpu_torch/engine/jpeg_coeffs.py.
 
 #include <cstdint>
-#include <cstdlib>
 #include <cstring>
-#include <vector>
 
 namespace {
 
@@ -164,18 +173,29 @@ bool derive(HuffTable& t, bool is_dc) {
 struct Component {
   int id, h, v, tq;
   int wib, hib;      // width_in_blocks, height_in_blocks
-  int pw, ph;        // grid allocated: rounded up to h, v multiples
   int dc_tbl, ac_tbl;
-  std::vector<int16_t> grid;  // ph * pw * 64, natural order
+  int16_t* dst = nullptr;  // the caller's plane: hib rows of wib blocks,
+  size_t stride = 0;       // `stride` blocks apart, natural order
+  bool seen = false;       // a scan has covered it (its blocks zeroed)
+
+  int16_t* block(int by, int bx) const {
+    return dst + (static_cast<size_t>(by) * stride + bx) * 64;
+  }
 };
 
 class Reader {
  public:
   Reader(const uint8_t* data, size_t len) : d_(data), n_(len) {}
 
-  // 0 on success; fills the outputs like fc_read_jpeg_coeffs, or with
-  // four, like fc_read_jpeg_coeffs4.
-  int run(bool four, int16_t** out, int* info, uint16_t* qtables);
+  // Parse up to the first SOS: 0 and info[0..7] = width, height, ybw,
+  // ybh, cbw, cbh, subsamp, ycck (fc_read_jpeg_coeffs' layout, or with
+  // four fc_read_jpeg_coeffs4's), else the refusal.
+  int header(bool four, int* info);
+  // After header: decode every scan into the planes (one per component,
+  // comp0 first; one for gray) and give the quant tables at EOI. rows
+  // and cols must be each component's true grid, strides at least cols.
+  int decode(int16_t* const* planes, const int* strides, const int* rows,
+             const int* cols, uint16_t* qtables);
 
  private:
   const uint8_t* d_;
@@ -208,6 +228,7 @@ class Reader {
   int restart_interval_ = 0;
   bool multiple_scans_ = false;
   bool progressive_ = false;
+  bool is_gray_ = false;
 
   // frame
   int width_ = 0, height_ = 0, ncomp_ = 0;
@@ -230,6 +251,8 @@ class Reader {
   uint64_t buf_ = 0;
   int bits_left_ = 0;
   bool insufficient_ = false;
+
+  int16_t scratch_[64];  // where dummy blocks past a grid decode
 
   int read_markers();  // returns the marker that stopped it: SOS or EOI
   int next_marker();
@@ -633,9 +656,11 @@ void Reader::process_restart() {
 // and call decode(block, i) for each block of scan component i. A
 // non-interleaved scan covers exactly the component's block grid; an
 // interleaved one covers whole MCUs, so blocks past the grid (inside
-// the grid's padding to whole MCUs) are decoded too. With
-// skip_when_insufficient, an MCU that starts after the data ran out is
-// left as it is (jdhuff/jdphuff's insufficient_data).
+// the grid's padding to whole MCUs) are decoded too, into scratch_.
+// With skip_when_insufficient, an MCU that starts after the data ran out
+// is left as it is (jdhuff/jdphuff's insufficient_data). The first scan
+// that covers a component zeroes each of its blocks as it reaches it,
+// skipped or not: every scan of a component covers its whole grid.
 template <typename F>
 void Reader::for_each_mcu(bool skip_when_insufficient, F&& decode) {
   buf_ = 0;
@@ -644,6 +669,8 @@ void Reader::for_each_mcu(bool skip_when_insufficient, F&& decode) {
   eobrun_ = 0;
   for (int i = 0; i < 4; ++i) last_dc_[i] = 0;
   int restarts_to_go = restart_interval_;
+  bool fresh[4];
+  for (int i = 0; i < scan_n_; ++i) fresh[i] = !scan_[i]->seen;
   auto mcu_start = [&]() {
     if (restart_interval_ && restarts_to_go == 0) {
       process_restart();
@@ -651,46 +678,48 @@ void Reader::for_each_mcu(bool skip_when_insufficient, F&& decode) {
       eobrun_ = 0;
       restarts_to_go = restart_interval_;
     }
-  };
-  auto mcu_end = [&]() {
     if (restart_interval_) --restarts_to_go;
+    return !(skip_when_insufficient && insufficient_);
+  };
+  auto visit = [&](int i, int by, int bx, bool run) {
+    const Component& c = *scan_[i];
+    int16_t* block;
+    if (by < c.hib && bx < c.wib) {
+      block = c.block(by, bx);
+      if (fresh[i]) memset(block, 0, 64 * sizeof(int16_t));
+    } else {
+      block = scratch_;
+      memset(block, 0, sizeof(scratch_));
+    }
+    if (run) decode(block, i);
   };
 
   if (scan_n_ == 1) {
-    Component& c = *scan_[0];
+    const Component& c = *scan_[0];
     for (int by = 0; by < c.hib; ++by) {
-      for (int bx = 0; bx < c.wib; ++bx) {
-        mcu_start();
-        if (!(skip_when_insufficient && insufficient_)) {
-          decode(&c.grid[(static_cast<size_t>(by) * c.pw + bx) * 64], 0);
-        }
-        mcu_end();
-      }
+      for (int bx = 0; bx < c.wib; ++bx) visit(0, by, bx, mcu_start());
     }
-    return;
-  }
-  int blocks = 0;
-  for (int i = 0; i < scan_n_; ++i) blocks += scan_[i]->h * scan_[i]->v;
-  if (blocks > 10) fail();  // D_MAX_BLOCKS_IN_MCU
-  const int mcus_x = (width_ + max_h_ * 8 - 1) / (max_h_ * 8);
-  const int mcus_y = (height_ + max_v_ * 8 - 1) / (max_v_ * 8);
-  for (int my = 0; my < mcus_y; ++my) {
-    for (int mx = 0; mx < mcus_x; ++mx) {
-      mcu_start();
-      if (!(skip_when_insufficient && insufficient_)) {
+  } else {
+    int blocks = 0;
+    for (int i = 0; i < scan_n_; ++i) blocks += scan_[i]->h * scan_[i]->v;
+    if (blocks > 10) fail();  // D_MAX_BLOCKS_IN_MCU
+    const int mcus_x = (width_ + max_h_ * 8 - 1) / (max_h_ * 8);
+    const int mcus_y = (height_ + max_v_ * 8 - 1) / (max_v_ * 8);
+    for (int my = 0; my < mcus_y; ++my) {
+      for (int mx = 0; mx < mcus_x; ++mx) {
+        const bool run = mcu_start();
         for (int i = 0; i < scan_n_; ++i) {
-          Component& c = *scan_[i];
+          const Component& c = *scan_[i];
           for (int yy = 0; yy < c.v; ++yy) {
-            const size_t row = static_cast<size_t>(my * c.v + yy) * c.pw;
             for (int xx = 0; xx < c.h; ++xx) {
-              decode(&c.grid[(row + mx * c.h + xx) * 64], i);
+              visit(i, my * c.v + yy, mx * c.h + xx, run);
             }
           }
         }
       }
-      mcu_end();
     }
   }
+  for (int i = 0; i < scan_n_; ++i) scan_[i]->seen = true;
 }
 
 // jdphuff.c decode_mcu_DC_first, one block
@@ -827,15 +856,15 @@ void Reader::decode_scan() {
   }
 }
 
-int Reader::run(bool four, int16_t** out, int* info, uint16_t* qtables) {
+int Reader::header(bool four, int* info) {
   if (read_markers() != 0xDA) fail();  // JERR_NO_IMAGE
   // jdapimin.c default_decompress_parms: the colour space
-  bool is_gray = false, ycck = false;
+  bool ycck = false;
   if (four) {
     if (ncomp_ != 4) return 2;
     ycck = saw_adobe_ && adobe_transform_ != 0;
   } else if (ncomp_ == 1) {
-    is_gray = true;
+    is_gray_ = true;
   } else if (ncomp_ == 3) {
     bool ycc = true;
     if (saw_jfif_) {
@@ -860,7 +889,7 @@ int Reader::run(bool four, int16_t** out, int* info, uint16_t* qtables) {
                     c[3].tq == c[0].tq;
     if (!ok) return 2;
     subsamp = full ? 444 : 420;
-  } else if (!is_gray) {
+  } else if (!is_gray_) {
     const Component* c = comp_;
     const int h0 = c[0].h, v0 = c[0].v;
     const bool ok = ((h0 == 1 || h0 == 2) && (v0 == 1 || v0 == 2)) &&
@@ -879,11 +908,27 @@ int Reader::run(bool four, int16_t** out, int* info, uint16_t* qtables) {
     if (wp * hp * scale * sizeof(int16_t) > kMaxDecodeAlloc) return 2;
   }
   initial_setup();
-  for (int ci = 0; ci < ncomp_; ++ci) {
+  info[0] = width_;
+  info[1] = height_;
+  info[2] = comp_[0].wib;
+  info[3] = comp_[0].hib;
+  info[4] = is_gray_ ? 0 : comp_[1].wib;
+  info[5] = is_gray_ ? 0 : comp_[1].hib;
+  info[6] = subsamp;
+  info[7] = ycck ? 1 : 0;
+  return 0;
+}
+
+int Reader::decode(int16_t* const* planes, const int* strides,
+                   const int* rows, const int* cols, uint16_t* qtables) {
+  const int nplanes = is_gray_ ? 1 : ncomp_;
+  for (int ci = 0; ci < nplanes; ++ci) {
     Component& c = comp_[ci];
-    c.pw = (c.wib + c.h - 1) / c.h * c.h;
-    c.ph = (c.hib + c.v - 1) / c.v * c.v;
-    c.grid.assign(static_cast<size_t>(c.pw) * c.ph * 64, 0);
+    if (planes[ci] == nullptr || rows[ci] != c.hib || cols[ci] != c.wib ||
+        strides[ci] < cols[ci])
+      return 4;
+    c.dst = planes[ci];
+    c.stride = static_cast<size_t>(strides[ci]);
   }
   for (;;) {
     decode_scan();
@@ -891,41 +936,22 @@ int Reader::run(bool four, int16_t** out, int* info, uint16_t* qtables) {
     if (m == 0xD9) break;
     if (!multiple_scans_) fail();  // JERR_EOI_EXPECTED
   }
-  const int ntab = is_gray ? 1 : 2;
-  const int tq[2] = {comp_[0].tq, is_gray ? comp_[0].tq : comp_[1].tq};
-  for (int t = 0; t < ntab; ++t) {
+  const int tq[2] = {comp_[0].tq, is_gray_ ? comp_[0].tq : comp_[1].tq};
+  for (int t = 0; t < (is_gray_ ? 1 : 2); ++t) {
     if (tq[t] >= 4 || !qdefined_[tq[t]]) return 2;
   }
-  const int ybw = comp_[0].wib, ybh = comp_[0].hib;
-  const int cbw = is_gray ? 0 : comp_[1].wib, cbh = is_gray ? 0 : comp_[1].hib;
-  // comp3 (K) is at comp0's rate: its grid is comp0's size
-  const size_t total = ((four ? 2 : 1) * static_cast<size_t>(ybw) * ybh +
-                        2 * static_cast<size_t>(cbw) * cbh) *
-                       64;
-  int16_t* blob = static_cast<int16_t*>(malloc(total * sizeof(int16_t)));
-  if (blob == nullptr) return 3;
-  int16_t* dst = blob;
-  for (int ci = 0; ci < (is_gray ? 1 : ncomp_); ++ci) {
+  // a component no scan reached (the data ended first) stays zero
+  for (int ci = 0; ci < nplanes; ++ci) {
     const Component& c = comp_[ci];
-    for (int by = 0; by < c.hib; ++by) {
-      memcpy(dst, &c.grid[static_cast<size_t>(by) * c.pw * 64],
-             static_cast<size_t>(c.wib) * 64 * sizeof(int16_t));
-      dst += static_cast<size_t>(c.wib) * 64;
+    for (int by = 0; !c.seen && by < c.hib; ++by) {
+      memset(c.block(by, 0), 0, static_cast<size_t>(c.wib) * 64 *
+                                    sizeof(int16_t));
     }
   }
   for (int i = 0; i < 64; ++i) {
     qtables[i] = qtbl_[tq[0]][i];
     qtables[64 + i] = qtbl_[tq[1]][i];
   }
-  info[0] = width_;
-  info[1] = height_;
-  info[2] = ybw;
-  info[3] = ybh;
-  info[4] = cbw;
-  info[5] = cbh;
-  info[6] = subsamp;
-  if (four) info[7] = ycck ? 1 : 0;
-  *out = blob;
   return 0;
 }
 
@@ -933,18 +959,20 @@ int Reader::run(bool four, int16_t** out, int* info, uint16_t* qtables) {
 
 extern "C" {
 
-// Entropy-decode a JPEG: *out receives a malloc'd blob of y blocks
-// (ybh * ybw * 64) then cb and cr blocks (cbh * cbw * 64 each), int16 in
-// natural order; info[0..6] = width, height, ybw, ybh, cbw, cbh,
-// subsamp (400 for gray, with cbw = cbh = 0); qtables = luma then
-// chroma quant table, natural order. Returns 0, or non-zero when the
-// caller should decode pixels instead (2: colour space, layout or size
-// that fc_read_jpeg_coeffs also refuses).
-int fanlin_read_jpeg_coeffs(const uint8_t* data, size_t len, int16_t** out,
-                            int* info, uint16_t* qtables) {
+// Parse a JPEG's header (markers up to the first SOS): 0 and info[0..7]
+// = width, height, ybw, ybh, cbw, cbh, subsamp, ycck; the true block
+// grids are y ybh x ybw, cb and cr cbh x cbw, and with four k ybh x ybw.
+// subsamp is 420, 422, 440 or 444, 400 for gray (cbw = cbh = 0); with
+// four (the CMYK / YCCK form of fc_read_jpeg_coeffs4) 444 or 420 and
+// ycck 0 or 1 (the Adobe transform), else ycck is 0. Non-zero when the
+// caller should decode pixels instead (2: a colour space, layout or size
+// that fc_read_jpeg_coeffs, or fc_read_jpeg_coeffs4 with four, refuses;
+// with four also a stream of 1 or 3 components).
+int fanlin_jpeg_coeffs_header(const uint8_t* data, size_t len, int four,
+                              int* info) {
   try {
     Reader r(data, len);
-    return r.run(false, out, info, qtables);
+    return r.header(four != 0, info);
   } catch (const Fail& f) {
     return f.rc;
   } catch (...) {
@@ -952,25 +980,29 @@ int fanlin_read_jpeg_coeffs(const uint8_t* data, size_t len, int16_t** out,
   }
 }
 
-// The 4-component (CMYK / YCCK) reader: *out receives comp0 (y) blocks
-// (ybh * ybw * 64), comp1 (cb) and comp2 (cr) blocks (cbh * cbw * 64
-// each), then comp3 (k) blocks at comp0's grid (ybh * ybw * 64);
-// info[0..7] = width, height, ybw, ybh, cbw, cbh, subsamp (444 or 420),
-// ycck (0 or 1); qtables = comp0's then comp1's table. Returns 0, or
-// non-zero as fanlin_read_jpeg_coeffs (2: not 4 components, or a layout
-// or size that fc_read_jpeg_coeffs4 also refuses).
-int fanlin_read_jpeg_coeffs4(const uint8_t* data, size_t len, int16_t** out,
-                             int* info, uint16_t* qtables) {
+// Entropy-decode a JPEG into the caller's planes: one per component
+// (y, cb, cr, then k with four; y alone for gray), plane i holding
+// rows[i] x cols[i] blocks of 64 int16 in natural order, strides[i]
+// blocks from one row to the next. rows and cols must be the true grids
+// fanlin_jpeg_coeffs_header gives (4 otherwise); every block of them is
+// written, zeros included. qtables = the luma then the chroma quant
+// table at EOI (comp0's then comp1's with four), natural order. Returns
+// 0, or non-zero as fanlin_jpeg_coeffs_header, and for a stream that
+// fails inside its scans: the planes then hold nothing to read.
+int fanlin_jpeg_coeffs_decode(const uint8_t* data, size_t len, int four,
+                              int16_t* const* planes, const int* strides,
+                              const int* rows, const int* cols,
+                              uint16_t* qtables) {
   try {
     Reader r(data, len);
-    return r.run(true, out, info, qtables);
+    int info[8];
+    const int rc = r.header(four != 0, info);
+    return rc != 0 ? rc : r.decode(planes, strides, rows, cols, qtables);
   } catch (const Fail& f) {
     return f.rc;
   } catch (...) {
     return 3;
   }
 }
-
-void fanlin_free(void* p) { free(p); }
 
 }  // extern "C"

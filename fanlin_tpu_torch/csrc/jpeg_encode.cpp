@@ -314,4 +314,6 @@ int fanlin_encode_jpeg_coeffs(const int16_t* y, const int16_t* cb,
   }
 }
 
+void fanlin_free(void* p) { free(p); }
+
 }  // extern "C"

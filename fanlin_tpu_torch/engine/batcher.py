@@ -22,9 +22,10 @@ the batcher
   hands out the results, while the device thread submits the next
   batch; at most ``pipeline_depth`` batches sit between the halves;
 * lets the thread that submits a coefficient image stage its wire
-  first (`prestage`), into a pinned slot of its own, so the device
-  thread only enqueues that image's upload; the slot is freed with its
-  last holder (torch's caching host allocator reuses its block once the
+  first (`prestage`), into a pinned slot of its own (a dict copied in,
+  or an empty slot the entropy reader writes), so the device thread
+  only enqueues that image's upload; the slot is freed with its last
+  holder (torch's caching host allocator reuses its block once the
   upload has finished);
 * sheds entries whose request was abandoned (the gateway's cancel
   event) or whose deadline passed, before any staging or device work;
@@ -124,6 +125,7 @@ from ..ops import fused
 from ..ops import _build
 from ..ops.plan import ImagePlan, bucket_h, bucket_w
 from ..utils import profiling
+from . import jpeg_coeffs
 
 _logger = logging.getLogger("fanlin.batcher")
 
@@ -450,15 +452,23 @@ class MicroBatcher:
     # -- submission --------------------------------------------------------
 
     def prestage(self, meta):
-        """Stage a coefficient meta's wire into a pinned slot of its own
+        """Stage a coefficient image's wire into a pinned slot of its own
         on the calling thread (a codec thread, before it submits the
-        image): the `fused.WireSlot` to submit in the meta's place, or
-        the meta when no pinned memory is to be had (the device thread
-        then stages it). While a capture runs, a staged image is the
-        span `fanlin.assembly.prestage` of its request."""
+        image): a meta's grids and tables copied in, or, given a
+        `jpeg_coeffs.Header`, the empty slot of its geometry that the
+        reader then writes (`jpeg_coeffs.read_into_slot`). Returns the
+        `fused.WireSlot` to submit in the meta's place, or what it was
+        given when no pinned memory is to be had (the device thread then
+        stages a meta). While a capture runs, a staged image is the span
+        `fanlin.assembly.prestage` of its request."""
         t0 = time.perf_counter_ns()
+        pinned = self.device.type == "cuda"
         try:
-            slot = fused.WireSlot(meta, self.device.type == "cuda")
+            if isinstance(meta, jpeg_coeffs.Header):
+                slot = fused.WireSlot.empty(meta.h, meta.w, meta.subsamp,
+                                            meta.grids, pinned)
+            else:
+                slot = fused.WireSlot(meta, pinned)
         except RuntimeError:  # no pinned memory to be had
             return meta
         if profiling.on():

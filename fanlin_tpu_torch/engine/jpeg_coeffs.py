@@ -7,16 +7,108 @@ The port of fanlin_tpu/engine/native_codecs.py::read_jpeg_coeffs and
 ::read_jpeg_coeffs4, returning the same dicts: the port's assemblies
 take those functions' dicts unchanged. The reader is built with the host compiler at first
 use (`ops._build.load_host`); a failed build raises.
+
+The reader writes each coefficient once, into planes its caller owns:
+`read_header` gives a stream's geometry, `read_into` decodes it into
+planes of that geometry. The dict readers own numpy planes;
+`read_into_slot` writes into an image's own wire (`fused.WireSlot`), so
+that no plane is copied on its way to the device.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
 from ..ops import _build
+
+
+class Header(NamedTuple):
+    """A stream's geometry, from the reader's header call."""
+
+    w: int
+    h: int
+    subsamp: int  # 420, 422, 440, 444 (a gray source: 444, as its dict says)
+    gray: bool
+    ycck: bool  # the Adobe transform of a 4-component stream
+    # each component's true block grid (rows, cols), in plane order:
+    # y, cb, cr (and k for four components); y alone for gray
+    grids: Tuple[Tuple[int, int], ...]
+    four: bool
+
+
+def read_header(data: bytes, four: bool = False) -> Optional[Header]:
+    """Parse a JPEG's markers up to its first scan: its Header, or None
+    when the stream takes the pixel path (what `read_jpeg_coeffs`, or
+    with `four` `read_jpeg_coeffs4`, refuses from its header alone)."""
+    buf = bytes(data)
+    info = (ctypes.c_int * 8)()
+    if _build.load_host().fanlin_jpeg_coeffs_header(buf, len(buf), int(four),
+                                                   info) != 0:
+        return None
+    w, h, ybw, ybh, cbw, cbh, subsamp, ycck = info
+    gray = subsamp == 400
+    grids = ((ybh, ybw),) if gray else ((ybh, ybw), (cbh, cbw), (cbh, cbw))
+    if four:
+        grids += ((ybh, ybw),)
+    return Header(w, h, 444 if gray else subsamp, gray, bool(ycck), grids,
+                  four)
+
+
+def read_into(data: bytes, head: Header,
+              planes: List[np.ndarray]) -> Optional[np.ndarray]:
+    """Entropy-decode `data`, whose header is `head`, into `planes`: one
+    writable (rows, cols, 64) int16 view per grid of head.grids, blocks
+    contiguous (a row of a larger grid will do). Every block of them is
+    written, zeros included, whatever they held. Returns the (128,)
+    uint16 quant tables in natural order (luma then chroma; comp0's then
+    comp1's for four components), or None when the reader refuses the
+    stream inside its scans (the planes then hold nothing to read)."""
+    if len(planes) != len(head.grids):
+        raise ValueError(f"{len(head.grids)} planes expected")
+    for p, grid in zip(planes, head.grids):
+        if (p.dtype != np.int16 or p.shape != (*grid, 64)
+                or p.strides[1:] != (128, 2) or p.strides[0] % 128
+                or not p.flags.writeable):
+            raise ValueError(f"a plane of {grid} int16 blocks expected, got "
+                             f"{p.shape} {p.dtype} strides {p.strides}")
+    n = len(planes)
+    qt = np.empty(128, np.uint16)
+    buf = bytes(data)
+    rc = _build.load_host().fanlin_jpeg_coeffs_decode(
+        buf, len(buf), int(head.four),
+        (ctypes.c_void_p * n)(*(p.ctypes.data for p in planes)),
+        (ctypes.c_int * n)(*(p.strides[0] // 128 for p in planes)),
+        (ctypes.c_int * n)(*(r for r, _ in head.grids)),
+        (ctypes.c_int * n)(*(c for _, c in head.grids)), qt.ctypes.data)
+    return qt if rc == 0 else None
+
+
+def read_into_slot(data: bytes, head: Header, slot) -> bool:
+    """Entropy-decode `data`, whose header is `head`, straight into
+    `slot`, a `fused.WireSlot.empty` made for head: its true grids, its
+    tables and its meta (the dict `read_jpeg_coeffs` gives, with views of
+    the slot's grids). False when the reader refuses the stream: the
+    slot is then to be dropped."""
+    tables = read_into(data, head, slot.true_grids)
+    if tables is None:
+        return False
+    slot.hold(tables[:64], tables[64:], head.gray)
+    return True
+
+
+def _read(data: bytes, four: bool):
+    """(Header, planes at the true grids, tables), or None."""
+    head = read_header(data, four)
+    if head is None:
+        return None
+    planes = [np.empty((r, c, 64), np.int16) for r, c in head.grids]
+    tables = read_into(data, head, planes)
+    if tables is None:
+        return None
+    return head, planes, tables
 
 
 def read_jpeg_coeffs(data: bytes) -> Optional[dict]:
@@ -24,7 +116,7 @@ def read_jpeg_coeffs(data: bytes) -> Optional[dict]:
     progressive Huffman streams). Returns None when the stream should
     take the pixel path (arithmetic coding, 12-bit, no DHT segment,
     CMYK/RGB colour, a sampling layout outside 4:2:0/4:2:2/4:4:0/4:4:4,
-    separate chroma quant tables, a coefficient blob over 512 MiB, or
+    separate chroma quant tables, coefficient planes over 512 MiB, or
     bytes it cannot parse).
 
     Returns {y, cb, cr: (bh, bw, 64) int16 natural-order blocks;
@@ -33,36 +125,19 @@ def read_jpeg_coeffs(data: bytes) -> Optional[dict]:
     all-zero chroma at the luma grid's dims and subsamp 444 (zero
     coefficients decode to 128, and YCbCr(y, 128, 128) is r = g = b = y).
     """
-    lib = _build.load_host()
-    out = ctypes.POINTER(ctypes.c_int16)()
-    info = (ctypes.c_int * 7)()
-    qt = (ctypes.c_uint16 * 128)()
-    buf = bytes(data)
-    rc = lib.fanlin_read_jpeg_coeffs(buf, len(buf), ctypes.byref(out), info,
-                                     qt)
-    if rc != 0:
+    got = _read(data, False)
+    if got is None:
         return None
-    w, h, ybw, ybh, cbw, cbh, subsamp = info
-    try:
-        ny = ybh * ybw * 64
-        nc = cbh * cbw * 64
-        flat = np.ctypeslib.as_array(out, shape=(ny + 2 * nc,))
-        y = flat[:ny].reshape(ybh, ybw, 64).copy()
-        cb = flat[ny:ny + nc].reshape(cbh, cbw, 64).copy()
-        cr = flat[ny + nc:].reshape(cbh, cbw, 64).copy()
-    finally:
-        lib.fanlin_free(out)
-    tables = np.ctypeslib.as_array(qt)
-    gray = subsamp == 400
-    if gray:
-        cb = np.zeros((ybh, ybw, 64), np.int16)
-        cr = np.zeros((ybh, ybw, 64), np.int16)
+    head, planes, tables = got
+    if head.gray:
+        planes += [np.zeros_like(planes[0]), np.zeros_like(planes[0])]
+    y, cb, cr = planes
     return {
         "y": y, "cb": cb, "cr": cr,
-        "lq": tables[:64].copy(), "cq": tables[64:].copy(),
-        "w": w, "h": h,
-        "subsamp": 444 if gray else subsamp,
-        "gray": gray,
+        "lq": tables[:64], "cq": tables[64:],
+        "w": head.w, "h": head.h,
+        "subsamp": head.subsamp,
+        "gray": head.gray,
     }
 
 
@@ -70,37 +145,20 @@ def read_jpeg_coeffs4(data: bytes) -> Optional[dict]:
     """The 4-component (CMYK / YCCK) twin of read_jpeg_coeffs. Returns
     None for streams of 1 or 3 components, for layouts other than plain
     CMYK 4:4:4 and YCCK 4:4:4 or 4:2:0 (K at comp0's rate, comp2 on
-    comp1's quant table, comp3 on comp0's), for blobs over 512 MiB and
+    comp1's quant table, comp3 on comp0's), for planes over 512 MiB and
     for bytes it cannot parse.
 
     Returns {y, cb, cr: (bh, bw, 64) int16 natural-order blocks of comps
     0-2; k: (ybh, ybw, 64) int16 of comp3; lq, cq: (64,) uint16, comp0's
     and comp1's tables; w, h; subsamp: 444 or 420; ycck: bool (the Adobe
     transform); cmyk: True}."""
-    lib = _build.load_host()
-    out = ctypes.POINTER(ctypes.c_int16)()
-    info = (ctypes.c_int * 8)()
-    qt = (ctypes.c_uint16 * 128)()
-    buf = bytes(data)
-    rc = lib.fanlin_read_jpeg_coeffs4(buf, len(buf), ctypes.byref(out), info,
-                                      qt)
-    if rc != 0:
+    got = _read(data, True)
+    if got is None:
         return None
-    w, h, ybw, ybh, cbw, cbh, subsamp, ycck = info
-    try:
-        ny = ybh * ybw * 64
-        nc = cbh * cbw * 64
-        flat = np.ctypeslib.as_array(out, shape=(2 * ny + 2 * nc,))
-        y = flat[:ny].reshape(ybh, ybw, 64).copy()
-        cb = flat[ny:ny + nc].reshape(cbh, cbw, 64).copy()
-        cr = flat[ny + nc:ny + 2 * nc].reshape(cbh, cbw, 64).copy()
-        k = flat[ny + 2 * nc:].reshape(ybh, ybw, 64).copy()
-    finally:
-        lib.fanlin_free(out)
-    tables = np.ctypeslib.as_array(qt)
+    head, (y, cb, cr, k), tables = got
     return {
         "y": y, "cb": cb, "cr": cr, "k": k,
-        "lq": tables[:64].copy(), "cq": tables[64:].copy(),
-        "w": w, "h": h, "subsamp": subsamp,
-        "ycck": bool(ycck), "cmyk": True,
+        "lq": tables[:64], "cq": tables[64:],
+        "w": head.w, "h": head.h, "subsamp": head.subsamp,
+        "ycck": head.ycck, "cmyk": True,
     }

@@ -18,8 +18,11 @@ chain (reference src/handler.rs:185-309):
 
 With `device_decode` (the default, as in the reference) a plain
 YCbCr JPEG, baseline or progressive, is only entropy-decoded on the
-host (`jpeg_coeffs.read_jpeg_coeffs`); the device decodes its
-coefficients as a prologue to the transform (`fused.CoefBatchAssembly`).
+host; the device decodes its coefficients as a prologue to the
+transform (`fused.CoefBatchAssembly`). Under a runner that stages
+(the server's batcher) an upright JPEG, with no source cache, is read
+straight into its own pinned wire slot (`jpeg_coeffs.read_into_slot`);
+every other one is read into a dict (`jpeg_coeffs.read_jpeg_coeffs`).
 An EXIF-rotated JPEG is rotated on its coefficient grids
 (`jpeg_decode.orient_meta`, jpegtran's lossless transforms); only a
 flip that is not MCU-aligned sends it to the pixel path. Every other
@@ -167,10 +170,12 @@ class Engine:
         # (enable_device_icc); None keeps CMYK on host lcms2
         self.device_cmyk = None
         # observability (/stats "engine"): requests served by source
-        # kind; and the requests the gateway handed to a codec thread,
-        # with their summed wait for one (`note_pool_wait`, under
-        # _pool_lock)
+        # kind (the JAX Engine's `stats`); the coefficient sources the
+        # reader wrote straight into their slot (`slot_reads`); and the
+        # requests the gateway handed to a codec thread, with their
+        # summed wait for one (`note_pool_wait`, under _pool_lock)
         self.stats = {"pixel_src": 0, "coef_src": 0}
+        self.read_stats = {"slot_reads": 0}
         self.pool_stats = {"requests": 0, "pool_wait_ms_total": 0.0}
         self._pool_lock = threading.Lock()
         # decoded-source cache (source_cache.SourceCache, wired from
@@ -285,8 +290,9 @@ class Engine:
 
         t0 = time.perf_counter_ns()
         orientation = codecs.read_orientation(data)
-        meta = converted = None
+        meta = converted = src = None
         scache = self.source_cache
+        prestage = getattr(self.runner, "prestage", None)
         skey = source_cache.content_key(data) if scache is not None else None
         device_up = True
         if fmt == codecs.JPEG:
@@ -314,24 +320,15 @@ class Engine:
                                           False)
         if (meta is None and converted is None and self.device_decode
                 and device_up and fmt == codecs.JPEG):
-            # the kind carries the orientation: a hot EXIF-rotated source
-            # is cached after its rotation. A rotation that is not
-            # grid-exact caches a pixel-only sentinel, so the reader does
-            # not run again per variant only to find the pixel path.
-            ckind = "coef" if orientation == 1 else "coef.o%d" % orientation
-            cached = (scache.get_meta(ckind, skey)
-                      if scache is not None else None)
-            if cached is not None:
-                meta = None if cached.get("_pixel_only") else cached
+            if prestage is not None and orientation == 1 and scache is None:
+                # the slot route: the reader writes the coefficients into
+                # the image's own pinned slot. A rotation reads a dict to
+                # rotate, the source cache keeps one, and a runner that
+                # does not stage (worker mode) sends one.
+                src = self._read_into_slot(data, prestage)
+                meta = src.meta if isinstance(src, fused.WireSlot) else src
             else:
-                meta = jpeg_coeffs.read_jpeg_coeffs(data)
-                if meta is not None and orientation != 1:
-                    # rotate the coefficient grids; a flip that is not
-                    # MCU-aligned gives None and the pixel path
-                    meta = jpeg_decode.orient_meta(meta, orientation)
-                if scache is not None:
-                    scache.put_meta(ckind, skey, meta if meta is not None
-                                    else {"_pixel_only": True})
+                meta = self._read_meta(data, orientation, skey)
         if meta is not None:
             # a gray JPEG decodes through zero chroma (r = g = b = y);
             # is_gray keeps the output pixel type of the host decode
@@ -360,10 +357,9 @@ class Engine:
             self.stats["pixel_src"] += 1
         # a coefficient source's wire staged here, on this thread (inside
         # f_decode), where the runner stages it
-        prestage = getattr(self.runner, "prestage", None)
         if meta is None:
             src = img
-        else:
+        elif src is None:
             src = meta if prestage is None else prestage(meta)
         self._stage("f_decode", "fanlin.engine.decode", t0,
                     time.perf_counter_ns(), marks)
@@ -382,6 +378,54 @@ class Engine:
                     time.perf_counter_ns(), marks)
         self._mark_cold(marks)
         return (codecs.MIME[out_fmt], payload)
+
+    def _read_meta(self, data: bytes, orientation: int, skey):
+        """The dict route of a JPEG: its read_jpeg_coeffs dict, rotated
+        to its EXIF orientation, from the source cache where it has one;
+        None for the pixel path."""
+        scache = self.source_cache
+        # the kind carries the orientation: a hot EXIF-rotated source is
+        # cached after its rotation. A rotation that is not grid-exact
+        # caches a pixel-only sentinel, so the reader does not run again
+        # per variant only to find the pixel path.
+        ckind = "coef" if orientation == 1 else "coef.o%d" % orientation
+        cached = scache.get_meta(ckind, skey) if scache is not None else None
+        if cached is not None:
+            return None if cached.get("_pixel_only") else cached
+        meta = jpeg_coeffs.read_jpeg_coeffs(data)
+        if meta is not None and orientation != 1:
+            # rotate the coefficient grids; a flip that is not MCU-aligned
+            # gives None and the pixel path
+            meta = jpeg_decode.orient_meta(meta, orientation)
+        if scache is not None:
+            scache.put_meta(ckind, skey, meta if meta is not None
+                            else {"_pixel_only": True})
+        return meta
+
+    def _read_into_slot(self, data: bytes, prestage):
+        """The slot route of a JPEG: the reader writes its coefficients
+        once, straight into the image's own pinned `fused.WireSlot`
+        (`prestage` of its header), counted in `read_stats["slot_reads"]` and,
+        while a capture runs, the span `fanlin.engine.read` (its two
+        calls, the slot's making between them, and the bytes written).
+        Returns the slot; the read_jpeg_coeffs dict when no pinned memory
+        is to be had (the device thread then stages it); None when the
+        reader refuses the stream (the pixel path; a slot is dropped)."""
+        t0 = time.perf_counter_ns()
+        head = jpeg_coeffs.read_header(data)
+        if head is None:
+            return None
+        slot = prestage(head)
+        if not isinstance(slot, fused.WireSlot):
+            return jpeg_coeffs.read_jpeg_coeffs(data)
+        if not jpeg_coeffs.read_into_slot(data, head, slot):
+            return None
+        self.read_stats["slot_reads"] += 1
+        if profiling.on():
+            profiling.record("fanlin.engine.read", t0, time.perf_counter_ns(),
+                             rid=profiling.REQUEST_ID.get(),
+                             bytes=sum(g.nbytes for g in slot.true_grids))
+        return slot
 
     def _route(self, params, accepted, fmt, w, h, has_alpha, is_gray, meta):
         """The plan, the batch kind, the output format and mode of a

@@ -168,11 +168,11 @@ def load_host() -> ctypes.CDLL:
         if _HOST_LIB is None:
             lib = _open(build_host())
             p = ctypes.c_void_p
-            for name in ("fanlin_read_jpeg_coeffs",
-                         "fanlin_read_jpeg_coeffs4"):
-                fn = getattr(lib, name)
-                fn.argtypes = [p, ctypes.c_size_t, p, p, p]
-                fn.restype = ctypes.c_int
+            size, i = ctypes.c_size_t, ctypes.c_int
+            lib.fanlin_jpeg_coeffs_header.argtypes = [p, size, i, p]
+            lib.fanlin_jpeg_coeffs_header.restype = i
+            lib.fanlin_jpeg_coeffs_decode.argtypes = [p, size, i] + [p] * 5
+            lib.fanlin_jpeg_coeffs_decode.restype = i
             fn = lib.fanlin_encode_jpeg_coeffs
             fn.argtypes = [p, p, p] + [ctypes.c_int] * 3 + [p, p]
             fn.restype = ctypes.c_int

@@ -17,9 +17,10 @@ then records an event; `collect()` only waits on that event and copies
 each image's result out of the pinned buffers, so the batcher's collect
 thread never touches a device tensor. On the CPU (tests) the same code
 runs on plain host arrays with no event. Each coefficient image has
-one host wire, a pinned `WireSlot` of its own, made by the thread that
-read the image or, for a dict, by the assembly; a batch uploads its real
-images' slots alone. The padded matrices of a uniform batch's plan stay
+one host wire, a pinned `WireSlot` of its own, written by the entropy
+reader on the thread that read the image, or made from a dict by that
+thread or by the assembly; a batch uploads its real images' slots
+alone. The padded matrices of a uniform batch's plan stay
 on the device, keyed by the plan's content (`_uniform_device`).
 
 Routing: a coefficient batch is decoded on the device by the decode
@@ -527,42 +528,81 @@ class WireSlot:
     on CUDA, from torch's caching host allocator, which hands a block out
     again only after the copies recorded on it have finished): each plane
     of its assembly's PLANES (K too for a CMYK meta) at the bucket's block
-    grid, then the quant tables (luma, chroma). The meta's true grids are
-    copied in and the blocks past them zeroed: a reused block holds an
-    earlier image's bytes, and the folded route and the CPU's plain decode
-    read the padding. The slot lives as long as something holds it: its
-    batch, a stalled batch's mirror."""
+    grid, then the quant tables (luma, chroma). The blocks past the
+    image's true grids are zeroed: a reused block holds an earlier
+    image's bytes, and the folded route and the CPU's plain decode read
+    the padding. A dict's true grids and tables are copied in
+    (`WireSlot(meta, pinned)`); an `empty` slot's are written by the
+    entropy reader itself (`engine.jpeg_coeffs.read_into_slot`). The slot
+    lives as long as something holds it: its batch, a stalled batch's
+    mirror."""
 
     def __init__(self, meta, pinned: bool):
+        """A slot holding a read_jpeg_coeffs (or read_jpeg_coeffs4) dict."""
         keys = _CMYK_PLANES if meta.get("cmyk") else _PLANES
-        shapes = _wire_shapes(meta["h"], meta["w"], meta["subsamp"], keys)
+        self._layout(meta["h"], meta["w"], meta["subsamp"], keys,
+                     [meta[key].shape[:2] for key in keys], pinned)
+        for grid, key in zip(self.true_grids, keys):
+            grid[...] = meta[key]
+        self.q[0] = meta["lq"]
+        self.q[1] = meta["cq"]
+        self.meta = meta
+
+    @classmethod
+    def empty(cls, h: int, w: int, subsamp: int, grids, pinned: bool):
+        """A YCbCr image's slot made before its coefficients are read:
+        `grids` gives the true (rows, cols) of each plane the reader
+        writes, y, cb and cr, or y alone for a gray source (whose chroma
+        planes stay zero). The reader writes `true_grids`, then `hold`
+        adds the tables and the meta."""
+        slot = cls.__new__(cls)
+        slot._layout(h, w, subsamp, _PLANES, grids, pinned)
+        slot.meta = None
+        return slot
+
+    def _layout(self, h, w, subsamp, keys, grids, pinned):
+        shapes = _wire_shapes(h, w, subsamp, keys)
         sizes = [r * c * 64 * 2 for r, c in shapes]
         self.buf = torch.empty(sum(sizes) + _Q_BYTES, dtype=torch.uint8,
                                pin_memory=pinned)
         arr = self.buf.numpy()
         words = self.buf.view(torch.int16)
         # each plane as a numpy grid and as flat int16 words (what the
-        # upload copies), then the tables' words
-        self.grids, self.planes = [], []
+        # upload copies), its true grid as a view, then the tables' words
+        self.grids, self.planes, self.true_grids = [], [], []
         at = 0
-        for key, (r, c), n in zip(keys, shapes, sizes):
+        for i, (key, (r, c), n) in enumerate(zip(keys, shapes, sizes)):
             grid = arr[at:at + n].view(np.int16).reshape(r, c, 64)
-            g = meta[key]
-            gr, gc = g.shape[:2]
+            gr, gc = grids[i] if i < len(grids) else (0, 0)
             if gr > r or gc > c:
                 raise ValueError(f"{key} grid {gr}x{gc} exceeds the "
                                  f"bucket's {r}x{c}")
-            grid[:gr, :gc] = g
             grid[gr:] = 0
             grid[:gr, gc:] = 0
             self.grids.append(grid)
             self.planes.append(words[at // 2:(at + n) // 2])
+            if i < len(grids):
+                self.true_grids.append(grid[:gr, :gc])
             at += n
         self.q = arr[at:].view(np.int32).reshape(2, 64)
-        self.q[0] = meta["lq"]
-        self.q[1] = meta["cq"]
         self.q_words = words[at // 2:]
-        self.meta = meta
+        self.h, self.w, self.subsamp = h, w, subsamp
+
+    def hold(self, lq, cq, gray: bool) -> None:
+        """The reader has written an `empty` slot's true grids: its
+        tables go in, and its meta is the read_jpeg_coeffs dict, with
+        views of the slot's grids (a gray source's chroma: the zero
+        planes at the luma grid)."""
+        self.q[0] = lq
+        self.q[1] = cq
+        y = self.true_grids[0]
+        if gray:
+            cb, cr = (g[:y.shape[0], :y.shape[1]] for g in self.grids[1:])
+        else:
+            cb, cr = self.true_grids[1:]
+        self.meta = {"y": y, "cb": cb, "cr": cr, "lq": lq, "cq": cq,
+                     "w": self.w, "h": self.h, "subsamp": self.subsamp,
+                     "gray": gray}
 
     @property
     def nbytes(self) -> int:

@@ -287,7 +287,8 @@ async def stats_handler(request: web.Request) -> web.Response:
     body = {
         "t_ms": time.monotonic() * 1e3,
         "gateway": dict(request.app[GATEWAY_STATS_KEY]),
-        "engine": {**state.engine.stats, **state.engine.pool_stats},
+        "engine": {**state.engine.stats, **state.engine.read_stats,
+                   **state.engine.pool_stats},
         "batcher": batcher_stats,
         "kernel_launches": launches,
         "caches": {

@@ -3,28 +3,42 @@ csrc/jpeg_coeffs.cpp, no libjpeg) against the JAX package's
 native_codecs.read_jpeg_coeffs (libjpeg's jpeg_read_coefficients).
 
 Every key of the dict must be equal, arrays element for element with
-the same dtype and shape, on: the golden sources; PIL encodes at five
-sizes x three subsamplings x three qualities; native 4:4:0 streams; gray
-sources; restart-interval streams; streams cut inside the scan (libjpeg
-zero-fills and warns); progressive streams (4:4:4, 4:2:2, 4:2:0, gray,
-odd dims, restart intervals, cut inside a scan or between scans).
+the same dtype and shape, on: the golden sources; PIL encodes at six
+sizes (a 4031x3023 camera frame among them) x three subsamplings x three
+qualities; native 4:4:0 streams; gray sources; restart-interval streams;
+streams cut inside the scan (libjpeg zero-fills and warns); progressive
+streams (4:4:4, 4:2:2, 4:2:0, gray, odd dims, restart intervals, cut
+inside a scan or between scans). Odd block grids at 4:2:2 and 4:4:0
+(101x83, 37x23) give interleaved scans dummy blocks past the grid.
 
-What the reader refuses (None, and the caller decodes pixels): CMYK,
-arithmetic coding (SOF9), 12-bit samples, streams without DHT segments
-(libjpeg substitutes its standard tables), a progressive stream with an
-illegal successive-approximation value (libjpeg refuses it too),
-empty, garbage and header-only input.
+Each stream is also read the way the serving engine reads it, straight
+into an image's wire slot (`read_header`, `fused.WireSlot.empty`,
+`read_into_slot`), in a buffer filled with 0x7F first, as a reused
+allocator block may be: the slot's meta must equal the dict, its tables
+the dict's, and every block past the true grids must be zero.
+
+What the reader refuses (None, and the caller decodes pixels, by either
+route): CMYK, arithmetic coding (SOF9), 12-bit samples, streams without
+DHT segments (libjpeg substitutes its standard tables), a progressive
+stream with an illegal successive-approximation value (libjpeg refuses
+it too), empty, garbage and header-only input.
 """
 
+import functools
 import io
 import os
+from unittest import mock
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from fanlin_tpu.engine import native_codecs
-from fanlin_tpu_torch.engine.jpeg_coeffs import read_jpeg_coeffs
+from fanlin_tpu_torch.engine.jpeg_coeffs import (read_header,
+                                                 read_into_slot,
+                                                 read_jpeg_coeffs)
+from fanlin_tpu_torch.ops import fused
 from tests.conftest import make_test_image
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -44,10 +58,27 @@ def _golden(name):
         return f.read()
 
 
-def _assert_same(data):
-    got = read_jpeg_coeffs(data)
-    want = native_codecs.read_jpeg_coeffs(data)
-    assert want is not None and got is not None
+POISON = 0x7F
+
+
+def _slot_read(data):
+    """The serving engine's slot route: the stream read straight into an
+    unpinned wire slot whose buffer held POISON bytes; the slot, or None
+    where the reader refuses the stream."""
+    head = read_header(data)
+    if head is None:
+        return None
+    empty = torch.empty
+    with mock.patch.object(torch, "empty",
+                           lambda *a, **k: empty(*a, **k).fill_(POISON)):
+        slot = fused.WireSlot.empty(head.h, head.w, head.subsamp,
+                                    head.grids, pinned=False)
+    # the true grids hold the poison until the reader writes them
+    assert all((g.view(np.uint8) == POISON).all() for g in slot.true_grids)
+    return slot if read_into_slot(data, head, slot) else None
+
+
+def _assert_equal_dicts(got, want):
     assert set(got) == set(want)
     for key, w in want.items():
         g = got[key]
@@ -56,7 +87,26 @@ def _assert_same(data):
             np.testing.assert_array_equal(g, w, err_msg=key)
         else:
             assert g == w, key
+
+
+def _assert_same(data):
+    got = read_jpeg_coeffs(data)
+    want = native_codecs.read_jpeg_coeffs(data)
+    assert want is not None and got is not None
+    _assert_equal_dicts(got, want)
+    slot = _slot_read(data)
+    assert slot is not None
+    _assert_equal_dicts(slot.meta, want)
+    np.testing.assert_array_equal(slot.q, np.stack([want["lq"], want["cq"]]))
+    for grid, key in zip(slot.grids, ("y", "cb", "cr")):
+        r, c = want[key].shape[:2]
+        assert not grid[r:].any() and not grid[:, c:].any(), key
     return got
+
+
+@functools.lru_cache(maxsize=1)
+def _image(w, h, seed):
+    return make_test_image(w, h, seed=seed)
 
 
 def _scan_start(data: bytes) -> int:
@@ -76,17 +126,18 @@ def test_golden_sources(name, subsamp):
 @pytest.mark.parametrize("subsampling,subsamp", [(0, 444), (1, 422),
                                                  (2, 420)])
 @pytest.mark.parametrize("dims", [(512, 512), (500, 375), (101, 83),
-                                  (37, 23), (7, 5)])
+                                  (37, 23), (7, 5), (4031, 3023)])
 def test_pil_streams(dims, subsampling, subsamp, quality):
     w, h = dims
-    data = _pil_jpeg(make_test_image(w, h, seed=w + h), quality=quality,
+    data = _pil_jpeg(_image(w, h, w + h), quality=quality,
                      subsampling=subsampling)
     m = _assert_same(data)
     assert (m["w"], m["h"], m["subsamp"]) == (w, h, subsamp)
 
 
 @needs_native
-@pytest.mark.parametrize("dims", [(504, 360), (101, 83), (37, 23)])
+@pytest.mark.parametrize("dims", [(504, 360), (101, 83), (37, 23),
+                                  (4031, 3023)])
 def test_native_440_streams(dims):
     data = native_codecs.encode_jpeg_subsamp(make_test_image(*dims), 85, 1, 2)
     if data is None:
@@ -154,6 +205,51 @@ def _segments(data: bytes):
     return out
 
 
+def _segment(data: bytes, at: int) -> bytes:
+    return data[at:at + 2 + (data[at + 2] << 8 | data[at + 3])]
+
+
+def _non_interleaved(w, h, quality):
+    """A sequential 4:4:4 YCbCr stream of one scan per component (Y, then
+    Cb, then Cr, each with its own DHT), spliced from PIL's gray encodes
+    of the three planes."""
+    planes = Image.fromarray(make_test_image(w, h)).convert("YCbCr").split()
+    grays = [_pil_jpeg(np.asarray(p), quality=quality) for p in planes]
+    first = dict(_segments(grays[0]))
+    dqt = _segment(grays[0], first[0xDB])
+    table = dqt[5:69]  # table 0, 8-bit
+    out = (b"\xff\xd8" + _segment(grays[0], first[0xE0])
+           + b"\xff\xdb\x00\x84\x00" + table + b"\x01" + table
+           + b"\xff\xc0\x00\x11\x08" + h.to_bytes(2, "big")
+           + w.to_bytes(2, "big") + b"\x03\x01\x11\x00\x02\x11\x01\x03\x11\x01")
+    for cid, g in enumerate(grays, 1):
+        segs = _segments(g)
+        assert _segment(g, dict(segs)[0xDB])[5:69] == table
+        out += b"".join(_segment(g, at) for m, at in segs if m == 0xC4)
+        sos = dict(segs)[0xDA]
+        out += bytes([0xFF, 0xDA, 0, 8, 1, cid, 0, 0, 63, 0])
+        out += g[sos + 2 + (g[sos + 2] << 8 | g[sos + 3]):g.rindex(b"\xff\xd9")]
+    return out + b"\xff\xd9"
+
+
+@needs_native
+@pytest.mark.parametrize("cut", ["whole", "before_second_scan",
+                                 "inside_third_scan"])
+def test_non_interleaved_streams(cut):
+    """One scan per component; cut, the components whose scan never
+    arrives read zero (libjpeg's zero-filled coefficient arrays)."""
+    data = _non_interleaved(101, 83, 80)
+    scans = [at for m, at in _segments(data) if m == 0xDA]
+    assert len(scans) == 3
+    if cut == "before_second_scan":
+        data = data[:scans[1] - 1]
+    elif cut == "inside_third_scan":
+        data = data[:scans[2] + (len(data) - scans[2]) // 2]
+    m = _assert_same(data)
+    assert m["subsamp"] == 444 and m["y"].any()
+    assert m["cb"].any() == (cut != "before_second_scan")
+
+
 def _refused(kind):
     img = make_test_image(40, 30)
     if kind == "progressive":
@@ -191,7 +287,9 @@ def _refused(kind):
                                   "zeros", "headers_only", "arithmetic",
                                   "12bit", "dht_less"])
 def test_refused_streams_return_none(kind):
-    assert read_jpeg_coeffs(_refused(kind)) is None
+    data = _refused(kind)
+    assert read_jpeg_coeffs(data) is None
+    assert _slot_read(data) is None
 
 
 def _progressive(layout, w, h, quality, **kw):

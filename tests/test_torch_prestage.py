@@ -1,6 +1,7 @@
 """Coefficient wires staged before they reach a batch, and the padded plan
 matrices kept on the device by content (fanlin_tpu_torch/ops/fused.py
-`WireSlot`, `_uniform_device`; engine/batcher.py `prestage`), on the CPU.
+`WireSlot`, `_uniform_device`; engine/batcher.py `prestage`;
+engine/processor.py's slot route), on the CPU.
 
 A batch made from prestaged slots answers as the JAX package's
 CoefBatchAssembly does, at 4:2:0 and 4:4:4 and at n = 1, 3 (bucket 4)
@@ -9,9 +10,18 @@ reads the same grids from; a slot is zero past its true grids whatever
 its buffer held; a batch uploads its real images' slots alone; the
 batcher counts prestaged images and sheds a cancelled one; cycling the
 five camera srcset plans rebuilds each once and uploads each once; a
-plan rebuilt with equal content finds its device copy."""
+plan rebuilt with equal content finds its device copy.
+
+The engine's routes: under a runner that stages (the server's batcher),
+an upright JPEG with no source cache is read straight into its slot
+(counted in `slot_reads`); a rotation, a source cache or a runner that
+does not stage take the dict route; a stream the reader refuses, in its
+header or inside its scans (the slot then dropped), takes the pixel
+path. Every route answers as the dict route of an Engine on its own
+runner does."""
 
 import io
+import re
 import threading
 
 import numpy as np
@@ -22,14 +32,20 @@ from PIL import Image
 from fanlin_tpu.engine import native_codecs
 from fanlin_tpu.ops import fused as jfused
 from fanlin_tpu.spec.query import parse_query as jparse_query
-from fanlin_tpu_torch.engine.batcher import REQUEST_CANCEL, MicroBatcher
+from fanlin_tpu_torch.engine import jpeg_coeffs
+from fanlin_tpu_torch.engine.batcher import (REQUEST_CANCEL, BatchingRunner,
+                                             MicroBatcher)
 from fanlin_tpu_torch.engine.jpeg_coeffs import read_jpeg_coeffs
+from fanlin_tpu_torch.engine.processor import Engine, ProcessError
+from fanlin_tpu_torch.engine.source_cache import SourceCache
 from fanlin_tpu_torch.ops import filters, fused, hostexec, jpeg_decode
 from fanlin_tpu_torch.ops import plan as plan_mod
+from fanlin_tpu_torch.spec.content import Format
 from fanlin_tpu_torch.spec.query import parse_query
 from fanlin_tpu_torch.utils import profiling
 from tests.conftest import make_test_image
-from tests.test_torch_coef import _close
+from tests.test_torch_coef import _close, _oriented_jpeg
+from tests.test_torch_jpeg_coeffs import _refused
 
 CPU = torch.device("cpu")
 
@@ -317,3 +333,115 @@ def test_stalled_batch_forgets_its_slots_and_the_mirror_reads_them(
     finally:
         back.set()
         b.close()
+
+
+@pytest.fixture
+def staging():
+    """An Engine serving through a CPU micro-batcher, as the server's
+    does, its runner recording what it was asked to stage and to run."""
+    b = MicroBatcher(max_batch=4, window_ms=1.0, device=CPU)
+    runner = BatchingRunner(b)
+    runner.staged, runner.ran = [], []
+    prestage, run = runner.prestage, runner.run
+
+    def record_prestage(meta):
+        runner.staged.append(meta)
+        return prestage(meta)
+
+    def record_run(plans, images, kinds=None):
+        runner.ran.extend(images)
+        return run(plans, images, kinds)
+
+    runner.prestage, runner.run = record_prestage, record_run
+    try:
+        yield Engine(CPU, runner=runner)
+    finally:
+        assert b.close()
+
+
+def _answer(engine, data, qs="w=40&h=30"):
+    """What the engine answers: (mime, body), or its ProcessError's text
+    (object addresses left out)."""
+    try:
+        return engine.process_image(data, parse_query(qs), Format())
+    except ProcessError as e:
+        return re.sub(r" at 0x[0-9a-f]+", "", str(e))
+
+
+def _source(kind):
+    img = make_test_image(75, 37, seed=5)
+    if kind == "rotated":
+        return _oriented_jpeg(6)
+    buf = io.BytesIO()
+    if kind == "gray":
+        Image.fromarray(img).convert("L").save(buf, "JPEG", quality=85)
+    else:
+        Image.fromarray(img).save(buf, "JPEG", quality=85, subsampling=1,
+                                  progressive=kind == "progressive")
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("kind,route", [
+    ("plain", "slot"), ("gray", "slot"), ("progressive", "slot"),
+    ("rotated", "dict"), ("plain", "cached"), ("plain", "no_prestage")])
+def test_engine_routes_a_jpeg(staging, kind, route):
+    """The slot route where the runner stages, the orientation is 1 and
+    there is no source cache; else the dict route (its dict staged, or
+    sent as it is to a runner that does not stage). Each answers as an
+    Engine on its own runner (the dict route) does."""
+    data = _source(kind)
+    want = _answer(Engine(CPU), data)
+    engine = Engine(CPU) if route == "no_prestage" else staging
+    if route == "cached":
+        engine.source_cache = SourceCache(8)
+    assert _answer(engine, data) == want
+    assert engine.stats == {"pixel_src": 0, "coef_src": 1}
+    assert engine.read_stats == {"slot_reads": int(route == "slot")}
+    if route == "no_prestage":
+        return
+    runner = engine.runner
+    staged, = runner.staged
+    ran, = runner.ran
+    assert isinstance(ran, fused.WireSlot)
+    assert runner.batcher.stats["prestaged"] == 1
+    if route == "slot":
+        # the reader wrote the slot of the stream's header
+        assert isinstance(staged, jpeg_coeffs.Header)
+        assert ran.meta["gray"] == (kind == "gray")
+        assert ran.meta["y"].base is not None  # a view of the slot
+    else:
+        assert isinstance(staged, dict) and ran.meta is staged
+
+
+@pytest.mark.parametrize("kind", ["arithmetic", "12bit", "cmyk", "dht_less"])
+def test_refused_stream_takes_the_pixel_path(staging, kind):
+    """A stream the reader refuses answers as the dict route does: from
+    its header (no slot made) or inside its scans (DHT-less: its slot
+    made, then dropped)."""
+    data = _refused(kind)
+    assert _answer(staging, data) == _answer(Engine(CPU), data)
+    assert staging.read_stats == {"slot_reads": 0}
+    assert staging.stats["coef_src"] == 0
+    runner = staging.runner
+    assert [type(x) for x in runner.staged] == (
+        [jpeg_coeffs.Header] if kind == "dht_less" else [])
+    assert not any(isinstance(x, fused.WireSlot) for x in runner.ran)
+
+
+def test_slot_route_without_pinned_memory_sends_the_dict(staging,
+                                                         monkeypatch):
+    """No pinned memory to be had: the batcher hands the header back and
+    the engine sends the read_jpeg_coeffs dict, which the device thread
+    stages, as before."""
+    data = _source("plain")
+    want = _answer(Engine(CPU), data)
+
+    def no_memory(*a, **k):
+        raise RuntimeError("out of pinned memory")
+
+    monkeypatch.setattr(fused.WireSlot, "empty", no_memory)
+    assert _answer(staging, data) == want
+    ran, = staging.runner.ran
+    assert isinstance(ran, dict) and ran["w"] == 75
+    assert staging.read_stats == {"slot_reads": 0}
+    assert staging.runner.batcher.stats["prestaged"] == 0

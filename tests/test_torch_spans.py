@@ -98,6 +98,7 @@ THREAD_OF = {
     "fanlin.engine.pool_wait": ("fanlin-codec", False),
     "fanlin.assembly.prestage": ("fanlin-codec", False),
     "fanlin.engine.decode": ("fanlin-codec", True),
+    "fanlin.engine.read": ("fanlin-codec", True),
     "fanlin.engine.device": ("fanlin-codec", True),
     "fanlin.engine.encode": ("fanlin-codec", True),
     "fanlin.batcher.handoff": ("fanlin-codec", False),
@@ -198,9 +199,19 @@ def test_capture_holds_every_span_on_its_thread(captured):
     # a codec thread's stages carry their request's id as an arg
     for name in ("fanlin.engine.decode", "fanlin.engine.device",
                  "fanlin.engine.encode", "fanlin.engine.pool_wait",
-                 "fanlin.assembly.prestage",
+                 "fanlin.assembly.prestage", "fanlin.engine.read",
                  "fanlin.batcher.queue", "fanlin.batcher.handoff"):
         assert {s.args["rid"] for s in spans.named(name)} == images, name
+    # the reader's span lies inside its request's decode, with the bytes
+    # it wrote, and the slot's making inside it
+    decode = {s.args["rid"]: s for s in spans.named("fanlin.engine.decode")}
+    stage = {s.args["rid"]: s for s in spans.named("fanlin.assembly.prestage")}
+    eps = 1.0  # µs, the trace's rounding
+    for s in spans.named("fanlin.engine.read"):
+        d, p = decode[s.args["rid"]], stage[s.args["rid"]]
+        assert d.ts - eps <= s.ts <= p.ts + eps
+        assert p.end <= s.end + eps and s.end <= d.end + eps
+        assert s.args["bytes"] > 0
 
 
 @time_limit(120)
@@ -422,7 +433,9 @@ def test_prestaged_counter_and_its_metric(tmp_path):
     """/stats counts the images a codec thread staged (`prestaged`, next
     to `images`), and the benchmark's `assembly.prestaged_share` reads
     it as a share of the window's images: every JPEG of a CPU server
-    with free slots."""
+    with free slots. Likewise the JPEGs the reader wrote straight into
+    their slot (`engine.slot_reads`, next to `coef_src`), which
+    `engine.slot_read_share` reads: every one of them."""
     from types import SimpleNamespace
 
     from harness import cell as hcell
@@ -448,8 +461,16 @@ def test_prestaged_counter_and_its_metric(tmp_path):
     read = hcell.load_module("metrics", "assembly.prestaged_share").read
     assert read(SimpleNamespace(stats_before=before,
                                 stats_after=after)) == 100.0
+    assert before["engine"]["slot_reads"] == 0
+    assert after["engine"]["slot_reads"] == after["engine"]["coef_src"] == 3
+    read_slots = hcell.load_module("metrics", "engine.slot_read_share").read
+    assert read_slots(SimpleNamespace(stats_before=before,
+                                      stats_after=after)) == 100.0
     # a server without the counter (an older one) gives no reading
     for stats in (before, after):
         del stats["batcher"]["prestaged"]
+        del stats["engine"]["slot_reads"]
     assert read(SimpleNamespace(stats_before=before,
                                 stats_after=after)) is None
+    assert read_slots(SimpleNamespace(stats_before=before,
+                                      stats_after=after)) is None

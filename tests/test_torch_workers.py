@@ -230,10 +230,18 @@ def test_workers_ping_and_stats():
             "resample_blur_fast": 0, "jpeg_decode_rgb": 0,
             "jpeg_decode_cmyk": 0, "jpeg_decode_cmyk_rgb": 0,
             "cmyk_lut": 0}  # the CPU runs the plain versions
-        # the engine and the caches are the answering worker's own
-        assert set(full["engine"]) == {"pixel_src", "coef_src", "requests",
-                                       "pool_wait_ms_total"}
+        # the engine and the caches are the answering worker's own: each
+        # /stats on a fresh connection may reach either worker, so read
+        # it until one answers from a worker that served an image
+        assert set(full["engine"]) == {"pixel_src", "coef_src", "slot_reads",
+                                       "requests", "pool_wait_ms_total"}
+        for _ in range(40):
+            if full["engine"]["requests"] >= 1:
+                break
+            full = srv.stats()
         assert full["engine"]["requests"] >= 1
+        # a worker's runner stages nothing: its JPEGs take the dict route
+        assert full["engine"]["slot_reads"] == 0
         assert full["caches"]["responses"] is None
         assert full["caches"]["sources"]["max_bytes"] == 8 * 1024 * 1024
     finally:
