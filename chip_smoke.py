@@ -43,6 +43,15 @@ Phases (each failure exits non-zero; nothing is caught):
      shape needs, its bound and the share reached; the host ms per image
      of the reader, the dict route and the slot route, in turns, and the
      wire's bytes per image
+  2c. a progressive 12 MP original (4032x3024 q90 4:2:0, PIL's
+     progressive script) and its baseline twin of the same pixels: the
+     header reports each coding process and the reader 10 and 1 scans;
+     the progressive stream read by the slot route (a pinned slot) and by
+     the dict route, and its baseline twin, give planes and tables with 0
+     differing bytes, and jpeg_decode_rgb on the card 0 differing bytes
+     and the same served image for the slot and the baseline twin; the
+     host ms per image of the baseline and the progressive reader, and of
+     each slot route, alone, in turns
   3. the golden floors of tests/test_golden_parity.py on tests/golden
      through both source paths: the pre-encode floor through the pixel
      and the coefficient assemblies, then the encoded floor through
@@ -1057,6 +1066,80 @@ def phase2b(dev: torch.device) -> dict:
         print(f"phase2b halo work of an interior tile, {s}: "
               f"{share * 100:.2f} % of its blocks'", flush=True)
     return results
+
+
+def phase2c(dev: torch.device) -> dict:
+    """A progressive 12 MP original against its baseline twin of the same
+    pixels: the same coefficients by either route, the same decode on the
+    card, and the reader's host ms on each coding, in turns."""
+    from fanlin_tpu_torch.engine import jpeg_coeffs
+    from fanlin_tpu_torch.ops import fused, plan as plan_mod
+    from fanlin_tpu_torch.ops import jpeg_decode_kernels as jk
+    from fanlin_tpu_torch.spec.query import parse_query
+
+    img = _photo(4032, 3024, np.random.default_rng(20261019))
+    streams = {"baseline": _jpeg(img, quality=90, subsampling=2),
+               "progressive": _jpeg(img, quality=90, subsampling=2,
+                                    progressive=True)}
+    reads = {}
+    for coding, data in streams.items():
+        got = jpeg_coeffs.read_dict(data)
+        check(got is not None, f"phase2c: the reader refused the {coding} "
+              "stream")
+        reads[coding] = got
+        print(f"phase2c {coding} {got.head.w}x{got.head.h} "
+              f"{got.head.subsamp}: progressive {got.head.progressive}, "
+              f"{got.scans} scans, {len(data)} B of JPEG", flush=True)
+    check(not reads["baseline"].head.progressive
+          and reads["progressive"].head.progressive
+          and reads["baseline"].scans == 1
+          and reads["progressive"].scans == 10,
+          "phase2c: the header's coding process or the scan count is wrong")
+    slot = _slot_read(streams["progressive"])
+    keys = ("y", "cb", "cr", "lq", "cq")
+    base = reads["baseline"].meta
+    differing = {}
+    for route, meta in (("slot route", slot.meta),
+                        ("dict route", reads["progressive"].meta)):
+        differing[route] = sum(
+            int(np.count_nonzero(np.asarray(meta[k]).view(np.uint8)
+                                 != np.asarray(base[k]).view(np.uint8)))
+            for k in keys)
+    # on the card: the progressive slot and the baseline dict decode alike
+    plan = plan_mod.plan_image(4032, 3024, parse_query("w=1200&h=900"),
+                               opaque=True)
+    sasm = fused.CoefBatchAssembly([plan], [slot], dev)
+    basm = fused.CoefBatchAssembly([plan], [base], dev)
+    dec = (sasm.subsamp, sasm.true_h, sasm.true_w, sasm.sh, sasm.sw, 1)
+    decode_diff = _bytes_differing(
+        jk.jpeg_decode_rgb(*sasm.device_wire(), *dec),
+        jk.jpeg_decode_rgb(*basm.device_wire(), *dec))
+    served = all(np.array_equal(a, b) for a, b in zip(sasm.run(), basm.run()))
+    print(f"phase2c progressive against its baseline twin: plane and table "
+          f"bytes differing {differing}; jpeg_decode_rgb bytes differing "
+          f"{decode_diff[0]}; served image equal {served}", flush=True)
+    check(all(v == 0 for v in differing.values()) and decode_diff[0] == 0
+          and served, "phase2c: the progressive original differs from its "
+          "baseline twin")
+    reps = 5
+    routes = {}
+    for coding, data in streams.items():
+        routes[f"{coding} reader"] = (
+            lambda d=data: jpeg_coeffs.read_jpeg_coeffs(d))
+        routes[f"{coding} slot route"] = lambda d=data: _slot_read(d)
+    host = {r: [] for r in routes}
+    order = list(routes) + list(routes)[::-1]
+    for _ in range(reps + 1):
+        for r in order:
+            t0 = time.perf_counter()
+            routes[r]()
+            host[r].append((time.perf_counter() - t0) * 1000.0)
+    ms = {r: statistics.median(t[2:]) for r, t in host.items()}
+    print(f"phase2c host ms per 12 MP image (median of {2 * reps}, in "
+          "turns): " + ", ".join(f"{r} {v:.4f}" for r, v in ms.items()),
+          flush=True)
+    return {"differing": differing, "decode_differing": decode_diff[0],
+            "host_ms": ms}
 
 
 def _golden_sources():
@@ -4216,6 +4299,7 @@ def main() -> int:
     bench = phase2(dev)
     decode = phase2b(dev)
     phase2b_reuse(dev)
+    phase2c(dev)
     phase3_pre_encode(dev)
 
     # the main path's launch-count windows: each run is driven with the

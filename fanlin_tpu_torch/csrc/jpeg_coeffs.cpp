@@ -37,10 +37,11 @@
 // chroma quant tables and coefficient planes over 512 MiB.
 //
 // Output: two calls. The header call parses the markers up to the first
-// SOS and gives the dims, each component's true block grid and the
-// layout (or the refusal). The decode call parses them again and writes
-// each component's true grid straight into a plane the caller owns (a
-// pointer and a row stride in blocks each), so no coefficient is copied:
+// SOS and gives the dims, each component's true block grid, the layout
+// and the coding process (or the refusal). The decode call parses them
+// again, counts the scans it decodes and writes each component's true
+// grid straight into a plane the caller owns (a pointer and a row stride
+// in blocks each), so no coefficient is copied:
 // a block is zeroed just before the first scan that covers its
 // component visits it (the stream sets only its non-zero coefficients,
 // and a caller's plane may hold anything), a component no scan covers
@@ -187,15 +188,16 @@ class Reader {
  public:
   Reader(const uint8_t* data, size_t len) : d_(data), n_(len) {}
 
-  // Parse up to the first SOS: 0 and info[0..7] = width, height, ybw,
+  // Parse up to the first SOS: 0 and info[0..8] = width, height, ybw,
   // ybh, cbw, cbh, subsamp, ycck (fc_read_jpeg_coeffs' layout, or with
-  // four fc_read_jpeg_coeffs4's), else the refusal.
+  // four fc_read_jpeg_coeffs4's), progressive, else the refusal.
   int header(bool four, int* info);
   // After header: decode every scan into the planes (one per component,
-  // comp0 first; one for gray) and give the quant tables at EOI. rows
-  // and cols must be each component's true grid, strides at least cols.
+  // comp0 first; one for gray), give the quant tables at EOI and count
+  // the scans decoded. rows and cols must be each component's true grid,
+  // strides at least cols.
   int decode(int16_t* const* planes, const int* strides, const int* rows,
-             const int* cols, uint16_t* qtables);
+             const int* cols, uint16_t* qtables, int* scans);
 
  private:
   const uint8_t* d_;
@@ -916,11 +918,13 @@ int Reader::header(bool four, int* info) {
   info[5] = is_gray_ ? 0 : comp_[1].hib;
   info[6] = subsamp;
   info[7] = ycck ? 1 : 0;
+  info[8] = progressive_ ? 1 : 0;
   return 0;
 }
 
 int Reader::decode(int16_t* const* planes, const int* strides,
-                   const int* rows, const int* cols, uint16_t* qtables) {
+                   const int* rows, const int* cols, uint16_t* qtables,
+                   int* scans) {
   const int nplanes = is_gray_ ? 1 : ncomp_;
   for (int ci = 0; ci < nplanes; ++ci) {
     Component& c = comp_[ci];
@@ -930,8 +934,10 @@ int Reader::decode(int16_t* const* planes, const int* strides,
     c.dst = planes[ci];
     c.stride = static_cast<size_t>(strides[ci]);
   }
+  *scans = 0;
   for (;;) {
     decode_scan();
+    ++*scans;
     const int m = read_markers();
     if (m == 0xD9) break;
     if (!multiple_scans_) fail();  // JERR_EOI_EXPECTED
@@ -959,12 +965,13 @@ int Reader::decode(int16_t* const* planes, const int* strides,
 
 extern "C" {
 
-// Parse a JPEG's header (markers up to the first SOS): 0 and info[0..7]
-// = width, height, ybw, ybh, cbw, cbh, subsamp, ycck; the true block
-// grids are y ybh x ybw, cb and cr cbh x cbw, and with four k ybh x ybw.
-// subsamp is 420, 422, 440 or 444, 400 for gray (cbw = cbh = 0); with
-// four (the CMYK / YCCK form of fc_read_jpeg_coeffs4) 444 or 420 and
-// ycck 0 or 1 (the Adobe transform), else ycck is 0. Non-zero when the
+// Parse a JPEG's header (markers up to the first SOS): 0 and info[0..8]
+// = width, height, ybw, ybh, cbw, cbh, subsamp, ycck, progressive; the
+// true block grids are y ybh x ybw, cb and cr cbh x cbw, and with four k
+// ybh x ybw. subsamp is 420, 422, 440 or 444, 400 for gray (cbw = cbh =
+// 0); with four (the CMYK / YCCK form of fc_read_jpeg_coeffs4) 444 or 420
+// and ycck 0 or 1 (the Adobe transform), else ycck is 0. progressive is
+// the coding process: 0 for SOF0 and SOF1, 1 for SOF2. Non-zero when the
 // caller should decode pixels instead (2: a colour space, layout or size
 // that fc_read_jpeg_coeffs, or fc_read_jpeg_coeffs4 with four, refuses;
 // with four also a stream of 1 or 3 components).
@@ -986,18 +993,21 @@ int fanlin_jpeg_coeffs_header(const uint8_t* data, size_t len, int four,
 // blocks from one row to the next. rows and cols must be the true grids
 // fanlin_jpeg_coeffs_header gives (4 otherwise); every block of them is
 // written, zeros included. qtables = the luma then the chroma quant
-// table at EOI (comp0's then comp1's with four), natural order. Returns
-// 0, or non-zero as fanlin_jpeg_coeffs_header, and for a stream that
-// fails inside its scans: the planes then hold nothing to read.
+// table at EOI (comp0's then comp1's with four), natural order; scans =
+// the number of scans decoded (1 for an interleaved sequential stream,
+// one per scan of a progressive script). Returns 0, or non-zero as
+// fanlin_jpeg_coeffs_header, and for a stream that fails inside its
+// scans: the planes then hold nothing to read.
 int fanlin_jpeg_coeffs_decode(const uint8_t* data, size_t len, int four,
                               int16_t* const* planes, const int* strides,
                               const int* rows, const int* cols,
-                              uint16_t* qtables) {
+                              uint16_t* qtables, int* scans) {
   try {
     Reader r(data, len);
-    int info[8];
+    int info[9];
     const int rc = r.header(four != 0, info);
-    return rc != 0 ? rc : r.decode(planes, strides, rows, cols, qtables);
+    return rc != 0 ? rc
+                   : r.decode(planes, strides, rows, cols, qtables, scans);
   } catch (const Fail& f) {
     return f.rc;
   } catch (...) {

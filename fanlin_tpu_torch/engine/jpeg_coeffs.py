@@ -9,10 +9,12 @@ take those functions' dicts unchanged. The reader is built with the host compile
 use (`ops._build.load_host`); a failed build raises.
 
 The reader writes each coefficient once, into planes its caller owns:
-`read_header` gives a stream's geometry, `read_into` decodes it into
-planes of that geometry. The dict readers own numpy planes;
-`read_into_slot` writes into an image's own wire (`fused.WireSlot`), so
-that no plane is copied on its way to the device.
+`read_header` gives a stream's geometry and coding process, `read_into`
+decodes it into planes of that geometry and counts the scans it
+decoded. The dict readers own numpy planes (`read_dict` gives the
+header and the scan count beside the dict); `read_into_slot` writes
+into an image's own wire (`fused.WireSlot`), so that no plane is copied
+on its way to the device.
 """
 
 from __future__ import annotations
@@ -37,6 +39,16 @@ class Header(NamedTuple):
     # y, cb, cr (and k for four components); y alone for gray
     grids: Tuple[Tuple[int, int], ...]
     four: bool
+    progressive: bool  # the coding process: SOF2 (SOF0 and SOF1: False)
+
+
+class Decoded(NamedTuple):
+    """What `read_dict` gives: the dict, the stream's header and the
+    number of scans the reader decoded."""
+
+    meta: dict
+    head: Header
+    scans: int
 
 
 def read_header(data: bytes, four: bool = False) -> Optional[Header]:
@@ -44,28 +56,31 @@ def read_header(data: bytes, four: bool = False) -> Optional[Header]:
     when the stream takes the pixel path (what `read_jpeg_coeffs`, or
     with `four` `read_jpeg_coeffs4`, refuses from its header alone)."""
     buf = bytes(data)
-    info = (ctypes.c_int * 8)()
+    info = (ctypes.c_int * 9)()
     if _build.load_host().fanlin_jpeg_coeffs_header(buf, len(buf), int(four),
                                                    info) != 0:
         return None
-    w, h, ybw, ybh, cbw, cbh, subsamp, ycck = info
+    w, h, ybw, ybh, cbw, cbh, subsamp, ycck, progressive = info
     gray = subsamp == 400
     grids = ((ybh, ybw),) if gray else ((ybh, ybw), (cbh, cbw), (cbh, cbw))
     if four:
         grids += ((ybh, ybw),)
     return Header(w, h, 444 if gray else subsamp, gray, bool(ycck), grids,
-                  four)
+                  four, bool(progressive))
 
 
-def read_into(data: bytes, head: Header,
-              planes: List[np.ndarray]) -> Optional[np.ndarray]:
+def read_into(data: bytes, head: Header, planes: List[np.ndarray]
+              ) -> Optional[Tuple[np.ndarray, int]]:
     """Entropy-decode `data`, whose header is `head`, into `planes`: one
     writable (rows, cols, 64) int16 view per grid of head.grids, blocks
     contiguous (a row of a larger grid will do). Every block of them is
     written, zeros included, whatever they held. Returns the (128,)
     uint16 quant tables in natural order (luma then chroma; comp0's then
-    comp1's for four components), or None when the reader refuses the
-    stream inside its scans (the planes then hold nothing to read)."""
+    comp1's for four components) and the number of scans decoded (1 for
+    an interleaved sequential stream, 10 for libjpeg's standard
+    progressive script of a YCbCr stream), or None when the reader
+    refuses the stream inside its scans (the planes then hold nothing to
+    read)."""
     if len(planes) != len(head.grids):
         raise ValueError(f"{len(head.grids)} planes expected")
     for p, grid in zip(planes, head.grids):
@@ -76,39 +91,58 @@ def read_into(data: bytes, head: Header,
                              f"{p.shape} {p.dtype} strides {p.strides}")
     n = len(planes)
     qt = np.empty(128, np.uint16)
+    scans = ctypes.c_int(0)
     buf = bytes(data)
     rc = _build.load_host().fanlin_jpeg_coeffs_decode(
         buf, len(buf), int(head.four),
         (ctypes.c_void_p * n)(*(p.ctypes.data for p in planes)),
         (ctypes.c_int * n)(*(p.strides[0] // 128 for p in planes)),
         (ctypes.c_int * n)(*(r for r, _ in head.grids)),
-        (ctypes.c_int * n)(*(c for _, c in head.grids)), qt.ctypes.data)
-    return qt if rc == 0 else None
+        (ctypes.c_int * n)(*(c for _, c in head.grids)), qt.ctypes.data,
+        ctypes.byref(scans))
+    return (qt, scans.value) if rc == 0 else None
 
 
-def read_into_slot(data: bytes, head: Header, slot) -> bool:
+def read_into_slot(data: bytes, head: Header, slot) -> Optional[int]:
     """Entropy-decode `data`, whose header is `head`, straight into
     `slot`, a `fused.WireSlot.empty` made for head: its true grids, its
     tables and its meta (the dict `read_jpeg_coeffs` gives, with views of
-    the slot's grids). False when the reader refuses the stream: the
-    slot is then to be dropped."""
-    tables = read_into(data, head, slot.true_grids)
-    if tables is None:
-        return False
+    the slot's grids). Returns the number of scans decoded, or None when
+    the reader refuses the stream: the slot is then to be dropped."""
+    got = read_into(data, head, slot.true_grids)
+    if got is None:
+        return None
+    tables, scans = got
     slot.hold(tables[:64], tables[64:], head.gray)
-    return True
+    return scans
 
 
-def _read(data: bytes, four: bool):
-    """(Header, planes at the true grids, tables), or None."""
+def read_dict(data: bytes, four: bool = False) -> Optional[Decoded]:
+    """The dict `read_jpeg_coeffs` (with `four`, `read_jpeg_coeffs4`)
+    gives, with the stream's header and its scan count, or None where
+    that function gives None."""
     head = read_header(data, four)
     if head is None:
         return None
     planes = [np.empty((r, c, 64), np.int16) for r, c in head.grids]
-    tables = read_into(data, head, planes)
-    if tables is None:
+    got = read_into(data, head, planes)
+    if got is None:
         return None
-    return head, planes, tables
+    tables, scans = got
+    lq, cq = tables[:64], tables[64:]
+    if four:
+        y, cb, cr, k = planes
+        meta = {"y": y, "cb": cb, "cr": cr, "k": k, "lq": lq, "cq": cq,
+                "w": head.w, "h": head.h, "subsamp": head.subsamp,
+                "ycck": head.ycck, "cmyk": True}
+    else:
+        if head.gray:
+            planes += [np.zeros_like(planes[0]), np.zeros_like(planes[0])]
+        y, cb, cr = planes
+        meta = {"y": y, "cb": cb, "cr": cr, "lq": lq, "cq": cq,
+                "w": head.w, "h": head.h, "subsamp": head.subsamp,
+                "gray": head.gray}
+    return Decoded(meta, head, scans)
 
 
 def read_jpeg_coeffs(data: bytes) -> Optional[dict]:
@@ -125,20 +159,8 @@ def read_jpeg_coeffs(data: bytes) -> Optional[dict]:
     all-zero chroma at the luma grid's dims and subsamp 444 (zero
     coefficients decode to 128, and YCbCr(y, 128, 128) is r = g = b = y).
     """
-    got = _read(data, False)
-    if got is None:
-        return None
-    head, planes, tables = got
-    if head.gray:
-        planes += [np.zeros_like(planes[0]), np.zeros_like(planes[0])]
-    y, cb, cr = planes
-    return {
-        "y": y, "cb": cb, "cr": cr,
-        "lq": tables[:64], "cq": tables[64:],
-        "w": head.w, "h": head.h,
-        "subsamp": head.subsamp,
-        "gray": head.gray,
-    }
+    got = read_dict(data)
+    return None if got is None else got.meta
 
 
 def read_jpeg_coeffs4(data: bytes) -> Optional[dict]:
@@ -152,13 +174,5 @@ def read_jpeg_coeffs4(data: bytes) -> Optional[dict]:
     0-2; k: (ybh, ybw, 64) int16 of comp3; lq, cq: (64,) uint16, comp0's
     and comp1's tables; w, h; subsamp: 444 or 420; ycck: bool (the Adobe
     transform); cmyk: True}."""
-    got = _read(data, True)
-    if got is None:
-        return None
-    head, (y, cb, cr, k), tables = got
-    return {
-        "y": y, "cb": cb, "cr": cr, "k": k,
-        "lq": tables[:64], "cq": tables[64:],
-        "w": head.w, "h": head.h, "subsamp": head.subsamp,
-        "ycck": head.ycck, "cmyk": True,
-    }
+    got = read_dict(data, True)
+    return None if got is None else got.meta

@@ -170,12 +170,17 @@ class Engine:
         # (enable_device_icc); None keeps CMYK on host lcms2
         self.device_cmyk = None
         # observability (/stats "engine"): requests served by source
-        # kind (the JAX Engine's `stats`); the coefficient sources the
-        # reader wrote straight into their slot (`slot_reads`); and the
-        # requests the gateway handed to a codec thread, with their
-        # summed wait for one (`note_pool_wait`, under _pool_lock)
+        # kind (the JAX Engine's `stats`); the entropy reader's work
+        # (`_note_read`, under _read_lock): the JPEGs it decoded on
+        # either route, its ms in its own calls, the progressive ones,
+        # the scans decoded, and those it wrote straight into their slot
+        # (`slot_reads`); and the requests the gateway handed to a codec
+        # thread, with their summed wait for one (`note_pool_wait`, under
+        # _pool_lock)
         self.stats = {"pixel_src": 0, "coef_src": 0}
-        self.read_stats = {"slot_reads": 0}
+        self.read_stats = {"slot_reads": 0, "reads": 0, "read_ms_total": 0.0,
+                           "progressive_reads": 0, "read_scans_total": 0}
+        self._read_lock = threading.Lock()
         self.pool_stats = {"requests": 0, "pool_wait_ms_total": 0.0}
         self._pool_lock = threading.Lock()
         # decoded-source cache (source_cache.SourceCache, wired from
@@ -216,7 +221,7 @@ class Engine:
         scache = self.source_cache
         meta = scache.get_meta("coef4", skey) if scache is not None else None
         if meta is None:
-            meta = jpeg_coeffs.read_jpeg_coeffs4(data)
+            meta = self._read_dict(data, four=True)
             if meta is None:
                 return None
             if scache is not None:
@@ -392,7 +397,7 @@ class Engine:
         cached = scache.get_meta(ckind, skey) if scache is not None else None
         if cached is not None:
             return None if cached.get("_pixel_only") else cached
-        meta = jpeg_coeffs.read_jpeg_coeffs(data)
+        meta = self._read_dict(data)
         if meta is not None and orientation != 1:
             # rotate the coefficient grids; a flip that is not MCU-aligned
             # gives None and the pixel path
@@ -402,29 +407,60 @@ class Engine:
                             else {"_pixel_only": True})
         return meta
 
+    def _read_dict(self, data: bytes, four: bool = False, spent_ns: int = 0):
+        """The reader's dict of a JPEG (`read_jpeg_coeffs`, with `four`
+        `read_jpeg_coeffs4`), or None; counted in `read_stats` with
+        `spent_ns` of the reader's calls made before it."""
+        t0 = time.perf_counter_ns()
+        got = jpeg_coeffs.read_dict(data, four)
+        if got is None:
+            return None
+        self._note_read(got.head, got.scans,
+                        spent_ns + time.perf_counter_ns() - t0)
+        return got.meta
+
+    def _note_read(self, head, scans: int, ns: int, slot: bool = False):
+        """A JPEG the reader decoded: `head` its header, `scans` the
+        scans decoded, `ns` the time of the reader's calls alone; `slot`
+        where it wrote straight into the image's slot."""
+        with self._read_lock:
+            s = self.read_stats
+            s["reads"] += 1
+            s["read_ms_total"] += ns / 1e6
+            s["progressive_reads"] += int(head.progressive)
+            s["read_scans_total"] += scans
+            s["slot_reads"] += int(slot)
+
     def _read_into_slot(self, data: bytes, prestage):
         """The slot route of a JPEG: the reader writes its coefficients
         once, straight into the image's own pinned `fused.WireSlot`
-        (`prestage` of its header), counted in `read_stats["slot_reads"]` and,
-        while a capture runs, the span `fanlin.engine.read` (its two
-        calls, the slot's making between them, and the bytes written).
-        Returns the slot; the read_jpeg_coeffs dict when no pinned memory
-        is to be had (the device thread then stages it); None when the
-        reader refuses the stream (the pixel path; a slot is dropped)."""
+        (`prestage` of its header), counted in `read_stats` (the time of
+        the header and decode calls, not the slot's making between them)
+        and, while a capture runs, the span `fanlin.engine.read` (its two
+        calls and the slot's making; the bytes written, whether the
+        stream is progressive, its scans). Returns the slot; the
+        read_jpeg_coeffs dict when no pinned memory is to be had (the
+        device thread then stages it); None when the reader refuses the
+        stream (the pixel path; a slot is dropped)."""
         t0 = time.perf_counter_ns()
         head = jpeg_coeffs.read_header(data)
+        t1 = time.perf_counter_ns()
         if head is None:
             return None
         slot = prestage(head)
         if not isinstance(slot, fused.WireSlot):
-            return jpeg_coeffs.read_jpeg_coeffs(data)
-        if not jpeg_coeffs.read_into_slot(data, head, slot):
+            return self._read_dict(data, spent_ns=t1 - t0)
+        t2 = time.perf_counter_ns()
+        scans = jpeg_coeffs.read_into_slot(data, head, slot)
+        t3 = time.perf_counter_ns()
+        if scans is None:
             return None
-        self.read_stats["slot_reads"] += 1
+        self._note_read(head, scans, t1 - t0 + t3 - t2, slot=True)
         if profiling.on():
-            profiling.record("fanlin.engine.read", t0, time.perf_counter_ns(),
+            profiling.record("fanlin.engine.read", t0, t3,
                              rid=profiling.REQUEST_ID.get(),
-                             bytes=sum(g.nbytes for g in slot.true_grids))
+                             bytes=sum(g.nbytes for g in slot.true_grids),
+                             progressive=head.progressive, scans=scans)
         return slot
 
     def _route(self, params, accepted, fmt, w, h, has_alpha, is_gray, meta):

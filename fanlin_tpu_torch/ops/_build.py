@@ -171,7 +171,7 @@ def load_host() -> ctypes.CDLL:
             size, i = ctypes.c_size_t, ctypes.c_int
             lib.fanlin_jpeg_coeffs_header.argtypes = [p, size, i, p]
             lib.fanlin_jpeg_coeffs_header.restype = i
-            lib.fanlin_jpeg_coeffs_decode.argtypes = [p, size, i] + [p] * 5
+            lib.fanlin_jpeg_coeffs_decode.argtypes = [p, size, i] + [p] * 6
             lib.fanlin_jpeg_coeffs_decode.restype = i
             fn = lib.fanlin_encode_jpeg_coeffs
             fn.argtypes = [p, p, p] + [ctypes.c_int] * 3 + [p, p]

@@ -15,7 +15,9 @@ plan rebuilt with equal content finds its device copy.
 The engine's routes: under a runner that stages (the server's batcher),
 an upright JPEG with no source cache is read straight into its slot
 (counted in `slot_reads`); a rotation, a source cache or a runner that
-does not stage take the dict route; a stream the reader refuses, in its
+does not stage take the dict route; either route counts the reader's
+decode, its scans and its ms (`read_stats`); a stream the reader
+refuses, in its
 header or inside its scans (the slot then dropped), takes the pixel
 path. Every route answers as the dict route of an Engine on its own
 runner does."""
@@ -51,6 +53,10 @@ CPU = torch.device("cpu")
 
 # PIL's subsampling argument: 2 is 4:2:0, 0 is 4:4:4
 LAYOUTS = {420: 2, 444: 0}
+
+# an Engine's read_stats before the reader has decoded a stream
+NO_READS = {"slot_reads": 0, "reads": 0, "read_ms_total": 0.0,
+            "progressive_reads": 0, "read_scans_total": 0}
 
 
 @pytest.fixture(autouse=True)
@@ -396,7 +402,13 @@ def test_engine_routes_a_jpeg(staging, kind, route):
         engine.source_cache = SourceCache(8)
     assert _answer(engine, data) == want
     assert engine.stats == {"pixel_src": 0, "coef_src": 1}
-    assert engine.read_stats == {"slot_reads": int(route == "slot")}
+    # the reader decoded it once on either route: 10 scans in PIL's
+    # progressive script, one in a baseline stream
+    stats = dict(engine.read_stats)
+    assert stats.pop("read_ms_total") > 0
+    assert stats == {"slot_reads": int(route == "slot"), "reads": 1,
+                     "progressive_reads": int(kind == "progressive"),
+                     "read_scans_total": 10 if kind == "progressive" else 1}
     if route == "no_prestage":
         return
     runner = engine.runner
@@ -420,7 +432,7 @@ def test_refused_stream_takes_the_pixel_path(staging, kind):
     made, then dropped)."""
     data = _refused(kind)
     assert _answer(staging, data) == _answer(Engine(CPU), data)
-    assert staging.read_stats == {"slot_reads": 0}
+    assert staging.read_stats == NO_READS
     assert staging.stats["coef_src"] == 0
     runner = staging.runner
     assert [type(x) for x in runner.staged] == (
@@ -443,5 +455,9 @@ def test_slot_route_without_pinned_memory_sends_the_dict(staging,
     assert _answer(staging, data) == want
     ran, = staging.runner.ran
     assert isinstance(ran, dict) and ran["w"] == 75
-    assert staging.read_stats == {"slot_reads": 0}
+    # read once, by the dict reader
+    stats = dict(staging.read_stats)
+    assert stats.pop("read_ms_total") > 0
+    assert stats == {"slot_reads": 0, "reads": 1, "progressive_reads": 0,
+                     "read_scans_total": 1}
     assert staging.runner.batcher.stats["prestaged"] == 0

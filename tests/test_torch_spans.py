@@ -203,7 +203,8 @@ def test_capture_holds_every_span_on_its_thread(captured):
                  "fanlin.batcher.queue", "fanlin.batcher.handoff"):
         assert {s.args["rid"] for s in spans.named(name)} == images, name
     # the reader's span lies inside its request's decode, with the bytes
-    # it wrote, and the slot's making inside it
+    # it wrote, the stream's coding process and its scans (lenna_src.jpg
+    # is baseline: one), and the slot's making inside it
     decode = {s.args["rid"]: s for s in spans.named("fanlin.engine.decode")}
     stage = {s.args["rid"]: s for s in spans.named("fanlin.assembly.prestage")}
     eps = 1.0  # µs, the trace's rounding
@@ -212,6 +213,7 @@ def test_capture_holds_every_span_on_its_thread(captured):
         assert d.ts - eps <= s.ts <= p.ts + eps
         assert p.end <= s.end + eps and s.end <= d.end + eps
         assert s.args["bytes"] > 0
+        assert s.args["progressive"] is False and s.args["scans"] == 1
 
 
 @time_limit(120)
@@ -435,7 +437,9 @@ def test_prestaged_counter_and_its_metric(tmp_path):
     it as a share of the window's images: every JPEG of a CPU server
     with free slots. Likewise the JPEGs the reader wrote straight into
     their slot (`engine.slot_reads`, next to `coef_src`), which
-    `engine.slot_read_share` reads: every one of them."""
+    `engine.slot_read_share` reads: every one of them; and the reader's
+    decodes (`reads`), scans and ms, which `engine.read_ms`,
+    `engine.progressive_share` and `engine.scans_per_read` read."""
     from types import SimpleNamespace
 
     from harness import cell as hcell
@@ -466,10 +470,26 @@ def test_prestaged_counter_and_its_metric(tmp_path):
     read_slots = hcell.load_module("metrics", "engine.slot_read_share").read
     assert read_slots(SimpleNamespace(stats_before=before,
                                       stats_after=after)) == 100.0
+    eng0, eng1 = before["engine"], after["engine"]
+    assert eng0["reads"] == eng0["read_scans_total"] == 0
+    assert eng1["reads"] == eng1["read_scans_total"] == 3  # baseline
+    assert eng1["progressive_reads"] == 0
+    assert eng1["read_ms_total"] > eng0["read_ms_total"] == 0.0
+    window = SimpleNamespace(stats_before=before, stats_after=after)
+    readers = {name: hcell.load_module("metrics", name).read
+               for name in ("engine.read_ms", "engine.progressive_share",
+                            "engine.scans_per_read")}
+    assert readers["engine.read_ms"](window) == pytest.approx(
+        eng1["read_ms_total"] / 3)
+    assert readers["engine.progressive_share"](window) == 0.0
+    assert readers["engine.scans_per_read"](window) == 1.0
     # a server without the counter (an older one) gives no reading
     for stats in (before, after):
         del stats["batcher"]["prestaged"]
         del stats["engine"]["slot_reads"]
+        del stats["engine"]["reads"]
+    for name, reader in readers.items():
+        assert reader(window) is None, name
     assert read(SimpleNamespace(stats_before=before,
                                 stats_after=after)) is None
     assert read_slots(SimpleNamespace(stats_before=before,

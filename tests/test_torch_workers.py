@@ -233,15 +233,21 @@ def test_workers_ping_and_stats():
         # the engine and the caches are the answering worker's own: each
         # /stats on a fresh connection may reach either worker, so read
         # it until one answers from a worker that served an image
-        assert set(full["engine"]) == {"pixel_src", "coef_src", "slot_reads",
-                                       "requests", "pool_wait_ms_total"}
+        assert set(full["engine"]) == {
+            "pixel_src", "coef_src", "slot_reads", "reads", "read_ms_total",
+            "progressive_reads", "read_scans_total", "requests",
+            "pool_wait_ms_total"}
         for _ in range(40):
             if full["engine"]["requests"] >= 1:
                 break
             full = srv.stats()
         assert full["engine"]["requests"] >= 1
-        # a worker's runner stages nothing: its JPEGs take the dict route
-        assert full["engine"]["slot_reads"] == 0
+        # a worker's runner stages nothing: its JPEGs take the dict route,
+        # where the reader counts them (lenna is baseline: one scan each)
+        eng = full["engine"]
+        assert eng["slot_reads"] == eng["progressive_reads"] == 0
+        assert 1 <= eng["reads"] == eng["read_scans_total"] <= eng["coef_src"]
+        assert eng["read_ms_total"] > 0
         assert full["caches"]["responses"] is None
         assert full["caches"]["sources"]["max_bytes"] == 8 * 1024 * 1024
     finally:
